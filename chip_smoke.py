@@ -5,31 +5,54 @@
 Phases, each printed as it runs; any failure exits non-zero:
 
 1. environment: torch/CUDA versions, GPU name and power limit, nvcc;
-2. build: the CUDA kernels (K1/K2 in csrc/fb.cu, S1 in
-   csrc/sampling_dp.cu) and the host k-mer engine, from this checkout;
-3. kernel vs plain on the card, with the times of both: K1/K2 against
-   the plain forward-backward (rtol=2e-4, atol=1e-7, float32) at the
-   main path's shape B=2, N=65,536, P=16 and at B=128, N=4096, P=32,
-   K=16 and B=2, N=4096, P=16; S1 against the plain sampling DP, bit
-   for bit, for one masked iteration at the main path's shape C=2,
-   N=55,040, P=123 and for 15 greedy iterations at C=2, N=4096, P=123;
+2. build: the CUDA kernels (K1-K4 in csrc/fb.cu, S1 in
+   csrc/sampling_dp.cu) and the host k-mer engine, from this checkout,
+   one compiler per source, all at once.
+   The two end-to-end workloads below are simulated meanwhile, in two
+   worker processes, once each into build/smoke_inputs/;
+3. kernel vs plain on the card, with the times of both (float32,
+   rtol=2e-4, atol=1e-7 unless bit-identical): K1/K2 against the plain
+   forward-backward at the bench path's shape B=2, N=65,536, P=16 and at
+   B=128, N=4096, P=32, K=16 and B=2, N=4096, P=16; S1 against the plain
+   sampling DP, bit for bit, for one masked iteration at the bench
+   path's shape C=2, N=55,040, P=123 and for 15 greedy iterations at
+   C=2, N=4096, P=123; K3/K4 against their plain versions at the SV
+   path's shape B=1, N=131,072, P=89, K=32, A=16, at B=2, N=8192, P=89
+   with 97/2/1% of the columns at A=2/4/16 (where the whole chunked
+   route in chunks of 2048 and the fused route through K1/K2 on the
+   same columns are timed too) and at B=32, N=4096, P=32, K=32, A=16.
+   Their columns carry k-mers only on alleles they have and read
+   counts from a true path pair (utils/multiallelic.py), so raw
+   posteriors stay far from float32's underflow: every column's sum
+   must exceed POST_FLOOR, and the columns, divided by their sums, are
+   compared at the tolerance above;
 4. end to end: the bench workload (20 Mb, 2 chromosomes, 61 samples =
-   123 paths, 12x 150 bp reads, seed 11) is simulated once into
-   build/smoke_inputs/ and genotyped with the port's single command on
-   CUDA; the run must dispatch to the kernels, launch each of them, load
-   the native k-mer engine and reach genotype concordance >= 0.99
-   against the truth;
+   123 paths, 12x 150 bp reads, seed 11) genotyped with the port's
+   single command on CUDA; the run must dispatch to the fused kernels,
+   launch K1, K2 and S1, load the native k-mer engine and reach genotype
+   concordance >= 0.99 against the truth;
 5. profile: the same command once more under torch.profiler; its VCF
    body must equal the first run's, and the device's busy time and idle
-   share over the run are printed.
+   share over the run are printed;
+6. SV panel: one 20 Mb chromosome (about 150,000 variants, so more than
+   2^17 HMM columns), 44 samples = 89 paths (no auto-sampling), 1% SV
+   sites each rewritten into 8-15 distinct 100-400 bp insertion ALTs,
+   12x 150 bp reads, seed 13; ``index`` then ``genotype -f`` on CUDA.
+   The run must dispatch to the generic kernels, launch K3 and K4, walk
+   the chromosome in more than one chunk and reach concordance >= 0.98;
+   ``genotype -f`` then runs once more under torch.profiler, for the
+   device time by kernel and the idle share.
 
-The last three lines of standard output are the kernels' JSON record
-(times at the main path's shapes), the GPU's name and power limit, and
-the device JSON record. The script imports nothing of JAX.
+Each end-to-end path runs with every kernel's launch count set to 0
+just before it and read just after. The last three lines of standard
+output are the kernels' JSON record (launches from those paths, times
+at their shapes), the GPU's name and power limit, and the device JSON
+record. The script imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -40,11 +63,21 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 RTOL, ATOL = 2e-4, 1e-7
-# (B, N, P, K); the first is the main path's shape at the bench workload
+# a column of raw posteriors summing to less has underflowed (float32's
+# smallest normal is 1.2e-38; the test columns' sums stay above 1e-12)
+POST_FLOOR = 1e-20
+# (B, N, P, K); the first is the bench path's shape
 FB_SHAPES = [(2, 65536, 16, 16), (128, 4096, 32, 16), (2, 4096, 16, 16)]
 MAIN_S1_SHAPE = (2, 55040, 123, 4)                     # (C, N, P, A)
 S1_GREEDY_SHAPE = (2, 4096, 123, 4, 15)                # (C, N, P, A, iterations)
-E2E_MB = 20.0   # the bench workload's size (bench.py:191-192), not cut
+# (B, N, P, K, mixed allele counts, forced chunk), all at A=16; the first
+# is the SV path's shape (its first chunk: fb_generic.SEGMENT columns)
+GENERIC_SHAPES = [(1, 1 << 17, 89, 32, True, 0), (2, 8192, 89, 32, True, 2048),
+                  (32, 4096, 32, 32, False, 0)]
+# the bench workload (bench.py:191-192, not cut) and the SV panel
+BENCH = dict(mb=20.0, chroms=2, samples=61, distance=150, seed=11)
+SV_PANEL = dict(mb=20.0, chroms=1, samples=44, distance=100, seed=13,
+                sv_fraction=0.01, sv_alts=(8, 15))
 
 
 def phase(name):
@@ -191,22 +224,196 @@ def check_s1(device, gpu):
     return max_err, t
 
 
-def build_inputs(mb: float, workdir: str) -> str:
-    """The bench workload (bench.py / benchmarks/genome_scale.py), made
-    with the port's simulator and cached by its parameters."""
+def generic_columns(B, N, P, K, mixed, seed, device):
+    """Columns with A=16 alleles (benchmarks/bench_sv_sampling.py:36);
+    with ``mixed``, 97/2/1% of the columns keep 2/4/16 of them, the
+    profile of a real chromosome (bench_sv_sampling.py:122-165)."""
+    import numpy as np
+    import torch
+
+    from pangenie_tpu_torch.hmm.forward_backward import columns_from_numpy
+    from pangenie_tpu_torch.utils.multiallelic import allele_mix, multiallelic_columns
+
+    caps = allele_mix(N, seed) if mixed else np.full(N, 16, dtype=np.int32)
+    cols = multiallelic_columns(N, P, K, caps, batch_dims=(B,), seed=seed)
+    return columns_from_numpy(cols, device, torch.float32)
+
+
+def posterior_error(got, want, what: str):
+    """Holds raw posteriors [B, N, X, X] column by column: no column's
+    sum may fall to POST_FLOOR, the sums agree at RTOL, and the columns
+    divided by their sums agree at RTOL/ATOL. Returns the largest
+    absolute error of the divided columns and the smallest sum."""
+    import torch
+
+    s_got = got.sum(dim=(-2, -1), keepdim=True)
+    s_want = want.sum(dim=(-2, -1), keepdim=True)
+    low = min(float(s_got.min()), float(s_want.min()))
+    if not low > POST_FLOOR:
+        raise AssertionError(f"{what}: a column's posteriors sum to {low:.3e}, "
+                             f"at or below {POST_FLOOR:.0e} (underflow)")
+    torch.testing.assert_close(s_got, s_want, rtol=RTOL, atol=0)
+    got, want = got / s_got, want / s_want
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    return float((got - want).abs().max()), low
+
+
+@contextlib.contextmanager
+def plain_generic_kernels():
+    """Send the chunked route through the plain versions of K3/K4."""
+    from pangenie_tpu_torch.hmm import fb_generic, fb_kernels
+
+    saved = fb_kernels.forward_e, fb_kernels.backward_e
+    fb_kernels.forward_e = fb_generic.forward_e_plain
+    fb_kernels.backward_e = fb_generic.backward_e_plain
+    try:
+        yield
+    finally:
+        fb_kernels.forward_e, fb_kernels.backward_e = saved
+
+
+def check_generic(device, gpu):
+    """K3/K4 against their plain versions at every GENERIC_SHAPES entry,
+    on the same inputs (K4 takes the kernel's alphas); K4's raw
+    posteriors through :func:`posterior_error`. Where a chunk is forced,
+    also the chunked route with the kernels against the same route with
+    the plain versions, and the fused route (emissions, K1, K2) on the
+    same columns. Returns the largest absolute errors (K4's: of the
+    divided posteriors and of the outgoing beta) and the times at the SV
+    path's shape."""
+    import torch
+
+    from pangenie_tpu_torch.hmm import fb_generic, fb_kernels
+    from pangenie_tpu_torch.hmm.forward_backward import allele_emissions
+
+    err = {"K3": 0.0, "K4": 0.0}
+    times = {}
+    for B, N, P, K, mixed, chunk in GENERIC_SHAPES:
+        cols = generic_columns(B, N, P, K, mixed, seed=17, device=device)
+        E = fb_generic.bucketed_state_emissions(cols).reshape(B, N, P, P)
+        u = fb_generic.factor_trans(cols.trans).contiguous()
+        ones = torch.ones((B, P, P), device=device)
+        e_after = torch.zeros((B, P, P), device=device)
+        u_after = torch.zeros((B, 3), device=device)
+        beta0 = torch.zeros((B, P, P), device=device)
+        last = cols.is_last
+        (a_k, c_k), _ = timed(lambda: fb_kernels.forward_e(E, u, ones))
+        (a_p, c_p), k3_plain = timed(lambda: fb_generic.forward_e_plain(E, u, ones))
+        torch.testing.assert_close(a_k, a_p, rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(c_k, c_p, rtol=RTOL, atol=ATOL)
+        e3 = max(float((a_k - a_p).abs().max()), float((c_k - c_p).abs().max()))
+        del a_p, c_p
+        bwd_args = (a_k, c_k, E, u, e_after, u_after, last, beta0)
+        (p_k, b_k), _ = timed(lambda: fb_kernels.backward_e(*bwd_args))
+        (p_p, b_p), k4_plain = timed(lambda: fb_generic.backward_e_plain(*bwd_args))
+        e4_post, low = posterior_error(p_k, p_p, f"K4 at B={B} N={N} P={P}")
+        torch.testing.assert_close(b_k, b_p, rtol=RTOL, atol=ATOL)
+        e4_beta = float((b_k - b_p).abs().max())
+        del p_k, p_p
+        err["K3"] = max(err["K3"], e3)
+        err["K4"] = max(err["K4"], e4_post, e4_beta)
+        t = {
+            "K3": cuda_ms(lambda: fb_kernels.forward_e(E, u, ones), 3),
+            "K3_plain": k3_plain,
+            "K4": cuda_ms(lambda: fb_kernels.backward_e(*bwd_args), 3),
+            "K4_plain": k4_plain,
+        }
+        times[(B, N, P, K)] = t
+        shape = f"B={B} N={N} P={P} K={K} A=16{' mixed 2/4/16' if mixed else ''}"
+        print(f"  generic {shape}: ok (K3 max_abs_err {e3:.3e}; K4 posteriors "
+              f"divided by their column sums max_abs_err {e4_post:.3e}, smallest "
+              f"column sum {low:.3e}; K4 beta_out max_abs_err {e4_beta:.3e})")
+        print(f"  times {shape} [{gpu}]: K3 {t['K3']:.3f} ms, plain "
+              f"{t['K3_plain']:.3f} ms; K4 {t['K4']:.3f} ms, plain "
+              f"{t['K4_plain']:.3f} ms", flush=True)
+        del a_k, c_k, bwd_args, E
+        if chunk:
+            (g_k, _), gen_ms = timed(
+                lambda: fb_generic.forward_backward_chunked(cols, chunk=chunk))
+            walk = (B, N, -(-N // chunk))
+            if fb_generic.last_walk != walk:
+                raise AssertionError(f"walked {fb_generic.last_walk}, not {walk}")
+            with plain_generic_kernels():
+                (g_p, _), gen_plain = timed(
+                    lambda: fb_generic.forward_backward_chunked(cols, chunk=chunk))
+            e_route, low_route = posterior_error(g_k, g_p, f"chunked route {shape}")
+
+            def fused():
+                ea = allele_emissions(cols)
+                a, c = fb_kernels.forward(ea, cols.allele_local, cols.trans)
+                return fb_kernels.backward(a, c, ea, cols.allele_local, cols.trans,
+                                           cols.is_last)
+
+            f_k, fused_ms = timed(fused)
+            e_fused, _ = posterior_error(f_k, g_k, f"fused vs generic route {shape}")
+            ea = allele_emissions(cols)
+            a1, c1 = fb_kernels.forward(ea, cols.allele_local, cols.trans)
+            k1 = cuda_ms(lambda: fb_kernels.forward(ea, cols.allele_local, cols.trans), 3)
+            k2 = cuda_ms(lambda: fb_kernels.backward(a1, c1, ea, cols.allele_local,
+                                                     cols.trans, cols.is_last), 3)
+            print(f"  chunked route {shape}, {walk[2]} chunks of {chunk}: kernels vs "
+                  f"plain ok (posteriors divided by their column sums max_abs_err "
+                  f"{e_route:.3e}, smallest column sum {low_route:.3e}); fused route "
+                  f"vs generic route max_abs_err {e_fused:.3e} (divided likewise)")
+            print(f"  A>8 rule on the card {shape} [{gpu}]: generic route "
+                  f"(bucketed emissions, K3/K4 in chunks, collapse) {gen_ms:.3f} ms, "
+                  f"plain {gen_plain:.3f} ms; fused route (emissions, K1, K2) "
+                  f"{fused_ms:.3f} ms; whole-N kernels only: K1 {k1:.3f} + K2 "
+                  f"{k2:.3f} ms vs K3 {t['K3']:.3f} + K4 {t['K4']:.3f} ms", flush=True)
+            del g_k, g_p, f_k, ea, a1, c1
+        del cols
+        torch.cuda.empty_cache()
+    return err, times[GENERIC_SHAPES[0][:4]]
+
+
+def rewrite_sv_sites(variants, rng, n_alts, lengths=(100, 400)):
+    """Every SV site of ``simulate_panel(sv_fraction=...)`` (an insertion
+    of 100 bp or more) becomes one record with ``n_alts[0]``..``n_alts[1]``
+    distinct insertion ALTs of ``lengths`` bp, each carried by at least
+    one haplotype (so the HMM column has more than 8 alleles). Other
+    sites are kept. Returns the number of sites rewritten."""
+    import numpy as np
+
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    rewritten = 0
+    for v in variants:
+        if len(v.alts[0]) - len(v.ref) < 100:
+            continue
+        n = int(rng.integers(n_alts[0], n_alts[1] + 1))
+        alts = set()
+        while len(alts) < n:
+            size = int(rng.integers(lengths[0], lengths[1] + 1))
+            alts.add(v.ref + bases[rng.integers(0, 4, size)].tobytes())
+        v.alts = sorted(alts)
+        haps = rng.integers(0, n + 1, 2 * len(v.genotypes))
+        haps[rng.permutation(len(haps))[:n]] = np.arange(1, n + 1)
+        v.genotypes = [(int(a), int(b)) for a, b in haps.reshape(-1, 2)]
+        rewritten += 1
+    return rewritten
+
+
+def build_inputs(workdir: str, mb: float, chroms: int, samples: int,
+                 distance: int, seed: int, sv_fraction: float = 0.0,
+                 sv_alts=None) -> str:
+    """A workload made with the port's simulator (as bench.py and
+    benchmarks/genome_scale.py make theirs), 12x 150 bp reads of sample
+    0, cached by its parameters. With ``sv_alts`` the SV sites are
+    rewritten by :func:`rewrite_sv_sites`."""
     import numpy as np
 
     from pangenie_tpu_torch.utils import simulate as sim
 
-    chroms, samples, coverage, read_len, distance, seed = 2, 61, 12.0, 150, 150, 11
+    coverage, read_len = 12.0, 150
     tag = f"mb{mb}_c{chroms}_s{samples}_cov{coverage}_d{distance}_seed{seed}"
+    if sv_alts:
+        tag += f"_sv{sv_fraction}_alts{sv_alts[0]}-{sv_alts[1]}"
     casedir = os.path.join(workdir, tag)
     if os.path.exists(os.path.join(casedir, "DONE")):
         return casedir
     os.makedirs(casedir, exist_ok=True)
     rng = np.random.default_rng(seed)
     length = int(mb / chroms * 1_000_000)
-    n_var = 0
+    n_var = n_sv = 0
     with open(os.path.join(casedir, "ref.fa"), "w") as fa, open(
         os.path.join(casedir, "panel.vcf"), "w"
     ) as vcf, open(os.path.join(casedir, "truth.vcf"), "w") as tr, open(
@@ -221,7 +428,10 @@ def build_inputs(mb: float, workdir: str) -> str:
             name = f"chr{c + 1}"
             ref = sim.random_reference(length, rng)
             variants = sim.simulate_panel(ref, nr_samples=samples, rng=rng,
-                                          mean_distance=distance)
+                                          mean_distance=distance,
+                                          sv_fraction=sv_fraction)
+            if sv_alts:
+                n_sv += rewrite_sv_sites(variants, rng, sv_alts)
             n_var += len(variants)
             fa.write(f">{name}\n")
             seq = ref.decode()
@@ -241,8 +451,15 @@ def build_inputs(mb: float, workdir: str) -> str:
             h1, h2 = sim.haplotype_sequences(ref, variants, 0)
             sim.simulate_reads_to_file(h1, h2, coverage, read_len, rng, rd)
     with open(os.path.join(casedir, "DONE"), "w") as out:
-        out.write(f"variants={n_var}\n")
+        out.write(f"variants={n_var} sv_sites={n_sv}\n")
     return casedir
+
+
+def timed_inputs(params: dict):
+    """(casedir, seconds) of :func:`build_inputs` under smoke_inputs/."""
+    t0 = time.monotonic()
+    casedir = build_inputs(os.path.join(ROOT, "build", "smoke_inputs"), **params)
+    return casedir, time.monotonic() - t0
 
 
 def _run_single(casedir: str, outpref: str) -> float:
@@ -263,23 +480,20 @@ def _run_single(casedir: str, outpref: str) -> float:
 
 def run_e2e(casedir: str, gpu: str):
     from pangenie_tpu_torch.eval.concordance import genotype_concordance
-    from pangenie_tpu_torch.hmm import batch, fb_kernels, sampling
+    from pangenie_tpu_torch.hmm import batch
     from pangenie_tpu_torch.kmers import native
     from pangenie_tpu_torch.utils import timer
 
     outpref = os.path.join(casedir, "out")
-    for k in (fb_kernels.K1, fb_kernels.K2, sampling.S1):
+    for k in kernels().values():
         k.launches = 0
     wall = _run_single(casedir, outpref)
-    launches = {
-        "K1": fb_kernels.K1.launches, "K2": fb_kernels.K2.launches,
-        "S1": sampling.S1.launches,
-    }
+    launches = {name: k.launches for name, k in kernels().items()}
     if batch.last_dispatch != "cuda_fused":
         raise AssertionError(f"dispatch was {batch.last_dispatch}, not cuda_fused")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    for name in ("K1", "K2", "S1"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the bench path")
     if native._LIB is None:
         raise AssertionError("the native k-mer engine was not loaded")
     result = genotype_concordance(
@@ -301,23 +515,18 @@ def _vcf_body(path: str) -> list:
         return [line for line in f if not line.startswith("##")]
 
 
-def run_profiled(casedir: str, gpu: str) -> None:
-    """The single command once more under torch.profiler: the device's
-    busy time is the union of its kernel and copy intervals, and the
-    idle share is the rest of the traced wall."""
+def profile_device(fn):
+    """fn() under torch.profiler. Returns (wall s, device busy s, {name:
+    (device s, launches)}): the busy time is the union of the device's
+    kernel and copy intervals."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from pangenie_tpu_torch.utils import timer
-
-    outpref = os.path.join(casedir, "out_profiled")
-    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = _run_single(casedir, outpref)
-    if _vcf_body(outpref + "_genotyping.vcf") != _vcf_body(
-        os.path.join(casedir, "out_genotyping.vcf")
-    ):
-        raise AssertionError("the profiled run's VCF differs from the first run's")
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
     spans, by_name = [], {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -336,17 +545,127 @@ def run_profiled(casedir: str, gpu: str) -> None:
         else:
             cur_end = max(cur_end, b)
     busy_us += cur_end - cur_start
-    busy = busy_us / 1e6
-    print(f"  profiled e2e [{gpu}]: wall {wall:.2f} s, device busy {busy:.3f} s, "
+    return wall, busy_us / 1e6, by_name
+
+
+def print_profile(label: str, wall: float, busy: float, by_name: dict, gpu: str) -> None:
+    import torch
+
+    from pangenie_tpu_torch.utils import timer
+
+    print(f"  profiled {label} [{gpu}]: wall {wall:.2f} s, device busy {busy:.3f} s, "
           f"idle share {1 - busy / wall:.4f}, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; VCF body equals "
           f"the first run's")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     for name, (dt, n) in top:
         print(f"    device {dt:.3f} s over {n} launches: {name[:90]}")
     print(f"  phase walls (s): "
           f"{json.dumps({k: round(v, 2) for k, v in timer.last_phases.items()})}",
           flush=True)
+
+
+def run_profiled(casedir: str, gpu: str) -> None:
+    """The single command once more under torch.profiler: the device's
+    busy time and the idle share, the rest of the traced wall."""
+    import torch
+
+    outpref = os.path.join(casedir, "out_profiled")
+    torch.cuda.reset_peak_memory_stats()
+    wall, busy, by_name = profile_device(lambda: _run_single(casedir, outpref))
+    if _vcf_body(outpref + "_genotyping.vcf") != _vcf_body(
+        os.path.join(casedir, "out_genotyping.vcf")
+    ):
+        raise AssertionError("the profiled run's VCF differs from the first run's")
+    print_profile("e2e", wall, busy, by_name, gpu)
+
+
+def run_sv_index_genotype(casedir: str, gpu: str):
+    """``index`` then ``genotype -f`` on CUDA over the SV panel, then
+    ``genotype -f`` once more under torch.profiler. Returns the launch
+    counts of the first ``index`` + ``genotype -f``."""
+    import torch
+
+    from pangenie_tpu_torch import commands
+    from pangenie_tpu_torch.eval.concordance import genotype_concordance
+    from pangenie_tpu_torch.hmm import batch, fb_generic
+    from pangenie_tpu_torch.utils import timer
+
+    prefix = os.path.join(casedir, "index")
+    outpref = os.path.join(casedir, "out")
+
+    def genotype(out):
+        commands.run_genotype_command(
+            prefix, os.path.join(casedir, "reads.fa"), out,
+            nr_jellyfish_threads=2, nr_core_threads=2, device="cuda",
+        )
+
+    for k in kernels().values():
+        k.launches = 0
+    fb_generic.last_walk = (0, 0, 0)
+    t0 = time.monotonic()
+    commands.run_index_command(
+        os.path.join(casedir, "ref.fa"), os.path.join(casedir, "panel.vcf"),
+        31, prefix, nr_jellyfish_threads=2,
+    )
+    index_wall, index_phases = time.monotonic() - t0, dict(timer.last_phases)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    genotype(outpref)
+    torch.cuda.synchronize()
+    genotype_wall = time.monotonic() - t0
+    launches = {name: k.launches for name, k in kernels().items()}
+    peak = torch.cuda.max_memory_allocated()
+    genotype_phases = dict(timer.last_phases)
+    # one chromosome, so the HMM's one run is its only chunked walk
+    walk = fb_generic.last_walk
+    if batch.last_dispatch != "cuda_generic":
+        raise AssertionError(f"dispatch was {batch.last_dispatch}, not cuda_generic")
+    for name in ("K3", "K4"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the SV path")
+    if not (walk[1] > fb_generic.SEGMENT and walk[2] > 1):
+        raise AssertionError(f"the chromosome was not walked in chunks over "
+                             f"{fb_generic.SEGMENT} columns: (B, N, chunks) = {walk}")
+    result = genotype_concordance(
+        outpref + "_genotyping.vcf", os.path.join(casedir, "truth.vcf")
+    )
+    with open(os.path.join(casedir, "DONE")) as f:
+        made = f.read().strip()
+    print(f"  sv panel ({made}) [{gpu}]: index wall {index_wall:.2f} s, "
+          f"genotype -f wall {genotype_wall:.2f} s, {result.total} variants, "
+          f"{result.total / genotype_wall:.1f} variants/s genotyped, concordance "
+          f"{result.concordance:.5f}, chunked walk (B, N, chunks) {walk}, "
+          f"launches {launches}, peak device memory {peak / 1e9:.2f} GB")
+    print(f"  by class: {json.dumps(result.by_class)}")
+    print(f"  index phase walls (s): "
+          f"{json.dumps({k: round(v, 2) for k, v in index_phases.items()})}")
+    print(f"  genotype phase walls (s): "
+          f"{json.dumps({k: round(v, 2) for k, v in genotype_phases.items()})}",
+          flush=True)
+    if result.concordance < 0.98:
+        raise AssertionError(f"concordance {result.concordance} < 0.98")
+
+    profiled = outpref + "_profiled"
+    wall, busy, by_name = profile_device(lambda: genotype(profiled))
+    if _vcf_body(profiled + "_genotyping.vcf") != _vcf_body(outpref + "_genotyping.vcf"):
+        raise AssertionError("the profiled genotype -f VCF differs from the first run's")
+    print_profile("sv genotype -f", wall, busy, by_name, gpu)
+    k34 = sum(dt for name, (dt, _n) in by_name.items() if name.startswith("fbe_"))
+    copies = sum(dt for name, (dt, _n) in by_name.items() if "Memcpy" in name
+                 or "Memset" in name)
+    print(f"  sv genotype -f device time: K3+K4 {k34:.3f} s, copies {copies:.3f} s, "
+          f"other kernels (emissions, collapse, ...) {busy - k34 - copies:.3f} s of "
+          f"{busy:.3f} s busy; HMM phase wall "
+          f"{timer.last_phases.get('genotyping (HMM)', float('nan')):.2f} s", flush=True)
+    return launches
+
+
+def kernels():
+    from pangenie_tpu_torch.hmm import fb_kernels, sampling
+
+    return {"K1": fb_kernels.K1, "K2": fb_kernels.K2, "K3": fb_kernels.K3,
+            "K4": fb_kernels.K4, "S1": sampling.S1}
 
 
 def main() -> int:
@@ -370,14 +689,37 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
 
+    import multiprocessing
+
+    # the workloads are simulated on two host cores while the kernels
+    # build and are checked on the card
+    pool = multiprocessing.get_context("spawn").Pool(2)
+    try:
+        bench_inputs = pool.apply_async(timed_inputs, (BENCH,))
+        sv_inputs = pool.apply_async(timed_inputs, (SV_PANEL,))
+        pool.close()
+        return smoke(device, gpu, bench_inputs, sv_inputs)
+    finally:
+        pool.terminate()
+        pool.join()
+
+
+def smoke(device, gpu, bench_inputs, sv_inputs) -> int:
+    import torch
+
+    from pangenie_tpu_torch import _build
+
     phase("build")
-    from pangenie_tpu_torch.hmm import fb_kernels, sampling
+    from concurrent.futures import ThreadPoolExecutor
+
     from pangenie_tpu_torch.kmers import native
 
+    ks = kernels()
     t0 = time.monotonic()
-    fb_kernels.K1.lib()
-    sampling.S1.lib()
-    native._build_and_load()
+    with ThreadPoolExecutor(3) as pool:
+        for f in [pool.submit(fn) for fn in (
+                ks["K1"].lib, ks["S1"].lib, native._build_and_load)]:
+            f.result()
     print(f"  built in {time.monotonic() - t0:.1f} s")
     for lib, info in _build.build_log.items():
         print(f"  {lib}: {info['seconds']:.1f} s")
@@ -388,32 +730,40 @@ def main() -> int:
     phase("kernel vs plain (and times)")
     err, fb_times = check_fb(device, gpu)
     s1_err, s1_times = check_s1(device, gpu)
+    g_err, g_times = check_generic(device, gpu)
 
     phase("end to end")
-    t0 = time.monotonic()
-    casedir = build_inputs(E2E_MB, os.path.join(ROOT, "build", "smoke_inputs"))
-    print(f"  inputs ({E2E_MB} Mb) ready in {time.monotonic() - t0:.1f} s", flush=True)
+    casedir, seconds = bench_inputs.get()
+    print(f"  bench inputs ({BENCH}) simulated in {seconds:.1f} s", flush=True)
     launches = run_e2e(casedir, gpu)
 
     phase("profile")
     run_profiled(casedir, gpu)
 
+    phase("sv panel: index + genotype -f")
+    sv_dir, seconds = sv_inputs.get()
+    print(f"  sv inputs ({SV_PANEL}) simulated in {seconds:.1f} s", flush=True)
+    sv_launches = run_sv_index_genotype(sv_dir, gpu)
+
+    def entry(name, source, replaces, n, e, t, key):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n, "max_abs_err": e,
+                "ms": t[key], "plain_ms": t[key + "_plain"]}
+
+    fb_src = "pangenie_tpu_torch/csrc/fb.cu"
+    pallas = "pangenie_tpu/hmm/pallas_fb.py"
     record = {"kernels": [
-        {"name": "fb_forward (K1)", "route": "cuda",
-         "source": "pangenie_tpu_torch/csrc/fb.cu",
-         "replaces": "pangenie_tpu/hmm/pallas_fb.py:122",
-         "launches": launches["K1"], "max_abs_err": err["K1"],
-         "ms": fb_times["K1"], "plain_ms": fb_times["K1_plain"]},
-        {"name": "fb_backward (K2)", "route": "cuda",
-         "source": "pangenie_tpu_torch/csrc/fb.cu",
-         "replaces": "pangenie_tpu/hmm/pallas_fb.py:148",
-         "launches": launches["K2"], "max_abs_err": err["K2"],
-         "ms": fb_times["K2"], "plain_ms": fb_times["K2_plain"]},
-        {"name": "viterbi_iteration (S1)", "route": "cuda",
-         "source": "pangenie_tpu_torch/csrc/sampling_dp.cu",
-         "replaces": "pangenie_tpu/hmm/sampling.py:173",
-         "launches": launches["S1"], "max_abs_err": s1_err,
-         "ms": s1_times["S1"], "plain_ms": s1_times["S1_plain"]},
+        entry("fb_forward (K1)", fb_src, f"{pallas}:122", launches["K1"],
+              err["K1"], fb_times, "K1"),
+        entry("fb_backward (K2)", fb_src, f"{pallas}:148", launches["K2"],
+              err["K2"], fb_times, "K2"),
+        entry("fbe_forward (K3)", fb_src, f"{pallas}:307", sv_launches["K3"],
+              g_err["K3"], g_times, "K3"),
+        entry("fbe_backward (K4)", fb_src, f"{pallas}:333", sv_launches["K4"],
+              g_err["K4"], g_times, "K4"),
+        entry("viterbi_iteration (S1)", "pangenie_tpu_torch/csrc/sampling_dp.cu",
+              "pangenie_tpu/hmm/sampling.py:173", launches["S1"], s1_err,
+              s1_times, "S1"),
     ]}
     print(json.dumps(record))
     print(gpu_line())

@@ -1,15 +1,19 @@
 """Command-line interface of the PyTorch/CUDA port.
 
-    python -m pangenie_tpu_torch genotype -i reads.fa -r ref.fa -v vars.vcf -o out [...]
+    python -m pangenie_tpu_torch index    -r ref.fa -v vars.vcf -o prefix [-k 31] [-t N] [-e N]
+    python -m pangenie_tpu_torch genotype -i reads.fa (-f prefix | -r ref.fa -v vars.vcf) -o out [...]
+    python -m pangenie_tpu_torch vcf      -z results.pkl -f prefix -o out [...]
 
-The ``genotype`` subcommand with ``-r``/``-v`` runs the fused single
-command, with the reference package's flags and defaults
-(``pangenie_tpu/cli.py``); the device comes from
+Subcommands and flags follow the reference package
+(``pangenie_tpu/cli.py``): ``index`` once per panel, then
+``genotype -f`` once per sample, or ``genotype -r -v`` for both in one
+run; ``genotype -w`` serializes the results and ``vcf`` turns them into
+a VCF. An index or result written by ``pangenie_tpu`` is not readable
+here (its pickles hold that package's classes, and unpickling them
+imports JAX): index the panel with this port. The device comes from
 ``PANGENIE_TORCH_DEVICE`` (default ``cuda``, see ``device.py``). The
-other entry points —
-``index``, ``genotype -f``, ``vcf``, ``sampling``, ``analyze-uk`` and
-phasing (``-p``) — are not ported yet and exit with an error that names
-their ROADMAP.md item.
+``sampling`` and ``analyze-uk`` commands and phasing (``-p``) are not
+ported yet and exit with an error that names their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -20,19 +24,19 @@ import sys
 VERSION = "0.1.0"
 
 _NOT_PORTED = {
-    "index": "ROADMAP queue 1: index and genotype -f",
-    "vcf": "ROADMAP queue 1: remaining commands (vcf, sampling, analyze-uk)",
-    "sampling": "ROADMAP queue 1: remaining commands (vcf, sampling, analyze-uk)",
-    "analyze-uk": "ROADMAP queue 1: remaining commands (vcf, sampling, analyze-uk)",
+    "sampling": "ROADMAP queue 1: remaining commands (sampling, analyze-uk)",
+    "analyze-uk": "ROADMAP queue 1: remaining commands (sampling, analyze-uk)",
 }
+_PHASING = "phasing (-p) is not ported yet (ROADMAP queue 1, hmm/viterbi.py)"
 
 
 def _add_genotype_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("-i", dest="readfile", required=True,
                    help="sequencing reads in FASTA/FASTQ format (uncompressed)")
     p.add_argument("-f", dest="precomputed_prefix", default="",
-                   help="filename prefix of files computed by the index "
-                        "subcommand (not ported yet)")
+                   help="filename prefix of files computed by this port's "
+                        "index subcommand (an index of pangenie_tpu is not "
+                        "readable here)")
     p.add_argument("-r", dest="reffile", default="",
                    help="reference genome in FASTA format (uncompressed)")
     p.add_argument("-v", dest="vcffile", default="",
@@ -81,8 +85,36 @@ def main(argv=None) -> int:
     )
     parser.add_argument("--version", action="version", version=VERSION)
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p_index = sub.add_parser("index", help="preprocess reference + VCF")
+    p_index.add_argument("-r", dest="reffile", required=True,
+                         help="reference genome in FASTA format (uncompressed)")
+    p_index.add_argument("-v", dest="vcffile", required=True,
+                         help="variants in VCF format (uncompressed)")
+    p_index.add_argument("-o", dest="outname", required=True,
+                         help="prefix of the index files")
+    p_index.add_argument("-k", dest="kmersize", type=int, default=31, help="kmer size")
+    p_index.add_argument("-t", dest="nr_threads", type=int, default=1,
+                         help="number of threads")
+    p_index.add_argument("-e", dest="hash_size", type=int, default=3000000000,
+                         help="(compatibility) size of hash used by jellyfish")
+
     p_gt = sub.add_parser("genotype", help="genotype a sample")
     _add_genotype_args(p_gt)
+
+    # flag for flag with the reference (src/pangenie-vcf.cpp:31-38)
+    p_vcf = sub.add_parser("vcf", help="convert serialized results to VCF")
+    p_vcf.add_argument("-z", dest="results_name", required=True,
+                       help="serialized genotyping results (produced by "
+                            "genotype run with parameter -w)")
+    p_vcf.add_argument("-f", dest="precomputed_prefix", required=True,
+                       help="filename prefix of the index files")
+    p_vcf.add_argument("-o", dest="outname", default="result")
+    p_vcf.add_argument("-s", dest="sample_name", default="sample")
+    p_vcf.add_argument("-g", dest="genotyping_flag", action="store_true")
+    p_vcf.add_argument("-p", dest="phasing_flag", action="store_true",
+                       help="phasing output (not ported yet)")
+    p_vcf.add_argument("-u", dest="ignore_imputed", action="store_true")
     for name in _NOT_PORTED:
         sub.add_parser(name, help="not ported yet", add_help=False)
 
@@ -94,26 +126,35 @@ def main(argv=None) -> int:
     if extra:
         parser.error(f"unrecognized arguments: {' '.join(extra)}")
 
-    if args.precomputed_prefix:
-        raise NotImplementedError(
-            "genotype -f is not ported yet (ROADMAP queue 1: index and "
-            "genotype -f)"
+    from . import commands
+
+    if args.command == "index":
+        return commands.run_index_command(
+            args.reffile, args.vcffile, args.kmersize, args.outname,
+            args.nr_threads, add_reference=True, hash_size=args.hash_size,
         )
-    if not (args.reffile and args.vcffile):
-        parser.error("genotype requires both -r and -v")
+
+    if args.command == "vcf":
+        if args.phasing_flag:
+            raise NotImplementedError(_PHASING)
+        return commands.run_vcf_command(
+            args.precomputed_prefix, args.results_name, args.outname,
+            args.sample_name, ignore_imputed=args.ignore_imputed,
+        )
+
+    has_f = bool(args.precomputed_prefix)
+    if has_f == bool(args.reffile and args.vcffile):
+        parser.error("genotype requires either -f or both -r and -v")
     # reference constraints (src/pangenie-genotype.cpp:71-74)
     if args.panel_size and args.sampling_size:
         parser.error("options -x and -a cannot be used together")
+    if has_f and args.kmersize != 31:
+        parser.error("option -k cannot be combined with -f (the index fixes "
+                     "the kmer size)")
     if args.phasing_flag:
-        raise NotImplementedError(
-            "phasing (-p) is not ported yet (ROADMAP queue 1, hmm/viterbi.py)"
-        )
+        raise NotImplementedError(_PHASING)
 
-    from . import commands
-
-    return commands.run_single_command(
-        args.readfile, args.reffile, args.vcffile, args.kmersize,
-        args.outname,
+    common = dict(
         sample_name=args.sample_name,
         nr_jellyfish_threads=args.nr_jellyfish_threads,
         nr_core_threads=args.nr_core_threads,
@@ -126,6 +167,14 @@ def main(argv=None) -> int:
         allele_penalty=args.allele_penalty,
         serialize_output=args.serialize_output,
         hash_size=args.hash_size,
+    )
+    if has_f:
+        return commands.run_genotype_command(
+            args.precomputed_prefix, args.readfile, args.outname, **common
+        )
+    return commands.run_single_command(
+        args.readfile, args.reffile, args.vcffile, args.kmersize,
+        args.outname, **common
     )
 
 

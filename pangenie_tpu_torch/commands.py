@@ -1,17 +1,21 @@
-"""Pipeline driver: the fused ``single`` command (index + genotype).
+"""Pipeline commands: ``index``, ``genotype`` (from an index),
+``single`` (index + genotype fused) and ``vcf``.
 
-Port of ``pangenie_tpu/commands.py:run_single_command`` and its
-helpers (reference src/commands.cpp:224-590): same phase structure,
-same intermediate artifacts (path-segments FASTA, pickled graphs),
-same defaults, including auto-sampling above 100 paths. Host phases
-(parsing, k-mer counting on the C++ engine, unique k-mer selection,
-VCF writing) are the reference package's code; the two device stages
-— haplotype sampling (kernel S1) and genotyping forward-backward
-(kernels K1/K2) — run in torch on the chosen device.
+Port of ``pangenie_tpu/commands.py`` (reference src/commands.cpp): same
+phase structure, same intermediate artifacts (path-segments FASTA,
+per-chromosome k-mer TSVs, pickled graphs and unique-k-mer maps, pickled
+results), same defaults, including auto-sampling above 100 paths. Host
+phases (parsing, k-mer counting on the C++ engine, unique k-mer
+selection, VCF writing) are the reference package's code; the two device
+stages — haplotype sampling (kernel S1) and genotyping forward-backward
+(kernels K1/K2, or K3/K4 for many-allele batches and long chromosomes)
+— run in torch on the chosen device.
 
-Not ported yet: phasing (``-p``); the ``index``, ``genotype -f``,
-``vcf``, ``sampling`` and ``analyze-uk`` commands; the device k-mer
-counter; multi-process runs.
+Pickles hold the port's own classes: an index or result pickled by
+``pangenie_tpu`` cannot be read here (unpickling it imports JAX).
+
+Not ported yet: phasing (``-p``); the ``sampling`` and ``analyze-uk``
+commands; the device k-mer counter; multi-process runs.
 """
 
 from __future__ import annotations
@@ -23,13 +27,18 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from .device import hmm_dtype, resolve_device
 from .hmm.columns import densify_records
 from .hmm.genotyping import NP_DTYPE, PairHMM
 from .kmers.counter import ExactKmerCounter, KmerCounter
-from .kmers.unique import UniqueKmerComputer, UniqueKmersRecord
+from .kmers.unique import (
+    StepwiseUniqueKmerComputer,
+    UniqueKmerComputer,
+    UniqueKmersRecord,
+)
 from .model.probabilities import ProbabilityTable
 from .panel.builder import PanelBuilder
 from .panel.graph import ChromosomeGraph
@@ -51,11 +60,13 @@ def check_input_file(filename: str) -> None:
 
 @dataclass
 class UniqueKmersMap:
-    """Unique k-mers per chromosome (reference src/commands.hpp:11-28)."""
+    """Serialized index payload (reference src/commands.hpp:11-28)."""
 
     kmersize: int = 0
     add_reference: bool = False
     unique_kmers: Dict[str, List[UniqueKmersRecord]] = field(default_factory=dict)
+    runtimes: Dict[str, float] = field(default_factory=dict)
+    sampling_runtimes: Dict[str, float] = field(default_factory=dict)
 
 
 @dataclass
@@ -218,6 +229,7 @@ def _genotyping_block(
 def _write_outputs(
     chromosomes: List[str],
     results: Results,
+    precomputed_prefix: str,
     outname: str,
     sample_name: str,
     ignore_imputed: bool,
@@ -232,7 +244,9 @@ def _write_outputs(
     _log("Write results to VCF ...")
     write_header = True
     for chromosome in chromosomes:
-        graph: ChromosomeGraph = _load(f"{outname}_{chromosome}_Graph.pkl")
+        graph: ChromosomeGraph = _load(
+            f"{precomputed_prefix}_{chromosome}_Graph.pkl"
+        )
         graph.write_genotypes(
             outname + "_genotyping.vcf", results.result[chromosome],
             write_header, sample_name, ignore_imputed,
@@ -244,6 +258,340 @@ def _write_outputs(
                 write_header,
             )
         write_header = False
+
+
+def _use_device(device: Optional[str]) -> torch.device:
+    """The run's torch device (see :mod:`device`); a CUDA device becomes
+    the current one, where the kernels launch."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is not None:
+        torch.cuda.set_device(dev)
+    return dev
+
+
+def run_index_command(
+    reffile: str,
+    vcffile: str,
+    kmersize: int,
+    outname: str,
+    nr_jellyfish_threads: int = 1,
+    add_reference: bool = True,
+    hash_size: int = 3_000_000_000,
+) -> int:
+    """PanGenie-index (reference src/commands.cpp:592-728). Host only.
+
+    ``hash_size`` is the CLI's -e (the reference's jellyfish hash
+    size); here it bounds the graph k-mer counter's streaming block."""
+    check_input_file(reffile)
+    check_input_file(vcffile)
+
+    summary = PhaseSummary("PanGenie-index")
+    segment_file = outname + "_path_segments.fasta"
+    unique_kmers_list = UniqueKmersMap(kmersize=kmersize, add_reference=add_reference)
+
+    _log("Determine allele sequences ...")
+    panel = PanelBuilder(vcffile, reffile, segment_file, kmersize, add_reference)
+    chromosomes = panel.get_chromosomes()
+    _log(f"Found {len(chromosomes)} chromosome(s) in the VCF.")
+    summary.phase("reading input files")
+
+    _log("Count kmers in graph ...")
+    genomic_kmer_counts = ExactKmerCounter.count_file(
+        segment_file, kmersize, n_threads=nr_jellyfish_threads,
+        block_bases=int(min(max(hash_size // 64, 1 << 22), 1 << 28)),
+    )
+    summary.phase("counting kmers in graph")
+
+    import threading
+
+    idx_thread = None
+    if hasattr(genomic_kmer_counts, "prepare_lookup_index"):
+        # build the selection phase's lookup index while graphs pickle
+        idx_thread = threading.Thread(
+            target=genomic_kmer_counts.prepare_lookup_index, daemon=True
+        )
+        idx_thread.start()
+
+    _log("Serialize Graph objects ...")
+    for chromosome in chromosomes:
+        _save(panel.graphs[chromosome], f"{outname}_{chromosome}_Graph.pkl")
+    summary.phase("writing Graph objects to disk")
+
+    _log("Determine unique kmers ...")
+    if idx_thread is not None:
+        idx_thread.join()
+
+    def _index_chromosome(chromosome):
+        t = time.monotonic()
+        computer = StepwiseUniqueKmerComputer(
+            genomic_kmer_counts, panel.graphs[chromosome]
+        )
+        records = computer.compute_unique_kmers(
+            f"{outname}_{chromosome}_kmers.tsv.gz", delete_processed_variants=True
+        )
+        return chromosome, records, time.monotonic() - t
+
+    # one task per chromosome (src/commands.cpp:677-687); the native
+    # k-mer lookups and numpy enumeration release the GIL
+    from concurrent.futures import ThreadPoolExecutor
+
+    workers = max(1, min(nr_jellyfish_threads, len(chromosomes)))
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        for chromosome, records, elapsed in pool.map(_index_chromosome, chromosomes):
+            unique_kmers_list.unique_kmers[chromosome] = records
+            unique_kmers_list.runtimes[chromosome] = elapsed
+    summary.phase("determining unique kmers")
+
+    _log("Storing unique kmer information ...")
+    _save(unique_kmers_list, outname + "_UniqueKmersMap.pkl")
+    summary.phase("writing UniqueKmersMap to disk")
+    summary.print_summary()
+    return 0
+
+
+def fill_read_kmercounts(
+    chromosome: str,
+    unique_kmers_map: UniqueKmersMap,
+    read_kmer_counts: KmerCounter,
+    probabilities: ProbabilityTable,
+    precomputed_prefix: str,
+    kmer_coverage: int,
+) -> None:
+    """Stream the index's k-mer TSV and fill read counts and local
+    coverage into the chromosome's records (reference
+    src/commands.cpp:76-152).
+
+    K-mer strings are encoded and looked up in bulk (one batched
+    abundance query per chromosome); counts and coverage scatter back
+    per record. The reference package ends with a per-chromosome
+    ``HaplotypeSampler(..., size=0)`` call, which returns at once and
+    whose time it records in ``sampling_runtimes``; here the call is
+    dropped and its time recorded as 0. Panel sampling runs batched over
+    all chromosomes afterwards.
+    """
+    import gzip
+
+    from .kmers.mer import decode_kmer, encode_kmer_fields
+
+    filename = f"{precomputed_prefix}_{chromosome}_kmers.tsv.gz"
+    records = unique_kmers_map.unique_kmers[chromosome]
+    kmersize = unique_kmers_map.kmersize
+    min_cov = kmer_coverage // 4
+    max_cov = kmer_coverage * 4
+
+    # pass 1: parse the TSV; the k-mer columns stay comma-joined fields
+    # (their length gives the count)
+    kmer_fields: List[str] = []
+    flank_fields: List[str] = []
+    n_kmers: List[int] = []
+    n_flanks: List[int] = []
+    var_index = 0
+    field_w = kmersize + 1
+    with gzip.open(filename, "rt") as f:
+        for line in f:
+            line = line.rstrip("\n")
+            if not line:
+                continue
+            tokens = line.split("\t")
+            assert len(tokens) == 5
+            if tokens[0].startswith("#"):
+                continue
+            assert tokens[0] == chromosome
+            assert int(tokens[1]) == records[var_index].get_variant_position()
+            t3, t4 = tokens[3], tokens[4]
+            if t3 != "nan":
+                kmer_fields.append(t3)
+                n_kmers.append((len(t3) + 1) // field_w)
+            else:
+                n_kmers.append(0)
+            if t4 != "nan":
+                flank_fields.append(t4)
+                n_flanks.append((len(t4) + 1) // field_w)
+            else:
+                n_flanks.append(0)
+            var_index += 1
+
+    # pass 2: batched encode + abundance lookups
+    encoded_kmers = encode_kmer_fields(kmer_fields, kmersize)
+    counts = read_kmer_counts.get_abundances(encoded_kmers)
+    flank_counts = read_kmer_counts.get_abundances(
+        encode_kmer_fields(flank_fields, kmersize)
+    )
+
+    # zero-probability warnings (rare; reference src/commands.cpp:118-126)
+    probs = probabilities.get_probabilities(kmer_coverage, counts)
+    bad = np.nonzero(~(probs > 0).any(axis=1))[0]
+    if len(bad):
+        rec_of_kmer = np.repeat(np.arange(len(records)), np.asarray(n_kmers, np.int64))
+        for b in bad.tolist():
+            r = records[int(rec_of_kmer[b])]
+            _log(
+                "Warning: only zero probabilities for "
+                f"{decode_kmer(int(encoded_kmers[b]), kmersize)} at "
+                f"{chromosome} {r.get_variant_position()}"
+            )
+
+    # pass 3: local coverage per record = int mean of the flanking counts
+    # within [peak/4, 4*peak], else the peak (src/kmerparser.cpp:30-49)
+    sizes_f = np.asarray(n_flanks, dtype=np.int64)
+    valid = (flank_counts >= min_cov) & (flank_counts <= max_cov)
+    csum_v = np.concatenate([[0], np.cumsum(np.where(valid, flank_counts, 0))])
+    csum_n = np.concatenate([[0], np.cumsum(valid.astype(np.int64))])
+    ends = np.cumsum(sizes_f)
+    starts = ends - sizes_f
+    seg_sum = csum_v[ends] - csum_v[starts]
+    seg_n = csum_n[ends] - csum_n[starts]
+    coverages = np.where(
+        (seg_n > 0) & (seg_sum > 0),
+        seg_sum // np.maximum(seg_n, 1),
+        kmer_coverage,
+    ).tolist()
+
+    offset = 0
+    for i, record in enumerate(records):
+        nk = n_kmers[i]
+        if nk == record.size():
+            record.set_readcounts(counts[offset: offset + nk])
+        else:
+            # TSV line and record disagree; per-kmer update keeps the
+            # reference's bounds behaviour
+            for j in range(nk):
+                record.update_readcount(j, int(counts[offset + j]))
+        offset += nk
+        record.set_coverage(coverages[i])
+    unique_kmers_map.sampling_runtimes[chromosome] = 0.0
+
+
+def run_genotype_command(
+    precomputed_prefix: str,
+    readfile: str,
+    outname: str,
+    sample_name: str = "sample",
+    nr_jellyfish_threads: int = 1,
+    nr_core_threads: int = 1,
+    only_genotyping: bool = True,
+    only_phasing: bool = False,
+    effective_N: float = 0.00001,
+    regularization: float = 0.01,
+    count_only_graph: bool = True,
+    ignore_imputed: bool = False,
+    sampling_size: int = 0,
+    panel_size: int = 0,
+    recombrate: float = 1.26,
+    output_panel: bool = False,
+    sampling_effective_N: float = 0.01,
+    allele_penalty: int = 5,
+    serialize_output: bool = False,
+    hash_size: int = 3_000_000_000,
+    device: Optional[str] = None,
+) -> int:
+    """PanGenie genotype from an index written by :func:`run_index_command`
+    (reference src/commands.cpp:730-1086). ``device`` as in
+    :func:`run_single_command`; ``hash_size`` (-e) is accepted for
+    compatibility."""
+    if only_phasing or not only_genotyping:
+        raise NotImplementedError(
+            "phasing (-p) is not ported yet (ROADMAP queue 1, hmm/viterbi.py)"
+        )
+    check_input_file(readfile)
+    segment_file = precomputed_prefix + "_path_segments.fasta"
+    check_input_file(segment_file)
+    archive = precomputed_prefix + "_UniqueKmersMap.pkl"
+    check_input_file(archive)
+
+    dev = _use_device(device)
+    summary = PhaseSummary("PanGenie-genotype")
+    results = Results()
+    chrom_to_sampled: Dict[str, List[SampledPanel]] = {}
+
+    _log(f"Reading precomputed UniqueKmersMap from {archive} ...")
+    unique_kmers_list: UniqueKmersMap = _load(archive)
+
+    # std::map iteration order: chromosome names sorted
+    chromosomes = sorted(unique_kmers_list.unique_kmers.keys())
+    nr_paths = 0
+    variants_read = 0
+    for chromosome in chromosomes:
+        records = unique_kmers_list.unique_kmers[chromosome]
+        if records:
+            nr_paths = records[0].get_nr_paths()
+            variants_read += len(records)
+    _log(f"Read {variants_read} variants from provided UniqueKmersMap archive.")
+    if variants_read == 0:
+        return 0
+    if nr_paths == 0:
+        raise RuntimeError("PanGenie-index: no haplotype paths given.")
+
+    if panel_size == 0 and sampling_size == 0 and nr_paths > 100:
+        panel_size = 15
+        _log(
+            "Number of haplotypes exceeds 100, enable haplotype sampling "
+            "(15 haplotypes)"
+        )
+    summary.phase("reading UniqueKmersMap from disk")
+
+    kmersize = unique_kmers_list.kmersize
+    read_kmer_counts = _read_counter(
+        readfile, segment_file, kmersize, count_only_graph, nr_jellyfish_threads,
+    )
+    summary.phase("counting kmers in reads")
+
+    kmer_abundance_peak = read_kmer_counts.compute_histogram(
+        10000, count_only_graph, outname + "_histogram.histo"
+    )
+    _log(f"Computed kmer abundance peak: {kmer_abundance_peak}")
+
+    probabilities = ProbabilityTable(
+        kmer_abundance_peak // 4,
+        kmer_abundance_peak * 4,
+        2 * kmer_abundance_peak,
+        regularization,
+    )
+
+    _log("Determine read k-mer counts for unique kmers ...")
+    from concurrent.futures import ThreadPoolExecutor
+
+    def _fill(chromosome):
+        fill_read_kmercounts(
+            chromosome, unique_kmers_list, read_kmer_counts, probabilities,
+            precomputed_prefix, kmer_abundance_peak,
+        )
+
+    workers = max(1, min(nr_core_threads, len(chromosomes)))
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        list(pool.map(_fill, chromosomes))
+    # haplotype sampling: all chromosomes batched into shared device sweeps
+    if panel_size > 0 or output_panel:
+        from .hmm.sampling import sample_panels_batched
+
+        path_outputs = {}
+        if output_panel:
+            path_outputs = {
+                chromosome: f"{outname}_paths_{chromosome}.tsv"
+                for chromosome in chromosomes
+            }
+        sample_panels_batched(
+            {c: unique_kmers_list.unique_kmers[c] for c in chromosomes},
+            panel_size, recombrate, sampling_effective_N,
+            unique_kmers_list.add_reference, path_outputs, allele_penalty,
+            device=dev,
+        )
+    summary.phase("updating unique kmers / sampling")
+
+    _genotyping_block(
+        chromosomes, unique_kmers_list, probabilities, results,
+        effective_N, recombrate, sampling_size, output_panel,
+        chrom_to_sampled, dev,
+    )
+    summary.phase("genotyping (HMM)")
+
+    _write_outputs(
+        chromosomes, results, precomputed_prefix, outname, sample_name,
+        ignore_imputed, output_panel, chrom_to_sampled, serialize_output,
+    )
+    summary.phase("writing output")
+    summary.print_summary()
+    return 0
 
 
 def run_single_command(
@@ -285,9 +633,7 @@ def run_single_command(
     check_input_file(vcffile)
     check_input_file(readfile)
 
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is not None:
-        torch.cuda.set_device(dev)   # the kernels launch on the current device
+    dev = _use_device(device)
     summary = PhaseSummary("PanGenie")
     results = Results()
     chrom_to_sampled: Dict[str, List[SampledPanel]] = {}
@@ -409,9 +755,43 @@ def run_single_command(
     summary.phase("genotyping (HMM)")
 
     _write_outputs(
-        chromosomes, results, outname, sample_name, ignore_imputed,
+        chromosomes, results, outname, outname, sample_name, ignore_imputed,
         output_panel, chrom_to_sampled, serialize_output,
     )
     summary.phase("writing output")
     summary.print_summary()
+    return 0
+
+
+def run_vcf_command(
+    precomputed_prefix: str,
+    results_name: str,
+    outname: str,
+    sample_name: str = "sample",
+    only_genotyping: bool = True,
+    only_phasing: bool = False,
+    ignore_imputed: bool = False,
+) -> int:
+    """PanGenie-vcf: results serialized by ``genotype -w`` -> VCF
+    (reference src/commands.cpp:1088-1154)."""
+    if only_phasing or not only_genotyping:
+        raise NotImplementedError(
+            "phasing (-p) is not ported yet (ROADMAP queue 1, hmm/viterbi.py)"
+        )
+    check_input_file(results_name)
+    _log(f"Reading serialized genotyping results from {results_name}")
+    results: Results = _load(results_name)
+
+    _log("Write results to VCF ...")
+    write_header = True
+    for chromosome in sorted(results.result.keys()):
+        graph: ChromosomeGraph = _load(
+            f"{precomputed_prefix}_{chromosome}_Graph.pkl"
+        )
+        graph.write_genotypes(
+            outname + "_genotyping.vcf", results.result[chromosome],
+            write_header, sample_name, ignore_imputed,
+            results.bulk.get(chromosome),
+        )
+        write_header = False
     return 0

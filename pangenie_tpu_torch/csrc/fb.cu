@@ -1,27 +1,46 @@
-// Kernels K1 (forward sweep) and K2 (backward sweep + posterior collapse)
-// of the pair-HMM forward-backward, for Hopper (sm_90a).
+// The pair-HMM forward-backward kernels for Hopper (sm_90a):
 //
-// Replaces: pangenie_tpu/hmm/pallas_fb.py:_fwd_kernel (K1) and
-// :_bwd_kernel (K2), driven there by forward_backward_batch_pallas.
-// Plain version: pangenie_tpu_torch/hmm/forward_backward.py
-// (forward_plain, backward_plain).
+//   K1 fb_forward_kernel, K2 fb_backward_kernel: forward sweep, and
+//      backward sweep + posterior collapse, on [A, A] emissions gathered
+//      to path pairs inside the kernel (the fused route);
+//   K3 fbe_forward_kernel, K4 fbe_backward_kernel: the same sweeps on
+//      precomputed [P, P] state emissions, with entry carries so that a
+//      chain runs in N-chunks (the generic route: any A, any length).
 //
-// What bounds it on the H100: each column depends on the previous one,
+// Replaces: pangenie_tpu/hmm/pallas_fb.py:_fwd_kernel (K1), :_bwd_kernel
+// (K2), driven there by forward_backward_batch_pallas, and
+// :_fwd_kernel_e (K3), :_bwd_kernel_e (K4), driven by _fb_pallas_e_core.
+// Plain versions: pangenie_tpu_torch/hmm/forward_backward.py
+// (forward_plain, backward_plain) and hmm/fb_generic.py (forward_e_plain,
+// backward_e_plain); chunk loop: fb_generic.forward_backward_chunked.
+//
+// What bounds them on the H100: each column depends on the previous one,
 // so a chain is a serial loop of N steps whose cost is latency — a few
-// block barriers and shared-memory passes over the [P, P] state — not
-// bandwidth (P=16: 1 KB of alpha written per column) or arithmetic.
-// Parallelism comes only from the batch: one CTA per chain, so B=2 (one
-// chain per chromosome, the main path) occupies 2 of 132 SMs.
+// block barriers, serial row/column sums of P terms and shared-memory
+// passes over the [P, P] state — not bandwidth (K1 at P=16: 1 KB of alpha
+// written per column) or arithmetic. K3/K4 also stream E, alpha and the
+// raw posteriors through global memory: 63 KB (K3) and 95 KB (K4) per
+// column at P=89, from one SM. Parallelism comes only from the batch:
+// one CTA per chain, so B=2 (one chain per chromosome, the main path)
+// occupies 2 of 132 SMs.
 //
 // Design: the whole [P, P] f32 state stays in shared memory for the
 // entire sweep (row pitch P+1 so the per-row reductions are free of
-// bank conflicts). Per column the CTA gathers E[p, q] = EA[al[p], al[q]]
-// from a shared [A, A] tile (exactly the one-hot expansion of the
-// Pallas kernel, with no cap on A), takes row sums / column sums /
-// total in a fixed order (no atomics: results do not change from run
-// to run), and mixes and normalizes in place. K1 writes alpha
-// [B, N, P, P] and c_fwd [B, N] to device memory; K2 reads alpha back
-// in reverse and reduces alpha * cur * c_fwd to [A, A] in shared memory.
+// bank conflicts). Row sums / column sums / total are taken in a fixed
+// order (no atomics: results do not change from run to run), and the
+// state is mixed and normalized in place. K1/K2 gather E[p, q] =
+// EA[al[p], al[q]] from a shared [A, A] tile (exactly the one-hot
+// expansion of the Pallas kernel, with no cap on A); K1 writes alpha
+// [B, N, P, P] and c_fwd [B, N], K2 reads alpha back in reverse and
+// reduces alpha * cur * c_fwd to [A, A] in shared memory. K3/K4 read E
+// from device memory with consecutive threads on consecutive addresses
+// and use the reference's factored mix u0*c + u1*(h_i + h_j) + u2*h; the
+// caller pins u = (1, 0, 0) at global column 0, so the carry needs no
+// special case at any chunk's first column. K4 reads its successor
+// column's E and u from the chunk, or at the chunk's last column from
+// e_after / u_after (the following chunk's first column), writes the raw
+// [P, P] posteriors straight to global memory and returns the normalized
+// beta after the chunk's first column as the carry for the chunk before.
 // Allocates nothing; launches on the caller's stream.
 
 #include <cuda_runtime.h>
@@ -221,6 +240,133 @@ fb_backward_kernel(const float* __restrict__ alphas, const float* __restrict__ c
     }
 }
 
+__global__ void __launch_bounds__(FB_THREADS)
+fbe_forward_kernel(const float* __restrict__ E, const float* __restrict__ u,
+                   const float* __restrict__ alpha0, float* __restrict__ alphas,
+                   float* __restrict__ c_fwd, int N, int P) {
+    extern __shared__ float smem[];
+    const int pitch = P + 1;
+    float* s_state = smem;                    // [P, pitch]
+    float* s_row = s_state + P * pitch;       // [P]
+    float* s_col = s_row + P;                 // [P]
+    float* s_red = s_col + P;                 // [FB_WARPS]
+
+    const int b = blockIdx.x, t = threadIdx.x, PP = P * P;
+    const float uniform = 1.0f / (float)PP;
+    const float* e_b = E + (size_t)b * N * PP;
+    const float* u_b = u + (size_t)b * N * 3;
+    float* alpha_b = alphas + (size_t)b * N * PP;
+
+    for (int i = t; i < PP; i += FB_THREADS)
+        s_state[(i / P) * pitch + i % P] = alpha0[(size_t)b * PP + i];
+    __syncthreads();
+
+    for (int n = 0; n < N; ++n) {
+        row_col_sums(s_state, s_row, s_col, P, pitch);
+        __syncthreads();
+        const float u0 = u_b[n * 3 + 0], u1 = u_b[n * 3 + 1], u2 = u_b[n * 3 + 2];
+        float h = 0.f;
+        for (int p = 0; p < P; ++p) h += s_row[p];
+        const float* e_n = e_b + (size_t)n * PP;
+        float local = 0.f;
+        for (int i = t; i < PP; i += FB_THREADS) {
+            const int p = i / P, q = i - p * P;
+            float* cell = s_state + p * pitch + q;
+            const float prev = u0 * *cell + u1 * (s_row[p] + s_col[q]) + u2 * h;
+            const float cur = prev * e_n[i];
+            *cell = cur;
+            local += cur;
+        }
+        const float s = block_sum(local, s_red);
+        const bool pos = s > 0.f;
+        for (int i = t; i < PP; i += FB_THREADS) {
+            const int p = i / P, q = i - p * P;
+            float* cell = s_state + p * pitch + q;
+            const float v = pos ? *cell / s : uniform;
+            *cell = v;
+            alpha_b[(size_t)n * PP + i] = v;
+        }
+        if (t == 0) c_fwd[(size_t)b * N + n] = pos ? s : 1.f;
+        __syncthreads();
+    }
+}
+
+__global__ void __launch_bounds__(FB_THREADS)
+fbe_backward_kernel(const float* __restrict__ alphas, const float* __restrict__ c_fwd,
+                    const float* __restrict__ E, const float* __restrict__ u,
+                    const float* __restrict__ e_after, const float* __restrict__ u_after,
+                    const unsigned char* __restrict__ is_last,
+                    const float* __restrict__ beta0, float* __restrict__ posts,
+                    float* __restrict__ beta_out, int N, int P) {
+    extern __shared__ float smem[];
+    const int pitch = P + 1;
+    float* s_beta = smem;                     // [P, pitch]
+    float* s_row = s_beta + P * pitch;        // [P]
+    float* s_col = s_row + P;                 // [P]
+    float* s_red = s_col + P;                 // [FB_WARPS]
+
+    const int b = blockIdx.x, t = threadIdx.x, PP = P * P;
+    const float uniform = 1.0f / (float)PP;
+    const float* e_b = E + (size_t)b * N * PP;
+    const float* u_b = u + (size_t)b * N * 3;
+    const float* alpha_b = alphas + (size_t)b * N * PP;
+    float* post_b = posts + (size_t)b * N * PP;
+
+    for (int i = t; i < PP; i += FB_THREADS)
+        s_beta[(i / P) * pitch + i % P] = beta0[(size_t)b * PP + i];
+    __syncthreads();
+
+    for (int n = N - 1; n >= 0; --n) {
+        // successor column: inside the chunk, or the following chunk's first
+        const bool tail = n + 1 == N;
+        const float* e_nx = tail ? e_after + (size_t)b * PP : e_b + (size_t)(n + 1) * PP;
+        const float* u_nx = tail ? u_after + (size_t)b * 3 : u_b + (size_t)(n + 1) * 3;
+
+        // helper = beta * E_{n+1}, in place
+        for (int i = t; i < PP; i += FB_THREADS) {
+            const int p = i / P, q = i - p * P;
+            s_beta[p * pitch + q] *= e_nx[i];
+        }
+        __syncthreads();
+        const bool last = is_last[(size_t)b * N + n] != 0;
+        if (!last) row_col_sums(s_beta, s_row, s_col, P, pitch);
+        __syncthreads();
+
+        float u0 = 0.f, u1 = 0.f, u2 = 0.f, h = 0.f;
+        if (!last) {
+            u0 = u_nx[0];
+            u1 = u_nx[1];
+            u2 = u_nx[2];
+            for (int p = 0; p < P; ++p) h += s_row[p];
+        }
+        const float cf = c_fwd[(size_t)b * N + n];
+        const float* a_n = alpha_b + (size_t)n * PP;
+        float* post_n = post_b + (size_t)n * PP;
+        float local = 0.f;
+        for (int i = t; i < PP; i += FB_THREADS) {
+            const int p = i / P, q = i - p * P;
+            float* cell = s_beta + p * pitch + q;
+            // is_last re-seeds the sweep with ones (src/hmm.cpp:321-324)
+            const float cur = last
+                ? 1.f : u0 * *cell + u1 * (s_row[p] + s_col[q]) + u2 * h;
+            *cell = cur;
+            local += cur;
+            // the raw posterior takes the un-normalized cur
+            post_n[i] = a_n[i] * cur * cf;
+        }
+        const float s = block_sum(local, s_red);
+        const bool pos = s > 0.f;
+        for (int i = t; i < PP; i += FB_THREADS) {
+            const int p = i / P, q = i - p * P;
+            float* cell = s_beta + p * pitch + q;
+            *cell = pos ? *cell / s : uniform;
+        }
+        __syncthreads();
+    }
+    for (int i = t; i < PP; i += FB_THREADS)
+        beta_out[(size_t)b * PP + i] = s_beta[(i / P) * pitch + i % P];
+}
+
 static size_t forward_smem(int P, int A) {
     return sizeof(float) * ((size_t)P * (P + 1) + 2 * P + A * A + FB_WARPS)
         + sizeof(int) * P;
@@ -231,6 +377,23 @@ static size_t backward_smem(int P, int A) {
         + sizeof(int) * 2 * P;
 }
 
+static size_t generic_smem(int P) {
+    return sizeof(float) * ((size_t)P * (P + 1) + 2 * P + FB_WARPS);
+}
+
+// One CTA per chain; checks P, opts in to the kernel's shared memory,
+// launches on the caller's stream and returns the cudaError_t.
+template <typename Kernel, typename... Args>
+static int launch(Kernel kernel, int B, int P, size_t smem, void* stream,
+                  Args... args) {
+    if (P < 1 || P > FB_MAX_PATHS) return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<B, FB_THREADS, smem, (cudaStream_t)stream>>>(args...);
+    return (int)cudaGetLastError();
+}
+
 extern "C" const char* pg_fb_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }
@@ -238,26 +401,33 @@ extern "C" const char* pg_fb_error_string(int code) {
 extern "C" int pg_fb_forward(const float* ea, const int* al, const float* trans,
                              float* alphas, float* c_fwd, int B, int N, int P,
                              int A, void* stream) {
-    if (P < 1 || P > FB_MAX_PATHS || A < 1) return (int)cudaErrorInvalidValue;
-    const size_t smem = forward_smem(P, A);
-    cudaError_t err = cudaFuncSetAttribute(
-        fb_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    fb_forward_kernel<<<B, FB_THREADS, smem, (cudaStream_t)stream>>>(
-        ea, al, trans, alphas, c_fwd, N, P, A);
-    return (int)cudaGetLastError();
+    if (A < 1) return (int)cudaErrorInvalidValue;
+    return launch(fb_forward_kernel, B, P, forward_smem(P, A), stream,
+                  ea, al, trans, alphas, c_fwd, N, P, A);
 }
 
 extern "C" int pg_fb_backward(const float* alphas, const float* c_fwd,
                               const float* ea, const int* al, const float* trans,
                               const unsigned char* is_last, float* posts, int B,
                               int N, int P, int A, void* stream) {
-    if (P < 1 || P > FB_MAX_PATHS || A < 1) return (int)cudaErrorInvalidValue;
-    const size_t smem = backward_smem(P, A);
-    cudaError_t err = cudaFuncSetAttribute(
-        fb_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    fb_backward_kernel<<<B, FB_THREADS, smem, (cudaStream_t)stream>>>(
-        alphas, c_fwd, ea, al, trans, is_last, posts, N, P, A);
-    return (int)cudaGetLastError();
+    if (A < 1) return (int)cudaErrorInvalidValue;
+    return launch(fb_backward_kernel, B, P, backward_smem(P, A), stream,
+                  alphas, c_fwd, ea, al, trans, is_last, posts, N, P, A);
+}
+
+extern "C" int pg_fbe_forward(const float* E, const float* u, const float* alpha0,
+                              float* alphas, float* c_fwd, int B, int N, int P,
+                              void* stream) {
+    return launch(fbe_forward_kernel, B, P, generic_smem(P), stream,
+                  E, u, alpha0, alphas, c_fwd, N, P);
+}
+
+extern "C" int pg_fbe_backward(const float* alphas, const float* c_fwd,
+                               const float* E, const float* u, const float* e_after,
+                               const float* u_after, const unsigned char* is_last,
+                               const float* beta0, float* posts, float* beta_out,
+                               int B, int N, int P, void* stream) {
+    return launch(fbe_backward_kernel, B, P, generic_smem(P), stream,
+                  alphas, c_fwd, E, u, e_after, u_after, is_last, beta0, posts,
+                  beta_out, N, P);
 }

@@ -1,15 +1,26 @@
 """Batched forward-backward dispatch.
 
 Single entry point for a [B, N, ...] batch of independent
-forward-backward problems (port of ``pangenie_tpu/hmm/batch.py``).
-CPU tensors take the plain torch version (``torch_ref``); CUDA tensors
-take kernels K1/K2 (``cuda_fused``), which raise on a shape or dtype
-they do not take — the card never falls back to the plain version.
+forward-backward problems (port of ``pangenie_tpu/hmm/batch.py``). The
+route follows from the batch's shape, on every device:
+
+- the generic route (:mod:`fb_generic`: A-bucketed state emissions, then
+  kernels K3/K4 in N-chunks with carries) when the padded allele count
+  exceeds ``MAX_FUSED_ALLELES`` — the reference's rule, kept so that both
+  packages use the same formulation for the same columns — or when the
+  chain is longer than ``fb_generic.SEGMENT`` columns;
+- the fused route (kernels K1/K2, emission gathered from [A, A] inside
+  the kernel) otherwise.
+
+CPU tensors run the plain torch versions of the kernels (``torch_ref``
+/ ``torch_generic``); CUDA tensors run the kernels (``cuda_fused`` /
+``cuda_generic``), which raise on a shape or dtype they do not take —
+the card never falls back to a plain version.
 """
 
 from __future__ import annotations
 
-from . import fb_kernels
+from . import fb_generic, fb_kernels
 from .forward_backward import (
     ColumnArrays,
     allele_emissions,
@@ -17,10 +28,20 @@ from .forward_backward import (
     log_correction,
 )
 
+# the reference's cap on the fused route (pangenie_tpu/hmm/batch.py:30)
+MAX_FUSED_ALLELES = 8
+
 # which implementation the most recent forward_backward_batch call
-# chose: "torch_ref" | "cuda_fused". The genotyping driver logs it so a
-# lost fast path is visible in run logs.
+# chose: "torch_ref" | "torch_generic" | "cuda_fused" | "cuda_generic".
+# The genotype commands log it so a lost fast path is visible in run logs.
 last_dispatch: str = "none"
+
+
+def use_generic(columns: ColumnArrays) -> bool:
+    """True when the batch takes the generic (K3/K4) route."""
+    A = columns.incidence.shape[-1]
+    N = columns.lp.shape[1]
+    return A > MAX_FUSED_ALLELES or N > fb_generic.SEGMENT
 
 
 def forward_backward_batch(columns: ColumnArrays):
@@ -31,11 +52,15 @@ def forward_backward_batch(columns: ColumnArrays):
     """
     global last_dispatch
     device = columns.lp.device
-    if device.type == "cpu":
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"forward_backward_batch: unsupported device {device}")
+    on_card = device.type == "cuda"
+    if use_generic(columns):
+        last_dispatch = "cuda_generic" if on_card else "torch_generic"
+        return fb_generic.forward_backward_chunked(columns)
+    if not on_card:
         last_dispatch = "torch_ref"
         return forward_backward(columns)
-    if device.type != "cuda":
-        raise ValueError(f"forward_backward_batch: unsupported device {device}")
     last_dispatch = "cuda_fused"
     ea = allele_emissions(columns)
     alphas, c_fwd = fb_kernels.forward(ea, columns.allele_local, columns.trans)

@@ -10,8 +10,13 @@ posteriors stays in numpy ``longdouble``: raw likelihoods can lie far
 below float64 range (e.g. 1e-400), and the reference's cross-subset
 combine adds them raw.
 
-Not ported yet (each raises): phasing (Viterbi, ``-p``) and the
-segmented forward-backward for chromosomes over ``SEGMENT`` columns.
+A run over ``fb_generic.SEGMENT`` columns (a long chromosome) is not
+padded to a bucket and executes alone, with B=1: the dispatcher sends it
+down the chunked generic route (kernels K3/K4 with carries), whose
+device memory is O(chunk * P^2) — the counterpart of the reference's
+``forward_backward_segmented`` streaming.
+
+Not ported yet (raises): phasing (Viterbi, ``-p``).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 from ..kmers.unique import UniqueKmersRecord
 from ..model.probabilities import ProbabilityTable
 from ..panel.variant import GenotypeLikelihoods
+from . import fb_generic
 from .batch import forward_backward_batch
 from .columns import HMMColumns, build_columns, transition_probs
 from .emissions import emission_scale
@@ -51,6 +57,7 @@ def _to_device_columns(
     uniform: bool,
     dtype: torch.dtype,
     device: torch.device,
+    pad_columns: bool = True,
 ) -> ColumnArrays:
     N = columns.n_columns
     trans = np.ones((N, 3), dtype=np.float64)
@@ -83,6 +90,8 @@ def _to_device_columns(
     A = incidence.shape[2]
     P = alleles.shape[1]
     Np, Kp, Ap = _bucket(N, 16), _bucket(K, 8), _bucket(A, 2)
+    if not pad_columns:
+        Np = N
 
     def pad(arr, shape, fill=0):
         out = np.full(shape, fill, dtype=arr.dtype)
@@ -137,8 +146,6 @@ class PairHMM:
     (chromosomes and path subsets become the batch dim).
     """
 
-    SEGMENT = 1 << 17  # beyond this many columns the reference streams
-
     def __init__(
         self,
         records: Sequence[UniqueKmersRecord],
@@ -182,20 +189,19 @@ class PairHMM:
                 records, probabilities, only_paths, dense=dense,
                 dtype=NP_DTYPE[dtype],
             )
-            if self.columns.n_columns > self.SEGMENT:
-                raise NotImplementedError(
-                    f"{self.columns.n_columns} HMM columns exceed "
-                    f"{self.SEGMENT}: the segmented forward-backward is "
-                    "not ported yet (ROADMAP queue 1, segmented scans)"
-                )
             if self.columns.n_columns > 0:
                 self.device_cols = _to_device_columns(
                     self.columns, recombrate, effective_N, uniform, dtype,
-                    torch.device(device),
+                    torch.device(device), pad_columns=not self.is_long(),
                 )
         self.runtime += time.monotonic() - _t0
         if not defer:
             PairHMM.run_deferred([self])
+
+    def is_long(self) -> bool:
+        """More columns than ``fb_generic.SEGMENT``: runs alone, chunked."""
+        return (self.columns is not None
+                and self.columns.n_columns > fb_generic.SEGMENT)
 
     def _store_kmer_stats(self) -> None:
         for i, record in enumerate(self.records):
@@ -327,7 +333,9 @@ class PairHMM:
         chromosomes of similar size, path subsets of the same panel)
         execute as ONE batched forward-backward — the (chromosome x
         subset) grid becomes the batch dimension, as in the reference's
-        thread pool over the same grid (src/commands.cpp:955-978).
+        thread pool over the same grid (src/commands.cpp:955-978). A
+        long run (over ``fb_generic.SEGMENT`` columns) executes alone, as the
+        reference's streaming path does.
         """
         groups = {}
         for hmm in hmms:
@@ -335,7 +343,8 @@ class PairHMM:
                 if hmm._run_genotyping:
                     hmm._store_kmer_stats()
                 continue
-            key = tuple(x.shape for x in hmm.device_cols)
+            key = (id(hmm),) if hmm.is_long() else tuple(
+                x.shape for x in hmm.device_cols)
             groups.setdefault(key, []).append(hmm)
 
         for members in groups.values():

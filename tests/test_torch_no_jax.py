@@ -1,6 +1,8 @@
 """The port on a machine without JAX: in a subprocess where importing
-``jax`` (or the reference package) fails, import the port's commands
-and CLI and run a small single-command workload through the CLI."""
+``jax`` (or the reference package) fails, import the port's commands,
+CLI and forward-backward modules and run a small workload through the
+CLI: ``genotype -r -v`` (single), then ``index``, ``genotype -f -w``
+and ``vcf``."""
 
 import os
 import subprocess
@@ -17,6 +19,9 @@ SCRIPT = textwrap.dedent("""
     import torch
     torch.set_num_threads(1)
     import pangenie_tpu_torch.commands
+    import pangenie_tpu_torch.hmm.fb_generic
+    import pangenie_tpu_torch.hmm.fb_kernels
+    import pangenie_tpu_torch.utils.multiallelic
     from pangenie_tpu_torch import cli
     from pangenie_tpu_torch.utils import simulate as sim
 
@@ -30,6 +35,12 @@ SCRIPT = textwrap.dedent("""
                        outfile=d + "/reads.fa")
     rc = cli.main(["genotype", "-i", d + "/reads.fa", "-r", d + "/ref.fa",
                    "-v", d + "/panel.vcf", "-o", d + "/out", "-x", "3"])
+    rc += cli.main(["index", "-r", d + "/ref.fa", "-v", d + "/panel.vcf",
+                    "-o", d + "/idx"])
+    rc += cli.main(["genotype", "-i", d + "/reads.fa", "-f", d + "/idx",
+                    "-o", d + "/staged", "-x", "3", "-w"])
+    rc += cli.main(["vcf", "-z", d + "/staged_genotyping.pkl", "-f", d + "/idx",
+                    "-o", d + "/staged"])
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "pangenie_tpu")
                     and sys.modules[m] is not None)
@@ -48,4 +59,6 @@ def test_port_runs_without_jax(tmp_path):
     with open(tmp_path / "out_genotyping.vcf") as f:
         body = [line for line in f if not line.startswith("#")]
     assert len(body) > 10
+    with open(tmp_path / "staged_genotyping.vcf") as f:
+        assert [line for line in f if not line.startswith("#")] == body
     assert "forward-backward dispatch: torch_ref" in proc.stderr

@@ -15,11 +15,24 @@ import pytest
 import torch
 
 from pangenie_tpu.commands import run_single_command as jax_single
+from pangenie_tpu.panel.sampling import reset_global_rand as jax_reset_rand
 from pangenie_tpu_torch.commands import run_single_command as torch_single
 from pangenie_tpu_torch.hmm import batch
+from pangenie_tpu_torch.panel.sampling import reset_global_rand as torch_reset_rand
 from pangenie_tpu_torch.utils import simulate as sim
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def fresh_rand_streams():
+    """Path subsets (``sampling_size``) shuffle with each package's
+    process-wide rand() replica, one stream per process as in the C++
+    reference; other tests in the same process may have drawn from
+    either. Both start from seed 1 in every test, so both packages draw
+    the same subsets."""
+    jax_reset_rand()
+    torch_reset_rand()
 
 
 @pytest.fixture(scope="module")
