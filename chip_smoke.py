@@ -25,7 +25,13 @@ Phases, each printed as it runs; any failure exits non-zero:
    counts from a true path pair (utils/multiallelic.py), so raw
    posteriors stay far from float32's underflow: every column's sum
    must exceed POST_FLOOR, and the columns, divided by their sums, are
-   compared at the tolerance above;
+   compared at the tolerance above. At every K3/K4 shape two launches
+   must give the same bits, and a batch of B=3 chains at P=89 with
+   padding (all-zero E after one chain's is_last, and one chain all
+   padding) goes through K3/K4 against the plain versions too. Each
+   kernel's bound (hmm/bounds.py: bytes over 3.35 TB/s or operations
+   over 67 TFLOP/s, the larger) is printed beside its time, with the
+   bytes/s achieved;
 4. end to end: the bench workload (20 Mb, 2 chromosomes, 61 samples =
    123 paths, 12x 150 bp reads, seed 11) genotyped with the port's
    single command on CUDA; the run must dispatch to the fused kernels,
@@ -45,9 +51,10 @@ Phases, each printed as it runs; any failure exits non-zero:
 
 Each end-to-end path runs with every kernel's launch count set to 0
 just before it and read just after. The last three lines of standard
-output are the kernels' JSON record (launches from those paths, times
-at their shapes), the GPU's name and power limit, and the device JSON
-record. The script imports nothing of JAX.
+output are the kernels' JSON record (launches from those paths; times,
+bound, bytes and us per column at their shapes), the GPU's name and
+power limit, and the device JSON record. The script imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -74,6 +81,10 @@ S1_GREEDY_SHAPE = (2, 4096, 123, 4, 15)                # (C, N, P, A, iterations
 # is the SV path's shape (its first chunk: fb_generic.SEGMENT columns)
 GENERIC_SHAPES = [(1, 1 << 17, 89, 32, True, 0), (2, 8192, 89, 32, True, 2048),
                   (32, 4096, 32, 32, False, 0)]
+# (B, N, P, padded chain, padding from) of the padding check
+PADDED_SHAPE = (3, 2048, 89, 2, 1500)
+# K3/K4 at the SV path's shape, as the redesign's acceptance set them (ms)
+GENERIC_TARGETS = {"K3": 550.0, "K4": 730.0}
 # the bench workload (bench.py:191-192, not cut) and the SV panel
 BENCH = dict(mb=20.0, chroms=2, samples=61, distance=150, seed=11)
 SV_PANEL = dict(mb=20.0, chroms=1, samples=44, distance=100, seed=13,
@@ -122,13 +133,23 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def against_bound(t: dict, key: str) -> str:
+    """The kernel's time beside its least time (hmm/bounds.py), and the
+    bytes/s it achieved, from a check's times ``t``."""
+    work = t[key + "_work"]
+    bound, by = work.bound()
+    return (f"{key} bound {bound:.4f} ms by {by} ({work.nbytes} bytes), "
+            f"{work.nbytes / (t[key] / 1e3) / 1e9:.1f} GB/s achieved, "
+            f"{t[key] * 1e3 / t[key + '_cols']:.3f} us per column")
+
+
 def check_fb(device, gpu):
     """K1/K2 against the plain forward-backward at every FB_SHAPES entry.
     Returns the largest absolute errors and the times at the main
     path's shape."""
     import torch
 
-    from pangenie_tpu_torch.hmm import fb_kernels
+    from pangenie_tpu_torch.hmm import bounds, fb_kernels
     from pangenie_tpu_torch.hmm.forward_backward import (
         allele_emissions, backward_plain, columns_from_numpy, forward_plain,
     )
@@ -159,13 +180,16 @@ def check_fb(device, gpu):
             "K1_plain": k1_plain,
             "K2": cuda_ms(lambda: fb_kernels.backward(a_k, c_k, ea, al, tr, last), 3),
             "K2_plain": k2_plain,
+            "K1_work": bounds.k1(B, N, P, ea.shape[-1]), "K1_cols": N,
+            "K2_work": bounds.k2(B, N, P, ea.shape[-1]), "K2_cols": N,
         }
         times[(B, N, P, K)] = t
         shape = f"B={B} N={N} P={P} K={K}"
         print(f"  fb {shape}: ok (K1 max_abs_err {e1:.3e}, K2 max_abs_err {e2:.3e})")
         print(f"  times {shape} [{gpu}]: K1 {t['K1']:.3f} ms, plain "
               f"{t['K1_plain']:.3f} ms; K2 {t['K2']:.3f} ms, plain "
-              f"{t['K2_plain']:.3f} ms", flush=True)
+              f"{t['K2_plain']:.3f} ms; {against_bound(t, 'K1')}; "
+              f"{against_bound(t, 'K2')}", flush=True)
         del cols, ea, a_k, c_k, a_p, c_p, p_k, p_p
     return err, times[FB_SHAPES[0]]
 
@@ -178,6 +202,7 @@ def check_s1(device, gpu):
     import numpy as np
     import torch
 
+    from pangenie_tpu_torch.hmm import bounds
     from pangenie_tpu_torch.hmm.sampling import (
         sample_group, viterbi_iteration, viterbi_iteration_plain,
     )
@@ -200,11 +225,12 @@ def check_s1(device, gpu):
     max_err = max(float((pk.long() - pp.long()).abs().max()),
                   float((sk - sp).abs().max()))
     t = {"S1": cuda_ms(lambda: viterbi_iteration(path_cost, mask, switch), 3),
-         "S1_plain": s1_plain}
+         "S1_plain": s1_plain, "S1_work": bounds.s1(C, N, P), "S1_cols": N}
     print(f"  s1 C={C} N={N} P={P}, one masked iteration: bit-identical "
           f"(paths and scores)")
     print(f"  times C={C} N={N} P={P} [{gpu}]: S1 {t['S1']:.3f} ms, plain "
-          f"{t['S1_plain']:.3f} ms per iteration", flush=True)
+          f"{t['S1_plain']:.3f} ms per iteration; {against_bound(t, 'S1')}",
+          flush=True)
 
     C, N, P, A, iters = S1_GREEDY_SHAPE
     # costs 0..3 force ties; switch costs on the scale of real ones
@@ -283,7 +309,7 @@ def check_generic(device, gpu):
     path's shape."""
     import torch
 
-    from pangenie_tpu_torch.hmm import fb_generic, fb_kernels
+    from pangenie_tpu_torch.hmm import bounds, fb_generic, fb_kernels
     from pangenie_tpu_torch.hmm.forward_backward import allele_emissions
 
     err = {"K3": 0.0, "K4": 0.0}
@@ -309,7 +335,10 @@ def check_generic(device, gpu):
         e4_post, low = posterior_error(p_k, p_p, f"K4 at B={B} N={N} P={P}")
         torch.testing.assert_close(b_k, b_p, rtol=RTOL, atol=ATOL)
         e4_beta = float((b_k - b_p).abs().max())
-        del p_k, p_p
+        del p_p
+        same_bits(fb_kernels.forward_e(E, u, ones), (a_k, c_k), f"K3 at {(B, N, P)}")
+        same_bits(fb_kernels.backward_e(*bwd_args), (p_k, b_k), f"K4 at {(B, N, P)}")
+        del p_k
         err["K3"] = max(err["K3"], e3)
         err["K4"] = max(err["K4"], e4_post, e4_beta)
         t = {
@@ -317,15 +346,19 @@ def check_generic(device, gpu):
             "K3_plain": k3_plain,
             "K4": cuda_ms(lambda: fb_kernels.backward_e(*bwd_args), 3),
             "K4_plain": k4_plain,
+            "K3_work": bounds.k3(B, N, P), "K3_cols": N,
+            "K4_work": bounds.k4(B, N, P), "K4_cols": N,
         }
         times[(B, N, P, K)] = t
         shape = f"B={B} N={N} P={P} K={K} A=16{' mixed 2/4/16' if mixed else ''}"
         print(f"  generic {shape}: ok (K3 max_abs_err {e3:.3e}; K4 posteriors "
               f"divided by their column sums max_abs_err {e4_post:.3e}, smallest "
-              f"column sum {low:.3e}; K4 beta_out max_abs_err {e4_beta:.3e})")
+              f"column sum {low:.3e}; K4 beta_out max_abs_err {e4_beta:.3e}); "
+              f"two launches of K3 and of K4 bit-identical")
         print(f"  times {shape} [{gpu}]: K3 {t['K3']:.3f} ms, plain "
               f"{t['K3_plain']:.3f} ms; K4 {t['K4']:.3f} ms, plain "
-              f"{t['K4_plain']:.3f} ms", flush=True)
+              f"{t['K4_plain']:.3f} ms; {against_bound(t, 'K3')}; "
+              f"{against_bound(t, 'K4')}", flush=True)
         del a_k, c_k, bwd_args, E
         if chunk:
             (g_k, _), gen_ms = timed(
@@ -363,7 +396,66 @@ def check_generic(device, gpu):
             del g_k, g_p, f_k, ea, a1, c1
         del cols
         torch.cuda.empty_cache()
-    return err, times[GENERIC_SHAPES[0][:4]]
+    main = times[GENERIC_SHAPES[0][:4]]
+    for key, target in GENERIC_TARGETS.items():
+        print(f"  {key} at the SV path's shape [{gpu}]: {main[key]:.3f} ms, target "
+              f"<= {target:.0f} ms: {'met' if main[key] <= target else 'missed'}")
+    e3, e4 = check_padding(device)
+    err["K3"], err["K4"] = max(err["K3"], e3), max(err["K4"], e4)
+    return err, main
+
+
+def same_bits(got, want, what: str) -> None:
+    import torch
+
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{what}: a second launch gave other bits")
+
+
+def check_padding(device):
+    """K3/K4 against their plain versions on a batch with padding, as
+    PairHMM pads chains of unequal length: chain 1 has all-zero E after
+    its is_last, the padded chain all-zero E everywhere (a column without
+    alleles, fb_generic.bucketed_state_emissions). Padding posteriors
+    must be exactly 0 in both. Returns the largest absolute errors of K3
+    (alphas, c_fwd) and K4 (divided posteriors, beta_out)."""
+    import torch
+
+    from pangenie_tpu_torch.hmm import fb_generic, fb_kernels
+
+    B, N, P, padded, tail = PADDED_SHAPE
+    cols = generic_columns(B, N, P, 32, True, seed=19, device=device)
+    E = fb_generic.bucketed_state_emissions(cols).reshape(B, N, P, P)
+    E[1, tail:] = 0.0
+    E[padded] = 0.0
+    last = cols.is_last.clone()
+    last[1] = False
+    last[1, tail - 1] = True
+    last[padded] = False
+    u = fb_generic.factor_trans(cols.trans).contiguous()
+    ones = torch.ones((B, P, P), device=device)
+    zeros, u_after = torch.zeros((B, P, P), device=device), torch.zeros((B, 3), device=device)
+    a_k, c_k = fb_kernels.forward_e(E, u, ones)
+    a_p, c_p = fb_generic.forward_e_plain(E, u, ones)
+    torch.testing.assert_close(a_k, a_p, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(c_k, c_p, rtol=RTOL, atol=ATOL)
+    e3 = max(float((a_k - a_p).abs().max()), float((c_k - c_p).abs().max()))
+    args = (a_k, c_k, E, u, zeros, u_after, last, zeros)
+    p_k, b_k = fb_kernels.backward_e(*args)
+    p_p, b_p = fb_generic.backward_e_plain(*args)
+    pad = torch.zeros((B, N), dtype=torch.bool, device=device)
+    pad[1, tail:] = True
+    pad[padded] = True
+    if not (torch.equal(p_k[pad], p_p[pad]) and not p_p[pad].any()):
+        raise AssertionError("K4's padding posteriors are not all 0")
+    e4, low = posterior_error(p_k[~pad][None], p_p[~pad][None], "K4 with padding")
+    torch.testing.assert_close(b_k, b_p, rtol=RTOL, atol=ATOL)
+    e4 = max(e4, float((b_k - b_p).abs().max()))
+    print(f"  padding B={B} N={N} P={P} (chain 1 padded from column {tail}, chain "
+          f"{padded} all padding): ok (K3 max_abs_err {e3:.3e}; K4 real columns "
+          f"divided by their sums max_abs_err {e4:.3e}, smallest column sum "
+          f"{low:.3e}; padding posteriors 0 in both)", flush=True)
+    return e3, e4
 
 
 def rewrite_sv_sites(variants, rng, n_alts, lengths=(100, 400)):
@@ -651,7 +743,8 @@ def run_sv_index_genotype(casedir: str, gpu: str):
     if _vcf_body(profiled + "_genotyping.vcf") != _vcf_body(outpref + "_genotyping.vcf"):
         raise AssertionError("the profiled genotype -f VCF differs from the first run's")
     print_profile("sv genotype -f", wall, busy, by_name, gpu)
-    k34 = sum(dt for name, (dt, _n) in by_name.items() if name.startswith("fbe_"))
+    # K3/K4 are templates: the profiler names them "void fbe_forward_kernel<6, 3>(...)"
+    k34 = sum(dt for name, (dt, _n) in by_name.items() if "fbe_" in name)
     copies = sum(dt for name, (dt, _n) in by_name.items() if "Memcpy" in name
                  or "Memset" in name)
     print(f"  sv genotype -f device time: K3+K4 {k34:.3f} s, copies {copies:.3f} s, "
@@ -746,9 +839,12 @@ def smoke(device, gpu, bench_inputs, sv_inputs) -> int:
     sv_launches = run_sv_index_genotype(sv_dir, gpu)
 
     def entry(name, source, replaces, n, e, t, key):
+        bound, by = t[key + "_work"].bound()
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": n, "max_abs_err": e,
-                "ms": t[key], "plain_ms": t[key + "_plain"]}
+                "ms": t[key], "plain_ms": t[key + "_plain"], "bound_ms": bound,
+                "bound_by": by, "bytes": t[key + "_work"].nbytes,
+                "us_per_column": t[key] * 1e3 / t[key + "_cols"], "library_ms": None}
 
     fb_src = "pangenie_tpu_torch/csrc/fb.cu"
     pallas = "pangenie_tpu/hmm/pallas_fb.py"

@@ -19,7 +19,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Sequence
 
 PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 REPO_ROOT = os.path.dirname(PACKAGE_DIR)
@@ -32,9 +32,11 @@ build_log: Dict[str, dict] = {}
 
 
 def build_once(
-    source: str, out: str, compile_fn: Callable[[str], subprocess.CompletedProcess]
+    source: str, out: str, compile_fn: Callable[[str], subprocess.CompletedProcess],
+    headers: Sequence[str] = (),
 ) -> None:
-    """Compile ``source`` into ``out`` unless ``out`` is newer.
+    """Compile ``source`` into ``out`` unless ``out`` is newer than it
+    and than each of ``headers``.
 
     ``compile_fn(tmp_path)`` runs the compiler with ``tmp_path`` as its
     output; the result is renamed onto ``out``. Raises RuntimeError
@@ -46,7 +48,8 @@ def build_once(
     os.makedirs(os.path.dirname(out), exist_ok=True)
     with open(out + ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(source):
+        newest = max(os.path.getmtime(f) for f in [source, *headers])
+        if os.path.exists(out) and os.path.getmtime(out) >= newest:
             return
         tmp = f"{out}.{os.getpid()}.tmp"
         t0 = time.monotonic()
@@ -74,19 +77,22 @@ def _nvcc() -> str:
 
 def load_cuda_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` for sm_90a (plain C interface, no torch
-    headers) and load it."""
+    headers; it may include the ``csrc/*.cuh`` headers) and load it."""
     source = os.path.join(CUDA_SRC_DIR, name + ".cu")
     out = os.path.join(BUILD_DIR, f"lib{name}.so")
     cmd: List[str] = [
         "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", source,
     ]
+    headers = [os.path.join(CUDA_SRC_DIR, f) for f in os.listdir(CUDA_SRC_DIR)
+               if f.endswith(".cuh")]
     build_once(
         source, out,
         lambda tmp: subprocess.run(
             [_nvcc(), *cmd, "-o", tmp],
             check=True, capture_output=True, text=True,
         ),
+        headers,
     )
     return ctypes.CDLL(out)
 

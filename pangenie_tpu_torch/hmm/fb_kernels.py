@@ -31,15 +31,32 @@ K2 = CudaKernel(
     "fb", "pg_fb_backward", "fb", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 )
 # kernel K3: replaces pangenie_tpu/hmm/pallas_fb.py:_fwd_kernel_e
-K3 = CudaKernel("fb", "pg_fbe_forward", "fb", [_P, _P, _P, _P, _P, _I, _I, _I, _P])
+K3 = CudaKernel("fb", "pg_fbe_forward", "fb", [_P] * 5 + [_I] * 5 + [_P])
 # kernel K4: replaces pangenie_tpu/hmm/pallas_fb.py:_bwd_kernel_e
-K4 = CudaKernel(
-    "fb", "pg_fbe_backward", "fb",
-    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-)
+K4 = CudaKernel("fb", "pg_fbe_backward", "fb", [_P] * 10 + [_I] * 5 + [_P])
 
 # a CTA's 256 threads compute the P row sums and P column sums in parallel
+# (K1/K2); K3/K4 give each of 16 warps at most 8 rows and each lane at
+# most 4 columns
 MAX_PATHS = 128
+
+# K3/K4's launch (checked again by fbe_config_ok in csrc/fb.cu): shared
+# memory one H100 block can use, warps (FBE_WARPS), the slots of the E
+# ring (FBE_RING) and the floats of a slot's header
+SMEM_BYTES = 232_448
+WARPS = 16
+RING = 2
+_HEADER = 8
+
+
+def generic_launch(P: int):
+    """(threads, dynamic shared bytes) of K3/K4 at P paths: WARPS warps;
+    a ring of RING slots, a staging column and the reduction scratch
+    (mirrors fbe_smem in csrc/fb.cu). A column is held at any 16-byte
+    misalignment; the column partials' pitch is P rounded up to 8 mod 32."""
+    column = (P * P + 6) // 4 * 4
+    scratch = 4 * (column + WARPS * (P + (8 - P) % 32) + P + 68)
+    return 32 * WARPS, scratch + RING * 4 * (_HEADER + column)
 
 
 def _check(name, t, dtype, shape, device):
@@ -126,7 +143,7 @@ def forward_e(E, u, alpha0):
     c_fwd = torch.empty((B, n), dtype=torch.float32, device=dev)
     if B and n:
         K3(E.data_ptr(), u.data_ptr(), alpha0.data_ptr(), alphas.data_ptr(),
-           c_fwd.data_ptr(), B, n, P, launch_stream(dev))
+           c_fwd.data_ptr(), B, n, P, *generic_launch(P), launch_stream(dev))
     return alphas, c_fwd
 
 
@@ -137,7 +154,7 @@ def backward_e(alphas, c_fwd, E, u, E_after, u_after, is_last, beta0):
         return backward_e_plain(alphas, c_fwd, E, u, E_after, u_after, is_last, beta0)
     B, n, P, _ = E.shape
     _paths_check(P)
-    last = is_last.to(torch.uint8).contiguous()
+    last = is_last.to(torch.int32).contiguous()     # K4 copies it in 4-byte words
     dev = E.device
     _check("alphas", alphas, torch.float32, (B, n, P, P), dev)
     _check("c_fwd", c_fwd, torch.float32, (B, n), dev)
@@ -145,7 +162,7 @@ def backward_e(alphas, c_fwd, E, u, E_after, u_after, is_last, beta0):
     _check("u", u, torch.float32, (B, n, 3), dev)
     _check("E_after", E_after, torch.float32, (B, P, P), dev)
     _check("u_after", u_after, torch.float32, (B, 3), dev)
-    _check("is_last", last, torch.uint8, (B, n), dev)
+    _check("is_last", last, torch.int32, (B, n), dev)
     _check("beta0", beta0, torch.float32, (B, P, P), dev)
     posts = torch.empty((B, n, P, P), dtype=torch.float32, device=dev)
     beta_out = torch.empty((B, P, P), dtype=torch.float32, device=dev)
@@ -153,7 +170,7 @@ def backward_e(alphas, c_fwd, E, u, E_after, u_after, is_last, beta0):
         K4(alphas.data_ptr(), c_fwd.data_ptr(), E.data_ptr(), u.data_ptr(),
            E_after.data_ptr(), u_after.data_ptr(), last.data_ptr(),
            beta0.data_ptr(), posts.data_ptr(), beta_out.data_ptr(), B, n, P,
-           launch_stream(dev))
+           *generic_launch(P), launch_stream(dev))
     else:
         beta_out.copy_(beta0)
     return posts, beta_out

@@ -144,6 +144,71 @@ def test_generic_kernels_carry_in_and_out(cuda):
     torch.testing.assert_close(b_k, b_p, rtol=2e-4, atol=1e-7)
 
 
+def _edge_inputs(P, n, device):
+    """K3/K4 inputs of B=3 chains with random positive E: chain 0 has
+    is_last inside the chunk and an all-zero E column before it (the
+    state turns uniform there), chain 1 ends in padding after its
+    is_last, chain 2 is all padding (E = 0, as bucketed_state_emissions
+    leaves a column without alleles)."""
+    B = 3
+    rng = np.random.default_rng(1000 * P + n)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.random(shape).astype(np.float32))
+
+    E, alpha0, beta0, e_after = rand(B, n, P, P), rand(B, P, P), rand(B, P, P), rand(B, P, P)
+    u = fb_generic.factor_trans(rand(B, n, 3) * 0.1).contiguous()
+    u_after = rand(B, 3) * 0.1
+    is_last = torch.zeros((B, n), dtype=torch.bool)
+    if n > 2:
+        is_last[0, n // 2] = True
+        E[0, n // 3] = 0.0
+        tail = 2 * n // 3
+        is_last[1, tail - 1] = True
+        E[1, tail:] = 0.0
+    else:
+        is_last[1, n - 1] = True
+    E[2] = 0.0
+    to = [x.to(device) for x in (E, u, alpha0, e_after, u_after, is_last, beta0)]
+    return tuple(to)
+
+
+def _posteriors_close_or_zero(got, want):
+    """Columns whose plain posteriors are exactly 0 (their cur is 0: the
+    column before an all-zero E column, and padding) are 0 in the
+    kernel's too; the others as in :func:`_assert_posteriors_close`."""
+    zero = want.sum(dim=(-2, -1)) == 0
+    assert torch.equal(got[zero], want[zero])
+    _assert_posteriors_close(got[~zero][None], want[~zero][None])
+
+
+@pytest.mark.parametrize("n", [1, 37])
+@pytest.mark.parametrize("P", [1, 31, 32, 33, 89, 96, 127, 128])
+def test_generic_kernels_edge_columns(cuda, P, n):
+    """K3/K4 against their plain versions at path counts on both sides
+    of their warp and lane boundaries (n = 1, is_last inside the chunk,
+    all-zero E columns, an all-padding chain), and two launches of each
+    give the same bits."""
+    E, u, alpha0, e_after, u_after, is_last, beta0 = _edge_inputs(P, n, cuda)
+    launches = _generic_launches()
+    a_k, c_k = fb_kernels.forward_e(E, u, alpha0)
+    a_p, c_p = fb_generic.forward_e_plain(E, u, alpha0)
+    torch.testing.assert_close(a_k, a_p, rtol=2e-4, atol=1e-7)
+    torch.testing.assert_close(c_k, c_p, rtol=2e-4, atol=1e-7)
+    args = (a_k, c_k, E, u, e_after, u_after, is_last, beta0)
+    p_k, b_k = fb_kernels.backward_e(*args)
+    p_p, b_p = fb_generic.backward_e_plain(*args)
+    _posteriors_close_or_zero(p_k, p_p)
+    torch.testing.assert_close(b_k, b_p, rtol=2e-4, atol=1e-7)
+    a_2, c_2 = fb_kernels.forward_e(E, u, alpha0)
+    p_2, b_2 = fb_kernels.backward_e(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a_2, a_k) and torch.equal(c_2, c_k)
+    assert torch.equal(p_2, p_k) and torch.equal(b_2, b_k)
+    k3, k4 = _generic_launches()
+    assert (k3 - launches[0], k4 - launches[1]) == (2, 2)
+
+
 def test_generic_kernels_reject_float64(cuda):
     E = torch.ones((1, 4, 8, 8), dtype=torch.float64, device=cuda)
     u = torch.zeros((1, 4, 3), dtype=torch.float64, device=cuda)
