@@ -5,8 +5,8 @@
 Phases, each printed as it runs; any failure exits non-zero:
 
 1. environment: torch/CUDA versions, GPU name and power limit, nvcc;
-2. build: the CUDA kernels (K1-K4 in csrc/fb.cu, S1 in
-   csrc/sampling_dp.cu) and the host k-mer engine, from this checkout,
+2. build: the CUDA kernels (K1-K4 in csrc/fb.cu, S1's sweep and chase
+   in csrc/sampling_dp.cu) and the host k-mer engine, from this checkout,
    one compiler per source, all at once.
    The two end-to-end workloads below are simulated meanwhile, in two
    worker processes, once each into build/smoke_inputs/;
@@ -15,8 +15,9 @@ Phases, each printed as it runs; any failure exits non-zero:
    forward-backward at the bench path's shape B=2, N=65,536, P=16 and at
    B=128, N=4096, P=32, K=16 and B=2, N=4096, P=16; S1 against the plain
    sampling DP, bit for bit, for one masked iteration at the bench
-   path's shape C=2, N=55,040, P=123 and for 15 greedy iterations at
-   C=2, N=4096, P=123; K3/K4 against their plain versions at the SV
+   path's shape C=2, N=55,040, P=123 (its chase alone against the plain
+   chase too), for 15 greedy iterations at C=2, N=4096, P=123 and for
+   one iteration at C=2, N=4096, P=300; K3/K4 against their plain versions at the SV
    path's shape B=1, N=131,072, P=89, K=32, A=16, at B=2, N=8192, P=89
    with 97/2/1% of the columns at A=2/4/16 (where the whole chunked
    route in chunks of 2048 and the fused route through K1/K2 on the
@@ -32,10 +33,15 @@ Phases, each printed as it runs; any failure exits non-zero:
    kernel's bound (hmm/bounds.py: bytes over 3.35 TB/s or operations
    over 67 TFLOP/s, the larger) is printed beside its time, with the
    bytes/s achieved;
+   then one chromosome of N=2,300,000 columns at P=123, over the old
+   1 GiB rule for int32 backtraces: S1's best must equal the path's score
+   summed again on the host, two greedy iterations must give paths apart
+   in every column, and their peak device memory must stay within
+   sampling.group_peak_bytes;
 4. end to end: the bench workload (20 Mb, 2 chromosomes, 61 samples =
    123 paths, 12x 150 bp reads, seed 11) genotyped with the port's
    single command on CUDA; the run must dispatch to the fused kernels,
-   launch K1, K2 and S1, load the native k-mer engine and reach genotype
+   launch K1, K2 and S1 (sweep and chase), load the native k-mer engine and reach genotype
    concordance >= 0.99 against the truth;
 5. profile: the same command once more under torch.profiler; its VCF
    body must equal the first run's, and the device's busy time and idle
@@ -77,6 +83,8 @@ POST_FLOOR = 1e-20
 FB_SHAPES = [(2, 65536, 16, 16), (128, 4096, 32, 16), (2, 4096, 16, 16)]
 MAIN_S1_SHAPE = (2, 55040, 123, 4)                     # (C, N, P, A)
 S1_GREEDY_SHAPE = (2, 4096, 123, 4, 15)                # (C, N, P, A, iterations)
+# over the old 1 GiB rule for int32 [N, P] backtraces (2^28 cells)
+LONG_S1_SHAPE = (1, 2_300_000, 123, 4)                 # (C, N, P, A)
 # (B, N, P, K, mixed allele counts, forced chunk), all at A=16; the first
 # is the SV path's shape (its first chunk: fb_generic.SEGMENT columns)
 GENERIC_SHAPES = [(1, 1 << 17, 89, 32, True, 0), (2, 8192, 89, 32, True, 2048),
@@ -194,29 +202,40 @@ def check_fb(device, gpu):
     return err, times[FB_SHAPES[0]]
 
 
-def check_s1(device, gpu):
-    """S1 against the plain sampling DP, bit for bit: one masked
-    iteration at the main path's shape, then the greedy loop.  Returns
-    the largest absolute difference (0) and the times at the main
-    path's shape."""
+def s1_iteration_inputs(rng, C, N, P, A, device):
+    """Capped costs as the penalty updates leave them (<= 25) gathered
+    through alleles as a panel carries them, a third of the paths masked
+    as after a few greedy iterations, switch costs on the scale of real
+    ones (tools/s1_times.py builds the same)."""
     import numpy as np
     import torch
 
-    from pangenie_tpu_torch.hmm import bounds
+    costs = torch.from_numpy(rng.integers(0, 26, (C, N, A)).astype(np.int32)).to(device)
+    alleles = torch.from_numpy(rng.integers(0, A, (C, N, P))).to(device)
+    path_cost = torch.gather(costs, 2, alleles).to(torch.int32).contiguous()
+    mask = torch.from_numpy(rng.random((C, N, P)) > 0.3).to(device)
+    switch = torch.from_numpy(rng.integers(20, 40, (C, N)).astype(np.int32)).to(device)
+    return path_cost, mask, switch
+
+
+def check_s1(device, gpu):
+    """S1 against the plain sampling DP, bit for bit: one masked
+    iteration at the main path's shape (the chase alone against its
+    plain version too), the greedy loop, and one iteration at P=300 (the
+    multi-warp sweep, 16-bit backtraces). Returns the largest absolute
+    difference (0) and the times at the main path's shape: S1 is the
+    whole function (sweep and chase), S1_CHASE the chase alone."""
+    import numpy as np
+    import torch
+
+    from pangenie_tpu_torch.hmm import bounds, sampling
     from pangenie_tpu_torch.hmm.sampling import (
         sample_group, viterbi_iteration, viterbi_iteration_plain,
     )
 
     rng = np.random.default_rng(5)
     C, N, P, A = MAIN_S1_SHAPE
-    # capped costs as the penalty updates leave them (<= 25), alleles as
-    # a panel carries them, and a third of the paths masked as after a
-    # few greedy iterations
-    costs = torch.from_numpy(rng.integers(0, 26, (C, N, A)).astype(np.int32)).to(device)
-    alleles = torch.from_numpy(rng.integers(0, A, (C, N, P))).to(device)
-    path_cost = torch.gather(costs, 2, alleles).to(torch.int32).contiguous()
-    mask = torch.from_numpy(rng.random((C, N, P)) > 0.3).to(device)
-    switch = torch.from_numpy(rng.integers(20, 40, (C, N)).astype(np.int32)).to(device)
+    path_cost, mask, switch = s1_iteration_inputs(rng, C, N, P, A, device)
     (pk, sk), _ = timed(lambda: viterbi_iteration(path_cost, mask, switch))
     (pp, sp), s1_plain = timed(lambda: viterbi_iteration_plain(path_cost, mask, switch))
     if not (torch.equal(pk, pp) and torch.equal(sk, sp)):
@@ -224,13 +243,37 @@ def check_s1(device, gpu):
                              "at the main path's shape")
     max_err = max(float((pk.long() - pp.long()).abs().max()),
                   float((sk - sp).abs().max()))
+    bt, _best, ends = sampling.s1_sweep(path_cost, mask, switch)
+    chase_k = sampling.s1_chase(bt, ends, P)
+    chase_p, chase_plain_ms = timed(lambda: sampling.chase_plain(bt, ends))
+    if not (torch.equal(chase_k, chase_p) and torch.equal(chase_k, pk)):
+        raise AssertionError("S1's chase differs from its plain version")
     t = {"S1": cuda_ms(lambda: viterbi_iteration(path_cost, mask, switch), 3),
-         "S1_plain": s1_plain, "S1_work": bounds.s1(C, N, P), "S1_cols": N}
+         "S1_plain": s1_plain, "S1_work": bounds.s1(C, N, P), "S1_cols": N,
+         "sweep": cuda_ms(lambda: sampling.s1_sweep(path_cost, mask, switch), 3),
+         "S1_CHASE": cuda_ms(lambda: sampling.s1_chase(bt, ends, P), 3),
+         "S1_CHASE_plain": chase_plain_ms, "S1_CHASE_cols": N,
+         "S1_CHASE_work": bounds.s1_chase(C, N, bt.element_size())}
     print(f"  s1 C={C} N={N} P={P}, one masked iteration: bit-identical "
-          f"(paths and scores)")
-    print(f"  times C={C} N={N} P={P} [{gpu}]: S1 {t['S1']:.3f} ms, plain "
-          f"{t['S1_plain']:.3f} ms per iteration; {against_bound(t, 'S1')}",
-          flush=True)
+          f"(paths and scores); the chase alone equals its plain version")
+    print(f"  times C={C} N={N} P={P} [{gpu}]: S1 {t['S1']:.3f} ms (sweep "
+          f"{t['sweep']:.3f} ms, chase {t['S1_CHASE']:.3f} ms in segments of "
+          f"{sampling.chase_segment(N)}), plain {t['S1_plain']:.3f} ms per iteration; "
+          f"{against_bound(t, 'S1')}; chase plain {chase_plain_ms:.3f} ms, "
+          f"{against_bound(t, 'S1_CHASE')}", flush=True)
+    del path_cost, mask, switch, bt
+
+    C, N, P, A = 2, 4096, 300, 4
+    path_cost, mask, switch = s1_iteration_inputs(rng, C, N, P, A, device)
+    got = viterbi_iteration(path_cost, mask, switch)
+    want, plain_ms = timed(lambda: viterbi_iteration_plain(path_cost, mask, switch))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"S1 paths or scores differ from the plain DP at P={P}")
+    wide_ms = cuda_ms(lambda: viterbi_iteration(path_cost, mask, switch), 3)
+    print(f"  s1 C={C} N={N} P={P} ({sampling.sweep_layout(P)[0]} warps, "
+          f"{sampling.backtrace_dtype(P)} backtraces): bit-identical; [{gpu}] "
+          f"{wide_ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
+    del path_cost, mask, switch
 
     C, N, P, A, iters = S1_GREEDY_SHAPE
     # costs 0..3 force ties; switch costs on the scale of real ones
@@ -248,6 +291,67 @@ def check_s1(device, gpu):
     print(f"  s1 C={C} N={N} P={P} x{iters} greedy iterations: bit-identical; "
           f"[{gpu}] {s1_ms:.3f} ms with S1, {plain_ms:.3f} ms plain", flush=True)
     return max_err, t
+
+
+def check_long_chromosome(device, gpu) -> None:
+    """S1 on one chromosome of LONG_S1_SHAPE, over the old rule of 1 GiB
+    of int32 backtraces, inputs made on the card from a seeded
+    torch.Generator: one iteration with a third of the paths masked,
+    whose path must avoid every masked cell and whose score, summed again
+    on the host in int64 with uint32 saturation, must equal S1's best;
+    then 2 greedy iterations through sample_group, whose second path
+    must leave the first's in every column. The peak device memory of
+    those is held against sampling.group_peak_bytes, the budget
+    sample_panels_batched checks."""
+    import numpy as np
+    import torch
+
+    from pangenie_tpu_torch.hmm import sampling
+
+    C, N, P, A = LONG_S1_SHAPE
+    assert N * P * 4 > 1 << 30
+    g = torch.Generator(device=device)
+    g.manual_seed(23)
+    t0 = time.monotonic()
+    path_cost = torch.randint(0, 26, (C, N, P), generator=g, device=device, dtype=torch.int32)
+    mask = torch.rand((C, N, P), generator=g, device=device) > 1 / 3
+    switch = torch.randint(20, 40, (C, N), generator=g, device=device, dtype=torch.int32)
+    (paths, best), s1_ms = timed(lambda: sampling.viterbi_iteration(path_cost, mask, switch))
+    cols = torch.arange(N, device=device)
+    on_path = paths[0].long()
+    if not bool(mask[0, cols, on_path].all()):
+        raise AssertionError("the long chromosome's path steps on a masked cell")
+    cost = path_cost[0, cols, on_path].cpu().numpy().astype(np.int64)
+    p = on_path.cpu().numpy()
+    sw = switch[0].cpu().numpy().astype(np.int64)
+    score = min(int(cost.sum() + sw[1:][p[1:] != p[:-1]].sum()), sampling.UINT_MAX)
+    if score != int(best[0]):
+        raise AssertionError(f"long chromosome: the path scores {score} on the host, "
+                             f"S1 says {int(best[0])}")
+    print(f"  long chromosome C={C} N={N} P={P}: path avoids every masked cell, host "
+          f"score {score} == S1 best; [{gpu}] one iteration {s1_ms:.3f} ms", flush=True)
+    del path_cost, mask, paths, cols, on_path
+
+    base = torch.cuda.memory_allocated()
+    costs = torch.randint(0, 26, (C, N, A), generator=g, device=device, dtype=torch.int32)
+    alleles = torch.randint(0, A, (C, N, P), generator=g, device=device)
+    valid = torch.ones((C, N), dtype=torch.bool, device=device)
+    torch.cuda.reset_peak_memory_stats()
+    sampled, greedy_ms = timed(lambda: sampling.sample_group(costs, alleles, switch, valid, 2, 10))
+    peak = torch.cuda.max_memory_allocated() - base
+    if not bool((sampled[0] != sampled[1]).all()):
+        raise AssertionError("the second greedy path shares a column with the first")
+    predicted = sampling.group_peak_bytes(C, N, P, A, 2)
+    budget = sampling.memory_budget(device)
+    print(f"  long chromosome x2 greedy iterations: second path differs in every "
+          f"column; [{gpu}] {greedy_ms:.3f} ms; peak device memory {peak} bytes "
+          f"({peak / (C * N * P):.2f} per [N,P] cell), group_peak_bytes {predicted} "
+          f"({predicted / (C * N * P):.2f} per cell), budget now {budget} bytes; phase "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    if peak > predicted:
+        raise AssertionError(f"measured peak {peak} > group_peak_bytes {predicted}")
+    del costs, alleles, valid, switch, sampled
+    torch.cuda.empty_cache()
 
 
 def generic_columns(B, N, P, K, mixed, seed, device):
@@ -583,7 +687,7 @@ def run_e2e(casedir: str, gpu: str):
     launches = {name: k.launches for name, k in kernels().items()}
     if batch.last_dispatch != "cuda_fused":
         raise AssertionError(f"dispatch was {batch.last_dispatch}, not cuda_fused")
-    for name in ("K1", "K2", "S1"):
+    for name in ("K1", "K2", "S1", "S1_CHASE"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the bench path")
     if native._LIB is None:
@@ -758,7 +862,7 @@ def kernels():
     from pangenie_tpu_torch.hmm import fb_kernels, sampling
 
     return {"K1": fb_kernels.K1, "K2": fb_kernels.K2, "K3": fb_kernels.K3,
-            "K4": fb_kernels.K4, "S1": sampling.S1}
+            "K4": fb_kernels.K4, "S1": sampling.S1, "S1_CHASE": sampling.S1_CHASE}
 
 
 def main() -> int:
@@ -825,6 +929,9 @@ def smoke(device, gpu, bench_inputs, sv_inputs) -> int:
     s1_err, s1_times = check_s1(device, gpu)
     g_err, g_times = check_generic(device, gpu)
 
+    phase("long chromosome: sampling DP over the old 1 GiB backtrace rule")
+    check_long_chromosome(device, gpu)
+
     phase("end to end")
     casedir, seconds = bench_inputs.get()
     print(f"  bench inputs ({BENCH}) simulated in {seconds:.1f} s", flush=True)
@@ -847,6 +954,7 @@ def smoke(device, gpu, bench_inputs, sv_inputs) -> int:
                 "us_per_column": t[key] * 1e3 / t[key + "_cols"], "library_ms": None}
 
     fb_src = "pangenie_tpu_torch/csrc/fb.cu"
+    s1_src = "pangenie_tpu_torch/csrc/sampling_dp.cu"
     pallas = "pangenie_tpu/hmm/pallas_fb.py"
     record = {"kernels": [
         entry("fb_forward (K1)", fb_src, f"{pallas}:122", launches["K1"],
@@ -857,9 +965,10 @@ def smoke(device, gpu, bench_inputs, sv_inputs) -> int:
               g_err["K3"], g_times, "K3"),
         entry("fbe_backward (K4)", fb_src, f"{pallas}:333", sv_launches["K4"],
               g_err["K4"], g_times, "K4"),
-        entry("viterbi_iteration (S1)", "pangenie_tpu_torch/csrc/sampling_dp.cu",
-              "pangenie_tpu/hmm/sampling.py:173", launches["S1"], s1_err,
-              s1_times, "S1"),
+        entry("viterbi_iteration (S1: sweep and chase)", s1_src,
+              "pangenie_tpu/hmm/sampling.py:174", launches["S1"], s1_err, s1_times, "S1"),
+        entry("backtrace chase (S1)", s1_src, "pangenie_tpu/hmm/sampling.py:232",
+              launches["S1_CHASE"], s1_err, s1_times, "S1_CHASE"),
     ]}
     print(json.dumps(record))
     print(gpu_line())

@@ -1,122 +1,368 @@
 // Kernel S1: one masked single-path min-plus Viterbi iteration of the
-// greedy haplotype sampler, for Hopper (sm_90a).
+// greedy haplotype sampler, for Hopper (sm_90a): a forward sweep that
+// keeps backtraces, then a parallel chase of the path through them.
 //
 // Replaces: pangenie_tpu/hmm/sampling.py:_viterbi_iteration (the column
-// scan) and :_blocked_viterbi (its blocked TPU formulation, bit-identical
-// to the scan by construction), both XLA, run per greedy iteration by
-// :_sample_group. Plain version: pangenie_tpu_torch/hmm/sampling.py
-// (viterbi_iteration_plain).
+// scan, :174, and its chase, :232) and :_blocked_viterbi (its blocked TPU
+// formulation, bit-identical to the scan by construction), both XLA, run
+// per greedy iteration by :_sample_group. Plain version:
+// pangenie_tpu_torch/hmm/sampling.py (viterbi_iteration_plain; the chase
+// alone: chase_plain).
 //
-// What bounds it on the H100: the DP is a serial chain over N columns
-// with two block-wide (min, argmin) reductions per column, so a column
-// costs a handful of barriers and one coalesced [P] load/store; the
-// backtrace chase is a chain of N dependent loads. Latency, not
-// bandwidth or arithmetic. Chromosomes are independent: one CTA each.
+// What bounds it on the H100: the sweep is a serial chain over N columns;
+// a column is one reduction over the P paths and a few integer operations
+// a path, and moves ~5P bytes. So latency, and for one warp the count of
+// its instructions, not bandwidth or arithmetic: the design shortens the
+// chain and keeps what is not on it off it.
 //
-// Design: one CTA per chromosome, one thread per path. Each reduction
-// packs (uint32 score, path index) into one 64-bit key, so the block
-// minimum is the FIRST minimum (lowest index on ties), exactly as
-// jnp.argmin / the reference's get_column_minima. Scores are uint32 with
-// saturating adds; stay wins only on strict '<'; the first column is
-// overridden to score 0 / backtrace 0. Backtraces go to device memory
-// as int32 [C, N, P]; one thread then chases the path back from the
-// first minimum of the last column. Results are bit-identical to the
-// column scan. Allocates nothing; launches on the caller's stream.
+// Sweep (s1_sweep_kernel), one CTA per chromosome:
+// - P <= 128: one warp, each lane holding R = ceil(P/32) consecutive
+//   paths in registers, so lane order is path order. No barrier. Only the
+//   column minimum is on the chain (one __reduce_min_sync, redux.sync):
+//   the scores' recurrence needs nothing else, and the lane's next
+//   minimum follows from it in three operations (see s1_sweep_kernel). The
+//   first path at the minimum, which only the backtraces need, is one
+//   more reduction off the chain, and the next path at it another, only
+//   before a column whose switch is free. P <= 1024: W = ceil(P/128)
+//   warps of 4 paths a lane merge theirs through double-buffered shared
+//   partials, one barrier a column.
+// - No load on the column's chain: cost, mask and switch of column
+//   n + S1_DEPTH are loaded into a register ring while column n reduces.
+// - Backtraces uint8 (P <= 256) or uint16, rows of 32*W*R entries (entry
+//   p of a row is path p's); a lane's R entries leave as one store where
+//   they make 1, 2, 4 or 8 bytes.
+// Chase, N columns cut into S segments of L (hmm/sampling.py picks L):
+// - s1_maps_kernel: for every segment but the first and every state at
+//   its last column, follow its L backtraces to the state at the column
+//   before it: C x (S-1) x P independent chains across the SMs;
+// - s1_rewalk_kernel: one thread per segment composes the maps of the
+//   segments after it, from the last column's first minimum, then
+//   re-walks its own segment writing the path. The path is the serial
+//   chase's by construction.
+// Rules of the column scan, kept bit for bit: uint32 scores with
+// saturating adds; a masked path's score is UMAX; the first minimum is
+// the lowest index among equal scores (padding paths, past P, never
+// win); the second minimum is the first minimum of the column with the
+// first's score replaced by UMAX; a path stays only on strict '<';
+// column 0 is score 0 and backtrace 0; the last column's first minimum
+// ends the path and its score is `best`. Allocates nothing; launches on
+// the caller's stream.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define UMAX 0xFFFFFFFFu
+#define NONE 0xFFFFFFFFu  // the index of no path: above every real one
+#define FULL_MASK 0xFFFFFFFFu
 #define S1_MAX_PATHS 1024
+// columns in flight in the register ring
+#define S1_DEPTH 8
 
 typedef unsigned long long u64;
 
+// the multi-warp sweep's partials: [2 buffers][W warps][m1, f1, g, -]
+extern __shared__ __align__(16) u64 s1_shm[];
+
+// min(a + b, UMAX) as uint32: where a > ~b the sum overflows and
+// ~b + b = UMAX. Two dependent operations after `a` when ~b is ready.
 __device__ __forceinline__ unsigned sat_add(unsigned a, unsigned b) {
-    const unsigned s = a + b;
-    return s < a ? UMAX : s;
+    return min(a, ~b) + b;
 }
 
-__device__ __forceinline__ u64 key_of(unsigned val, int idx) {
-    return ((u64)val << 32) | (unsigned)idx;
-}
+// A column's minimum score m1, its first path f1, and g, the next path
+// at m1 (NONE if f1 is the only one).
+struct Col {
+    unsigned m1, f1, g;
+};
 
-// Minimum key over the block; every thread gets it.
-__device__ __forceinline__ u64 block_min(u64 v, u64* s_red) {
-    for (int o = 16; o > 0; o >>= 1) {
-        const u64 other = __shfl_down_sync(0xffffffffu, v, o);
-        v = other < v ? other : v;
-    }
-    if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = v;
-    __syncthreads();
-    u64 m = s_red[0];
-    const int nwarps = blockDim.x >> 5;
-    for (int w = 1; w < nwarps; ++w) m = s_red[w] < m ? s_red[w] : m;
-    __syncthreads();
-    return m;
-}
-
-__global__ void viterbi_iteration_kernel(const unsigned* __restrict__ cost,
-                                         const unsigned char* __restrict__ mask,
-                                         const unsigned* __restrict__ sw,
-                                         int* __restrict__ bt, int* __restrict__ path,
-                                         unsigned* __restrict__ best, int N, int P) {
-    __shared__ u64 s_red[S1_MAX_PATHS / 32];
-    const int c = blockIdx.x, i = threadIdx.x;
-    const bool live = i < P;
-    const size_t base = (size_t)c * N * P;
-    const u64 none = ~0ull;  // padding threads never win
-
-    unsigned prev = 0;
-    bool prev_mask = false;
-    for (int n = 0; n < N; ++n) {
-        const unsigned masked_prev = prev_mask ? prev : UMAX;
-        const u64 first = block_min(live ? key_of(masked_prev, i) : none, s_red);
-        const unsigned first_val = (unsigned)(first >> 32);
-        const int first_id = (int)(first & 0xFFFFFFFFu);
-        const unsigned rest = i == first_id ? UMAX : masked_prev;
-        const u64 second = block_min(live ? key_of(rest, i) : none, s_red);
-        if (live) {
-            const bool is_min = i == first_id;
-            unsigned prev_cell = sat_add(
-                is_min ? (unsigned)(second >> 32) : first_val, sw[(size_t)c * N + n]);
-            int back = is_min ? (int)(second & 0xFFFFFFFFu) : first_id;
-            if (prev_mask && prev < prev_cell) {  // stay costs 0
-                prev_cell = prev;
-                back = i;
-            }
-            if (n == 0) {
-                prev_cell = 0;
-                back = 0;
-            }
-            const size_t at = base + (size_t)n * P + i;
-            const bool m = mask[at] != 0;
-            prev = m ? sat_add(prev_cell, cost[at]) : UMAX;
-            prev_mask = m;
-            bt[at] = back;
+// The warp's Col, where the lane holds paths first..first+R-1 and
+// lane_min is the least of their scores. Only m1 is on the sweep's
+// chain; f1 and g feed the backtraces, and g only where the next
+// column's switch is free (`need_g`, the same in every thread).
+template <int R>
+__device__ __forceinline__ Col warp_col(const unsigned (&score)[R], unsigned lane_min,
+                                        unsigned first, bool need_g) {
+    const unsigned m1 = __reduce_min_sync(FULL_MASK, lane_min);
+    unsigned i1 = NONE, i2 = NONE;  // the lane's first two paths at m1
+#pragma unroll
+    for (int j = R - 1; j >= 0; --j) {
+        if (score[j] == m1) {
+            i2 = i1;
+            i1 = first + j;
         }
     }
-    // the barriers inside block_min also publish every thread's backtraces
-    const u64 fin = block_min(live ? key_of(prev, i) : none, s_red);
-    if (i == 0) {
-        best[c] = (unsigned)(fin >> 32);
-        int s = (int)(fin & 0xFFFFFFFFu);
-        for (int n = N - 1; n >= 0; --n) {
-            path[(size_t)c * N + n] = s;
-            s = bt[base + (size_t)n * P + s];
+    const unsigned f1 = __reduce_min_sync(FULL_MASK, i1);
+    // lane order is path order: g is the holder's second path at m1 or
+    // the lowest first path at m1 of the other lanes
+    const unsigned g = need_g ? __reduce_min_sync(FULL_MASK, i1 == f1 ? i2 : i1) : NONE;
+    return {m1, f1, g};
+}
+
+// The block's Col; `step` alternates the partials' buffer.
+template <int R, int W>
+__device__ __forceinline__ Col block_col(const unsigned (&score)[R], unsigned lane_min,
+                                         unsigned first, int step, bool need_g) {
+    const Col c = warp_col<R>(score, lane_min, first, need_g);
+    if constexpr (W == 1) {
+        return c;
+    } else {
+        unsigned* part = reinterpret_cast<unsigned*>(s1_shm) + (step & 1) * 4 * W;
+        const int warp = threadIdx.x >> 5;
+        if ((threadIdx.x & 31) == 0) {
+            part[4 * warp] = c.m1;
+            part[4 * warp + 1] = c.f1;
+            part[4 * warp + 2] = c.g;
+        }
+        __syncthreads();
+        unsigned m1 = part[0], f1 = NONE, g = NONE;
+#pragma unroll
+        for (int w = 1; w < W; ++w) m1 = min(m1, part[4 * w]);
+        // warps in path order: the first warp at m1 gives f1 and its g,
+        // or the next warp at m1 its first path
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+            if (part[4 * w] != m1) continue;
+            if (f1 == NONE) {
+                f1 = part[4 * w + 1];
+                g = part[4 * w + 2];
+            } else if (g == NONE) {
+                g = part[4 * w + 1];
+            }
+        }
+        return {m1, f1, g};
+    }
+}
+
+// Column n's cost, mask byte (0 for padding paths) and switch into one
+// slot of the register ring. Nothing here reads the loaded values, so
+// the warp waits for them only in the column that uses them (a compare
+// at load time stalled every column).
+template <int R>
+__device__ __forceinline__ void load_column(unsigned (&cost)[R], unsigned (&live)[R],
+                                            unsigned& sw, const unsigned* __restrict__ c,
+                                            const unsigned char* __restrict__ m,
+                                            const unsigned* __restrict__ s, int n, int P,
+                                            unsigned first) {
+    const size_t at = (size_t)n * P + first;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+        live[j] = 0;
+        if (first + j < (unsigned)P) {
+            cost[j] = c[at + j];
+            live[j] = m[at + j];
         }
     }
+    sw = s[n];
+}
+
+// A lane's R backtrace entries, as one store where they make 1, 2, 4 or
+// 8 bytes (aligned: rows and lanes start at multiples of that size).
+template <int R, typename BT>
+__device__ __forceinline__ void store_backs(BT* dst, const unsigned (&back)[R]) {
+    constexpr int bytes = R * (int)sizeof(BT), bits = 8 * (int)sizeof(BT);
+    if constexpr (bytes == 1 || bytes == 2 || bytes == 4) {
+        unsigned w = 0;
+#pragma unroll
+        for (int j = 0; j < R; ++j) w |= back[j] << (bits * j);
+        if constexpr (bytes == 1) *dst = (BT)w;
+        else if constexpr (bytes == 2) *(uint16_t*)dst = (uint16_t)w;
+        else *(uint32_t*)dst = w;
+    } else if constexpr (bytes == 8) {
+        u64 w = 0;
+#pragma unroll
+        for (int j = 0; j < R; ++j) w |= (u64)back[j] << (bits * j);
+        *(u64*)dst = w;
+    } else {
+#pragma unroll
+        for (int j = 0; j < R; ++j) dst[j] = (BT)back[j];
+    }
+}
+
+// The column recurrence, from the previous column's scores s and their
+// Col (m1, f1, g), with c1 = sat(m1 + sw):
+//   s'[i] = live ? sat(min(s[i], c1) + cost[i]) : UMAX
+//   back[i] = i != f1: s[i] < c1 ? i : f1      (stay only on strict '<')
+//             i == f1: g if it exists, sw == 0 and m1 < UMAX, else f1
+//             (so g is reduced only before a column whose switch is free).
+// It is the column scan's: for i != f1 the helper is the first minimum;
+// for f1 it is the second, whose score is m1 again only where g exists,
+// and f1 stays unless the switch to it costs nothing (where m1 is UMAX
+// every path is UMAX and every backtrace f1 = 0). Folding the mask into
+// the cost (UMAX, so every sum saturates), the lane's next minimum is
+//   min_i s'[i] = min(A, sat(m1 + U)),  A = min_i sat(s[i] + cost[i]),
+//   U = min_i sat(sw + cost[i]),
+// where A and U do not wait for m1: the chain from one column's m1 to
+// the next is three operations and one redux.
+template <int R, int W, typename BT>
+__global__ void __launch_bounds__(32 * W)
+    s1_sweep_kernel(const unsigned* __restrict__ cost, const unsigned char* __restrict__ mask,
+                    const unsigned* __restrict__ sw, BT* __restrict__ bt,
+                    unsigned* __restrict__ best, int* __restrict__ ends, int N, int P) {
+    constexpr int D = S1_DEPTH;
+    const int c = blockIdx.x;
+    const unsigned first = threadIdx.x * R;  // the lane's first path
+    const size_t row = 32 * W * R;
+    cost += (size_t)c * N * P;
+    mask += (size_t)c * N * P;
+    sw += (size_t)c * N;
+    bt += (size_t)c * N * row + first;
+
+    // column n lives in slot n % D; loads past the last column read it again
+    unsigned ring_cost[D][R], ring_live[D][R], ring_sw[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d)
+        load_column<R>(ring_cost[d], ring_live[d], ring_sw[d], cost, mask, sw, min(d, N - 1),
+                       P, first);
+
+    // column 0: score 0 before its cost, backtrace 0
+    unsigned score[R], back[R], lane_min = UMAX;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+        score[j] = ring_live[0][j] ? ring_cost[0][j] : UMAX;
+        lane_min = min(lane_min, score[j]);
+        back[j] = 0;
+    }
+    store_backs<R>(bt, back);
+    load_column<R>(ring_cost[0], ring_live[0], ring_sw[0], cost, mask, sw, min(D, N - 1), P,
+                   first);
+    Col col = block_col<R, W>(score, lane_min, first, 0, ring_sw[1 % D] == 0);
+
+    auto step = [&](int n, int k) {
+        const unsigned s = ring_sw[k], c1 = sat_add(col.m1, s);
+        const unsigned at_first =
+            col.g != NONE && s == 0 && col.m1 != UMAX ? col.g : col.f1;
+        unsigned a_min = UMAX, u_min = UMAX;
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+            const unsigned p = first + j;
+            const unsigned k_cost = ring_live[k][j] ? ring_cost[k][j] : UMAX;
+            back[j] = p == col.f1 ? at_first : score[j] < c1 ? p : col.f1;
+            const unsigned a = sat_add(score[j], k_cost), u = sat_add(s, k_cost);
+            score[j] = min(a, sat_add(col.m1, u));
+            a_min = min(a_min, a);
+            u_min = min(u_min, u);
+        }
+        store_backs<R>(bt + (size_t)n * row, back);
+        load_column<R>(ring_cost[k], ring_live[k], ring_sw[k], cost, mask, sw,
+                       min(n + D, N - 1), P, first);
+        col = block_col<R, W>(score, min(a_min, sat_add(col.m1, u_min)), first, n,
+                              ring_sw[(k + 1) % D] == 0);
+    };
+    int n0 = 1;
+    for (; n0 + D <= N; n0 += D) {
+#pragma unroll
+        for (int d = 0; d < D; ++d) step(n0 + d, (d + 1) % D);
+    }
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+        if (n0 + d >= N) break;
+        step(n0 + d, (d + 1) % D);
+    }
+    if (threadIdx.x == 0) {
+        best[c] = col.m1;
+        ends[c] = (int)col.f1;
+    }
+}
+
+// maps[c][s][e]: the state at segment s's column before it (s*L - 1),
+// given state e at its last column, for s = 1..S-1.
+template <typename BT>
+__global__ void s1_maps_kernel(const BT* __restrict__ bt, int* __restrict__ maps, int N,
+                               int P, int row, int L, int S) {
+    const int c = blockIdx.x / (S - 1), s = blockIdx.x % (S - 1) + 1;
+    const int e = threadIdx.x;
+    if (e >= P) return;
+    const BT* b = bt + (size_t)c * N * row;
+    const int lo = s * L, hi = min(N, lo + L);
+    int x = e;
+    for (int n = hi - 1; n >= lo; --n) x = b[(size_t)n * row + x];
+    maps[((size_t)c * S + s) * P + e] = x;
+}
+
+// One thread per (chromosome, segment): its last column's state from the
+// chromosome's end through the later segments' maps, then its columns.
+template <typename BT>
+__global__ void s1_rewalk_kernel(const BT* __restrict__ bt, const int* __restrict__ maps,
+                                 const int* __restrict__ ends, int* __restrict__ path, int C,
+                                 int N, int P, int row, int L, int S) {
+    const int t = blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= C * S) return;
+    const int c = t / S, s = t % S;
+    const int* m = maps + (size_t)c * S * P;
+    int x = ends[c];
+    for (int k = S - 1; k > s; --k) x = m[(size_t)k * P + x];
+    const BT* b = bt + (size_t)c * N * row;
+    int* out = path + (size_t)c * N;
+    const int lo = s * L;
+    for (int n = min(N, lo + L) - 1;; --n) {
+        out[n] = x;
+        if (n == lo) break;
+        x = b[(size_t)n * row + x];
+    }
+}
+
+// The sweep's layout, as hmm/sampling.py:sweep_layout derives it: W warps
+// of R paths a lane.
+static bool sweep_layout(int P, int& W, int& R) {
+    if (P < 1 || P > S1_MAX_PATHS) return false;
+    W = P <= 128 ? 1 : (P + 127) / 128;
+    R = P <= 128 ? (P + 31) / 32 : 4;
+    return true;
+}
+
+template <typename Kernel, typename... Args>
+static int launch(Kernel kernel, int blocks, int threads, size_t smem, void* stream,
+                  Args... args) {
+    kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(args...);
+    return (int)cudaGetLastError();
+}
+
+template <typename BT>
+static int chase(const void* bt, const int* ends, int* maps, int* path, int C, int N,
+                 int P, int row, int L, void* stream) {
+    const int S = (N + L - 1) / L;
+    const BT* b = (const BT*)bt;
+    if (S > 1) {
+        const int err = launch(s1_maps_kernel<BT>, C * (S - 1), (P + 31) / 32 * 32, 0,
+                               stream, b, maps, N, P, row, L, S);
+        if (err) return err;
+    }
+    return launch(s1_rewalk_kernel<BT>, (C * S + 127) / 128, 128, 0, stream, b,
+                  (const int*)maps, ends, path, C, N, P, row, L, S);
 }
 
 extern "C" const char* pg_s1_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }
 
-extern "C" int pg_viterbi_iteration(const unsigned* cost, const unsigned char* mask,
-                                    const unsigned* sw, int* bt, int* path,
-                                    unsigned* best, int C, int N, int P, void* stream) {
-    if (P < 1 || P > S1_MAX_PATHS || N < 1) return (int)cudaErrorInvalidValue;
-    const int threads = (P + 31) / 32 * 32;
-    viterbi_iteration_kernel<<<C, threads, 0, (cudaStream_t)stream>>>(
-        cost, mask, sw, bt, path, best, N, P);
-    return (int)cudaGetLastError();
+// bt: [C, N, row] uint8 for P <= 256, else uint16; best (uint32 bits) and
+// ends: [C].
+extern "C" int pg_s1_sweep(const unsigned* cost, const unsigned char* mask,
+                           const unsigned* sw, void* bt, unsigned* best, int* ends, int C,
+                           int N, int P, int row, void* stream) {
+    int W, R;
+    if (C < 1 || N < 1 || !sweep_layout(P, W, R) || row != 32 * W * R)
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = W > 1 ? 8 * W * sizeof(unsigned) : 0;
+#define S1_SWEEP(w, r, T)                                                                \
+    if (W == w && R == r)                                                                \
+        return launch(s1_sweep_kernel<r, w, T>, C, 32 * w, smem, stream, cost, mask, sw, \
+                      (T*)bt, best, ends, N, P);
+    S1_SWEEP(1, 1, uint8_t) S1_SWEEP(1, 2, uint8_t) S1_SWEEP(1, 3, uint8_t)
+    S1_SWEEP(1, 4, uint8_t) S1_SWEEP(2, 4, uint8_t) S1_SWEEP(3, 4, uint16_t)
+    S1_SWEEP(4, 4, uint16_t) S1_SWEEP(5, 4, uint16_t) S1_SWEEP(6, 4, uint16_t)
+    S1_SWEEP(7, 4, uint16_t) S1_SWEEP(8, 4, uint16_t)
+#undef S1_SWEEP
+    return (int)cudaErrorInvalidValue;
+}
+
+// The path [C, N] from the sweep's bt and ends, through segments of L
+// columns; maps: [C, ceil(N / L), P] int32 scratch.
+extern "C" int pg_s1_chase(const void* bt, const int* ends, int* maps, int* path, int C,
+                           int N, int P, int row, int L, void* stream) {
+    int W, R;
+    if (C < 1 || N < 1 || L < 1 || !sweep_layout(P, W, R) || row != 32 * W * R)
+        return (int)cudaErrorInvalidValue;
+    return P <= 256 ? chase<uint8_t>(bt, ends, maps, path, C, N, P, row, L, stream)
+                    : chase<uint16_t>(bt, ends, maps, path, C, N, P, row, L, stream);
 }

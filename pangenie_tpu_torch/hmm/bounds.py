@@ -78,3 +78,10 @@ def s1(C: int, N: int, P: int) -> Work:
     (int32) [C] out. The backtrace the kernel keeps is its own scratch,
     not counted. Integer operations count at the float32 rate."""
     return Work(5 * C * N * P + 4 * C * N + 4 * C * N + 4 * C, S1_OPS * C * N * P)
+
+
+def s1_chase(C: int, N: int, bt_bytes: int) -> Work:
+    """S1's chase alone: the one backtrace entry (``bt_bytes`` each) of a
+    column that the path needs, and ends (int32) [C], in; paths (int32)
+    [C, N] out. One lookup a column."""
+    return Work(bt_bytes * C * N + 4 * C + 4 * C * N, C * N)

@@ -3,10 +3,17 @@
 Port of ``pangenie_tpu/hmm/sampling.py:sample_panels_batched``
 (reference src/haplotypesampler.cpp:20-314). Each of the ``size``
 greedy iterations runs one masked single-path min-plus Viterbi per
-chromosome — kernel S1 (``csrc/sampling_dp.cu``) on the card, the
-plain column loop :func:`viterbi_iteration_plain` on the CPU — then
-masks the chosen paths and penalizes their alleles with elementwise
-torch (``min(cost + penalty, 25)``, padding columns left alone).
+chromosome — kernel S1 (``csrc/sampling_dp.cu``: a sweep, then a
+parallel chase of the backtraces) on the card, the plain column loop
+:func:`viterbi_iteration_plain` on the CPU — then masks the chosen
+paths and penalizes their alleles with elementwise torch
+(``min(cost + penalty, 25)``, padding columns left alone).
+
+The full ``[N, P]`` backtraces stay on the device (uint8 up to 256
+paths), so a chromosome is sampled in one sweep wherever its group's
+peak (:func:`group_peak_bytes`) fits the device's free memory
+(:func:`memory_budget`); the reference package's checkpointed scan,
+which gives the same paths, is needed only beyond that.
 
 Scores are uint32 with saturating adds (the reference's overflow
 clamps). Torch on the CPU has no uint32 add/min/argmin/compare, so the
@@ -20,6 +27,8 @@ switch ties the switch wins (stay only on strict '<').
 from __future__ import annotations
 
 import ctypes
+import math
+import os
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -33,12 +42,29 @@ UINT_MAX = 0xFFFFFFFF
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # kernel S1: replaces pangenie_tpu/hmm/sampling.py:_viterbi_iteration
-# (and its blocked form _blocked_viterbi)
-S1 = CudaKernel(
-    "sampling_dp", "pg_viterbi_iteration", "s1", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
-)
-# one thread per path in a CTA
+# (and its blocked form _blocked_viterbi): the sweep, then the chase
+S1 = CudaKernel("sampling_dp", "pg_s1_sweep", "s1", [_P] * 6 + [_I] * 4 + [_P])
+S1_CHASE = CudaKernel("sampling_dp", "pg_s1_chase", "s1", [_P] * 4 + [_I] * 5 + [_P])
+# eight warps of four paths a lane
 MAX_PATHS = 1024
+
+
+def sweep_layout(P: int):
+    """(warps, paths a lane, backtrace row) of S1's sweep for P paths:
+    one warp of ceil(P/32) paths a lane up to 128 paths, else
+    ceil(P/128) warps of 4; a row holds every lane's paths."""
+    warps, per_lane = (1, -(-P // 32)) if P <= 128 else (-(-P // 128), 4)
+    return warps, per_lane, 32 * warps * per_lane
+
+
+def backtrace_dtype(P: int) -> torch.dtype:
+    """uint8 backtraces up to 256 paths, else 16 bits."""
+    return torch.uint8 if P <= 256 else torch.int16
+
+
+def chase_segment(N: int) -> int:
+    """Columns per segment of S1's chase: ceil(sqrt(N))."""
+    return math.isqrt(N - 1) + 1 if N > 1 else 1
 
 
 def bulk_emission_costs(records: Sequence[UniqueKmersRecord]) -> np.ndarray:
@@ -175,16 +201,59 @@ def viterbi_iteration_plain(path_cost, mask, switch):
         prev_mask = m
         bts[:, n] = back.to(torch.int32)
     best_score, state = _first_min(prev, idx)
-    paths = torch.empty((C, N), dtype=torch.int32, device=dev)
+    return chase_plain(bts, state), best_score
+
+
+def chase_plain(bt, ends):
+    """Plain version of S1's chase: the path [C, N] int32 back from the
+    states ``ends`` [C] at the last column through backtraces ``bt``
+    [C, N, >= P] (entry p of a row is path p's predecessor)."""
+    C, N = bt.shape[:2]
+    state = ends.to(torch.int64)
+    paths = torch.empty((C, N), dtype=torch.int32, device=bt.device)
     for n in range(N - 1, -1, -1):
         paths[:, n] = state
-        state = bts[:, n].gather(1, state[:, None].to(torch.int64))[:, 0].to(torch.int64)
-    return paths, best_score
+        state = bt[:, n].gather(1, state[:, None])[:, 0].to(torch.int64)
+    return paths
+
+
+def _stream(t, stream):
+    """``stream``, or the current stream of a CUDA tensor's device."""
+    return launch_stream(t.device) if stream is None and t.is_cuda else stream
+
+
+def s1_sweep(path_cost, mask, switch, sweep=S1, stream=None):
+    """S1's sweep: (backtraces [C, N, row], best [C] int32 holding uint32
+    bits, ends [C] int32 — the last column's first minimum). ``sweep``
+    is the C entry point (the emulated test passes its own); ``stream``
+    defaults to the device's current one."""
+    C, N, P = path_cost.shape
+    _warps, _per_lane, row = sweep_layout(P)
+    dev = path_cost.device
+    bt = torch.empty((C, N, row), dtype=backtrace_dtype(P), device=dev)
+    best = torch.empty((C,), dtype=torch.int32, device=dev)
+    ends = torch.empty((C,), dtype=torch.int32, device=dev)
+    sweep(path_cost.data_ptr(), mask.data_ptr(), switch.data_ptr(), bt.data_ptr(),
+          best.data_ptr(), ends.data_ptr(), C, N, P, row, _stream(bt, stream))
+    return bt, best, ends
+
+
+def s1_chase(bt, ends, P: int, chase=S1_CHASE, stream=None):
+    """S1's chase: the path [C, N] int32 from the sweep's outputs, in
+    segments of :func:`chase_segment` columns."""
+    C, N, row = bt.shape
+    L = chase_segment(N)
+    maps = torch.empty((C, -(-N // L), P), dtype=torch.int32, device=bt.device)
+    paths = torch.empty((C, N), dtype=torch.int32, device=bt.device)
+    chase(bt.data_ptr(), ends.data_ptr(), maps.data_ptr(), paths.data_ptr(), C, N, P,
+          row, L, _stream(bt, stream))
+    return paths
 
 
 def viterbi_iteration(path_cost, mask, switch):
-    """One masked min-plus Viterbi per chromosome — kernel S1 on CUDA
-    tensors, :func:`viterbi_iteration_plain` on CPU tensors."""
+    """One masked min-plus Viterbi per chromosome — kernel S1 (sweep and
+    chase) on CUDA tensors, :func:`viterbi_iteration_plain` on CPU
+    tensors. Returns (paths [C, N] int32, best [C] int64 uint32 values)."""
     if path_cost.device.type == "cpu":
         return viterbi_iteration_plain(path_cost, mask, switch)
     C, N, P = path_cost.shape
@@ -203,13 +272,11 @@ def viterbi_iteration(path_cost, mask, switch):
             )
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
-    bt = torch.empty((C, N, P), dtype=torch.int32, device=dev)
-    paths = torch.empty((C, N), dtype=torch.int32, device=dev)
-    best = torch.empty((C,), dtype=torch.int32, device=dev)
-    if C and N:
-        S1(path_cost.data_ptr(), mask.data_ptr(), switch.data_ptr(), bt.data_ptr(),
-           paths.data_ptr(), best.data_ptr(), C, N, P, launch_stream(dev))
-    return paths, best.to(torch.int64) & UINT_MAX
+    if not (C and N):  # as the plain version: no columns score 0
+        return (torch.empty((C, N), dtype=torch.int32, device=dev),
+                torch.zeros((C,), dtype=torch.int64, device=dev))
+    bt, best, ends = s1_sweep(path_cost, mask, switch)
+    return s1_chase(bt, ends, P), best.to(torch.int64) & UINT_MAX
 
 
 def sample_group(costs, alleles, switch, valid, size: int, allele_penalty: int,
@@ -248,6 +315,41 @@ def sample_group(costs, alleles, switch, valid, size: int, allele_penalty: int,
         path_cost = torch.where(sel, pen.to(torch.int32), path_cost)
         out.append(paths.to(torch.int32))
     return torch.stack(out)
+
+
+def group_peak_bytes(C: int, N: int, P: int, A: int, size: int) -> int:
+    """Most bytes that one [C, N] group holds at once on its device in
+    :func:`sample_panels_batched`: the tensors it passes to
+    :func:`sample_group` and those of ``size`` iterations there.
+
+    Held throughout: costs (int32, A a column), alleles (int64 a cell),
+    switch, valid, path_cost (int32 a cell), used (a byte a cell) and the
+    sampled paths. On top, the larger of: S1's mask, backtraces, chase
+    maps and path; the penalty update's int64 temporaries (two 8-byte
+    cells at a time), beside its 1-byte selection, the int64 path and
+    chosen alleles and, from the second iteration on, the previous
+    iteration's 8-byte penalty (a loop variable until reassigned); the
+    stacked result. (Measured on an H100 at N=2,300,000, P=123, 2
+    iterations: 38.3 bytes a cell, chip_smoke.py.)
+    """
+    cols, cells = C * N, C * N * P
+    _warps, _per_lane, row = sweep_layout(P)
+    bt = cols * row * torch.empty((), dtype=backtrace_dtype(P)).element_size()
+    held = cols * (4 * A + 4 + 1 + 4 * size) + cells * (8 + 4 + 1)
+    s1 = cells + bt + 4 * C * -(-N // chase_segment(N)) * P + 4 * cols
+    penalty = (17 + (8 if size > 1 else 0)) * cells + 16 * cols
+    return held + max(s1, penalty, 4 * size * cols)
+
+
+def memory_budget(device) -> int:
+    """Bytes a sampling group may take on ``device``: the card's free
+    memory plus what torch's allocator holds there unused, or the host's
+    free memory for the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        free, _total = torch.cuda.mem_get_info(device)
+        return free + torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
 
 
 class _ChromState:
@@ -314,6 +416,47 @@ def _write_paths(records, sampled_paths, path_output: str, chromosome: str) -> N
             out.write("\n")
 
 
+def _group_peak(group, size: int) -> int:
+    return group_peak_bytes(len(group), max(s.N for s in group), group[0].P,
+                            max(s.costs.shape[1] for s in group), size)
+
+
+def plan_groups(states, size: int, max_group_bytes: int, budget: int,
+                device="cpu") -> "List[List[_ChromState]]":
+    """Chromosomes of similar length (padded N within 2x; ``states`` in
+    order of N) in groups under ``max_group_bytes`` of [C, N, P] int32
+    costs and whose peak (:func:`group_peak_bytes`) fits ``budget``
+    bytes. Raises
+    NotImplementedError, before any device work, for a chromosome whose
+    peak alone exceeds the budget: the reference package's checkpointed
+    scan is not ported (ROADMAP queue 1, item 4)."""
+    for st in states:
+        peak = _group_peak([st], size)
+        if peak > budget:
+            raise NotImplementedError(
+                f"sampling {st.chromosome}: {st.N} columns x {st.P} paths need "
+                f"{peak} bytes at their peak, over the {budget} bytes free on "
+                f"{device}; chromosomes beyond one device's memory need the "
+                "checkpointed sampling scan (ROADMAP queue 1, item 4)")
+    groups: List[List[_ChromState]] = []
+    for st in states:
+        Npad = 1 << max(0, (st.N - 1).bit_length())
+        if groups:
+            cur = groups[-1]
+            cur_pad = 1 << max(0, (cur[0].N - 1).bit_length())
+            pad_target = max(cur_pad, Npad)
+            bytes_needed = (
+                (len(cur) + 1) * pad_target * st.P * 4
+            )
+            if (1 << max(0, (cur[-1].N - 1).bit_length())) == Npad and \
+                    bytes_needed <= max_group_bytes and \
+                    _group_peak(cur + [st], size) <= budget:
+                cur.append(st)
+                continue
+        groups.append([st])
+    return groups
+
+
 def sample_panels_batched(
     chrom_records: "dict[str, Sequence[UniqueKmersRecord]]",
     size: int,
@@ -328,8 +471,9 @@ def sample_panels_batched(
     """Greedy panel reduction over several chromosomes, batched.
 
     Chromosomes of similar length (padded N within 2x, under
-    ``max_group_bytes`` of [C, N, P] costs) run together: each greedy
-    iteration is ONE kernel launch over the group. Padding columns
+    ``max_group_bytes`` of [C, N, P] costs and within the device's free
+    memory, :func:`plan_groups`) run together: each greedy iteration is
+    ONE sweep and one chase over the group. Padding columns
     (emission cost 0 on every path, all paths live, switch cost 1)
     keep the real final column's first-minimum state, so paths are
     bit-identical to per-chromosome runs.
@@ -349,36 +493,8 @@ def sample_panels_batched(
             continue
         states.append(_ChromState(chromosome, records, recombrate, effective_N))
 
-    # the reference package streams chromosomes whose [N, P] backtraces
-    # exceed 1 GiB through a checkpointed scan; the port does not yet
-    full_budget = 1 << 30
-    for s in states:
-        if s.N * s.P * 4 > full_budget:
-            raise NotImplementedError(
-                f"sampling {s.chromosome}: {s.N} columns x {s.P} paths need "
-                "the segmented sampling DP (ROADMAP queue 1, segmented scans)"
-            )
-
-    # group chromosomes of similar length (padded N within 2x) under a
-    # device-memory cap
     states.sort(key=lambda s: s.N)
-    groups: List[List[_ChromState]] = []
-    for st in states:
-        Npad = 1 << max(0, (st.N - 1).bit_length())
-        if groups:
-            cur = groups[-1]
-            cur_pad = 1 << max(0, (cur[0].N - 1).bit_length())
-            pad_target = max(cur_pad, Npad)
-            bytes_needed = (
-                (len(cur) + 1) * pad_target * st.P * 4
-            )
-            if (1 << max(0, (cur[-1].N - 1).bit_length())) == Npad and \
-                    bytes_needed <= max_group_bytes:
-                cur.append(st)
-                continue
-        groups.append([st])
-
-    for group in groups:
+    for group in plan_groups(states, size, max_group_bytes, memory_budget(device), device):
         C = len(group)
         N_max = max(s.N for s in group)
         P = group[0].P

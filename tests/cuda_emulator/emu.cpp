@@ -9,8 +9,9 @@
 
 dim3 threadIdx, blockIdx, blockDim;
 alignas(16) float smem[232448 / sizeof(float)];
-// K3/K4 declare their dynamic shared memory under this name
+// K3/K4 and S1 declare their dynamic shared memory under these names
 extern float fbe_shm[232448 / sizeof(float)] __attribute__((alias("smem")));
+extern float s1_shm[232448 / sizeof(float)] __attribute__((alias("smem")));
 
 size_t emu_shared_bytes() { return sizeof(smem); }
 
@@ -31,7 +32,7 @@ int block_threads = 0;
 long block_arrived = 0, block_generation = 0;
 // (warp, lane mask) -> (lanes arrived, generation)
 std::map<std::pair<unsigned, unsigned>, std::pair<int, long>> lane_groups;
-std::vector<float> lane_values;
+std::vector<uint64_t> lane_values;
 // grows at every barrier arrival and every finished fiber: a pass of
 // the scheduler that leaves it unchanged is a deadlock
 long progress = 0;
@@ -71,16 +72,23 @@ void emu_syncthreads() {
     while (block_generation == generation) yield();
 }
 
-float emu_shfl(unsigned mask, float v, bool down, int offset) {
+int emu_lane() { return (int)(current->tid % 32); }
+
+uint64_t emu_exchange(unsigned mask, uint64_t bits, int src) {
     const unsigned lane = current->tid % 32, warp = current->tid / 32;
-    const unsigned src = down ? (lane + offset < 32 ? lane + offset : lane) : (lane ^ offset);
-    if (!((mask >> lane) & 1u) || !((mask >> src) & 1u)) {
-        fprintf(stderr, "emulated shuffle outside its lane mask\n");
+    if (!((mask >> lane) & 1u) || (src >= 0 && !((mask >> src) & 1u))) {
+        fprintf(stderr, "emulated warp exchange outside its lane mask\n");
         abort();
     }
-    lane_values[current->tid] = v;
+    lane_values[current->tid] = bits;
     lane_barrier(mask);
-    const float got = lane_values[warp * 32 + src];
+    uint64_t got = ~0ull;
+    if (src >= 0) {
+        got = lane_values[warp * 32 + src];
+    } else {
+        for (unsigned l = 0; l < 32; ++l)
+            if ((mask >> l) & 1u) got = std::min(got, lane_values[warp * 32 + l]);
+    }
     lane_barrier(mask);
     return got;
 }
@@ -95,7 +103,7 @@ int emu_run(int grid, int threads, size_t smem_bytes, std::function<void()> body
         fibers.assign(threads, Fiber());
         block_arrived = block_generation = 0;
         lane_groups.clear();
-        lane_values.assign(threads, 0.f);
+        lane_values.assign(threads, 0);
         for (int t = 0; t < threads; ++t) {
             Fiber& f = fibers[t];
             f.tid = t;
@@ -106,17 +114,26 @@ int emu_run(int grid, int threads, size_t smem_bytes, std::function<void()> body
             f.ctx.uc_link = nullptr;
             makecontext(&f.ctx, fiber_entry, 0);
         }
+        // a warp runs until all its threads wait at __syncthreads (or are
+        // done) before the next warp starts, so a warp that reuses shared
+        // memory before slower warps have read it shows
         for (bool left = true; left;) {
             left = false;
             const long before = progress;
-            for (Fiber& f : fibers) {
-                if (f.done) continue;
-                current = &f;
-                threadIdx = {f.tid, 0, 0};
-                blockIdx = {(unsigned)b, 0, 0};
-                swapcontext(&scheduler, &f.ctx);
-                left |= !f.done;
+            for (int w = 0; w < threads / 32; ++w) {
+                for (long warp_before = -1; warp_before != progress;) {
+                    warp_before = progress;
+                    for (int t = 32 * w; t < 32 * w + 32; ++t) {
+                        Fiber& f = fibers[t];
+                        if (f.done) continue;
+                        current = &f;
+                        threadIdx = {f.tid, 0, 0};
+                        blockIdx = {(unsigned)b, 0, 0};
+                        swapcontext(&scheduler, &f.ctx);
+                    }
+                }
             }
+            for (const Fiber& f : fibers) left |= !f.done;
             if (left && progress == before) {
                 fprintf(stderr, "emulated block %d deadlocked at a barrier\n", b);
                 abort();

@@ -62,18 +62,48 @@ def test_fb_kernels_reject_float64(cuda):
         fb_kernels.forward(ea, cols.allele_local, cols.trans)
 
 
-@pytest.mark.parametrize("C,N,P,masked", [(1, 50, 5, 0.0), (3, 200, 123, 0.3),
-                                          (2, 64, 1, 0.2), (2, 40, 33, 0.97)])
+@pytest.mark.parametrize("C,N,P,masked", [
+    (1, 50, 5, 0.0), (3, 200, 123, 0.3), (2, 64, 1, 0.2), (2, 40, 33, 0.97),
+    # every sweep layout: one warp of 1-4 paths a lane, 2-8 warps, uint8
+    # and uint16 backtraces; N = 1 and N off the chase's segment length
+    (2, 37, 31, 0.3), (2, 37, 32, 0.3), (2, 37, 128, 0.3), (2, 37, 129, 0.3),
+    (2, 37, 300, 0.3), (1, 90, 1024, 0.3), (3, 1, 123, 0.3), (2, 1, 300, 0.0),
+])
 def test_s1_matches_plain(cuda, C, N, P, masked):
     rng = np.random.default_rng(P)
     cost = torch.from_numpy(rng.integers(0, 4, (C, N, P)).astype(np.int32)).to(cuda)
     mask = torch.from_numpy(rng.random((C, N, P)) >= masked).to(cuda)
     switch = torch.from_numpy(rng.integers(0, 6, (C, N)).astype(np.int32)).to(cuda)
+    launches = sampling.S1.launches, sampling.S1_CHASE.launches
     paths, scores = sampling.viterbi_iteration(cost, mask, switch)
     torch.cuda.synchronize()
+    assert (sampling.S1.launches, sampling.S1_CHASE.launches) == (
+        launches[0] + 1, launches[1] + 1)
     ref_paths, ref_scores = sampling.viterbi_iteration_plain(cost, mask, switch)
     assert torch.equal(paths, ref_paths)
     assert torch.equal(scores, ref_scores)
+
+
+def test_s1_saturates(cuda):
+    """Costs and switches near 2^32 saturate at UMAX on the card too."""
+    C, N, P = 2, 9, 40
+    cost = np.full((C, N, P), 0xF0000000, dtype=np.uint32)
+    cost[:, :, 1] = 0x7FFFFFFF
+    switch = np.full((C, N), 0xFFFFFFF0, dtype=np.uint32)
+    args = (torch.from_numpy(cost.view(np.int32)).to(cuda),
+            torch.ones((C, N, P), dtype=torch.bool, device=cuda),
+            torch.from_numpy(switch.view(np.int32)).to(cuda))
+    got, want = sampling.viterbi_iteration(*args), sampling.viterbi_iteration_plain(*args)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_s1_rejects_more_than_1024_paths(cuda):
+    P = sampling.MAX_PATHS + 1
+    with pytest.raises(ValueError, match="paths exceed"):
+        sampling.viterbi_iteration(
+            torch.zeros((1, 4, P), dtype=torch.int32, device=cuda),
+            torch.ones((1, 4, P), dtype=torch.bool, device=cuda),
+            torch.zeros((1, 4), dtype=torch.int32, device=cuda))
 
 
 def _generic_columns(B, N, P, device):

@@ -1,5 +1,6 @@
-"""The port's kernel bounds (``hmm/bounds.py``) and the K3/K4 launch
-layout (``fb_kernels.generic_launch``), on the CPU.
+"""The port's kernel bounds (``hmm/bounds.py``), the K3/K4 launch
+layout (``fb_kernels.generic_launch``) and S1's layout and memory peak
+(``hmm/sampling.py``), on the CPU.
 
 The bounds are held against values worked by hand at the main paths'
 shapes and against the bytes of the tensors the plain versions really
@@ -11,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from pangenie_tpu_torch.hmm import bounds, fb_generic, fb_kernels
+from pangenie_tpu_torch.hmm import bounds, fb_generic, fb_kernels, sampling
 
 
 # (work, bytes, least ms) at the main paths' shapes: K1/K2 at the bench
@@ -33,7 +34,10 @@ from pangenie_tpu_torch.hmm import bounds, fb_generic, fb_kernels
     # path_cost 54,159,360 + mask 13,539,840 + switch 440,320 + paths
     # 440,320 + best 8
     (bounds.s1(2, 55040, 123), 68_579_848, 0.0204716),
-], ids=["K1", "K2", "K3", "K4", "S1"])
+    # S1's chase: one uint8 backtrace entry a column 110,080 + ends 8 +
+    # paths 440,320
+    (bounds.s1_chase(2, 55040, 1), 550_408, 0.000164301),
+], ids=["K1", "K2", "K3", "K4", "S1", "S1_chase"])
 def test_bytes_and_bound_at_main_shapes(work, nbytes, ms):
     assert work.nbytes == nbytes
     got_ms, by = work.bound()
@@ -93,3 +97,38 @@ def test_generic_launch_fits_every_path_count():
         assert pitch >= P and pitch % 32 == 8
         assert smem == 4 * (2 * (8 + column) + column + 16 * pitch + P + 68)
         assert smem <= fb_kernels.SMEM_BYTES == 232_448
+
+
+# (warps, paths a lane, backtrace row) and backtrace bytes: one warp up
+# to 128 paths, then warps of 4 paths a lane; uint8 up to 256 paths
+@pytest.mark.parametrize("P,layout,bt_bytes", [
+    (1, (1, 1, 32), 1), (32, (1, 1, 32), 1), (33, (1, 2, 64), 1), (65, (1, 3, 96), 1),
+    (123, (1, 4, 128), 1), (128, (1, 4, 128), 1), (129, (2, 4, 256), 1),
+    (256, (2, 4, 256), 1), (257, (3, 4, 384), 2), (1024, (8, 4, 1024), 2),
+])
+def test_s1_sweep_layout(P, layout, bt_bytes):
+    assert sampling.sweep_layout(P) == layout
+    assert torch.empty((), dtype=sampling.backtrace_dtype(P)).element_size() == bt_bytes
+    warps, per_lane, row = layout
+    assert row >= P and warps <= 8 and (per_lane == 4 or warps == 1)
+
+
+def test_s1_chase_segments():
+    assert [sampling.chase_segment(n) for n in (1, 2, 4, 5, 37, 55040, 2_300_000)] == [
+        1, 2, 2, 3, 7, 235, 1517]
+
+
+def test_sampling_group_peak_bytes():
+    """C=2, N=100, P=9, A=3, 4 iterations: 200 columns, 1,800 cells.
+    Held: 200 x (costs 12 + switch 4 + valid 1 + paths 16) + 1,800 x
+    (alleles 8 + path_cost 4 + used 1) = 30,000. On top the penalty
+    update's 25 bytes a cell (two int64 temporaries, the selection and
+    the previous iteration's int64 penalty) and 16 a column (48,200)
+    exceed S1's mask 1,800 + backtraces 200 x 32 + maps 2 x 10 x 9 x 4 +
+    path 800 (9,720) and the stacked paths (3,200). With one iteration
+    there is no previous penalty: 27,600 + 33,800. The long chromosome
+    of chip_smoke.py (N=2,300,000, P=123, A=4, 2 iterations): 10.85 GB,
+    38.4 bytes a cell, where the card measured 38.3."""
+    assert sampling.group_peak_bytes(2, 100, 9, 3, 4) == 78_200
+    assert sampling.group_peak_bytes(2, 100, 9, 3, 1) == 61_400
+    assert sampling.group_peak_bytes(1, 2_300_000, 123, 4, 2) == 10_853_700_000

@@ -142,12 +142,53 @@ def test_sample_panels_batched_matches_jax():
             assert a.get_path_ids() == b.get_path_ids()
 
 
-def test_long_chromosomes_raise(monkeypatch):
-    """Chromosomes whose [N, P] backtraces exceed 1 GiB need the
-    segmented DP, which is not ported: the driver raises before any
-    device work."""
+def _fake_state(name, N, P, A=4):
     st = torch_s._ChromState.__new__(torch_s._ChromState)
-    st.N, st.P, st.chromosome = (1 << 28) // 4 + 1, 4, "chrX"
+    st.N, st.P, st.chromosome = N, P, name
+    st.costs = np.zeros((1, A), dtype=np.uint32)
+    return st
+
+
+def test_long_chromosomes_raise(monkeypatch):
+    """A chromosome whose group peak exceeds the device's free memory
+    needs the checkpointed scan, which is not ported:
+    sample_panels_batched raises, naming the peak and the budget, before
+    any device work. One over the reference's 1 GiB rule for int32
+    [N, P] backtraces but within the budget is planned like any other."""
+    st = _fake_state("chrX", (1 << 28) // 4 + 1, 4)
+    peak = torch_s.group_peak_bytes(1, st.N, 4, 4, 1)
     monkeypatch.setattr(torch_s, "_ChromState", lambda *a, **k: st)
-    with pytest.raises(NotImplementedError, match="segmented"):
+    monkeypatch.setattr(torch_s, "memory_budget", lambda device: 12345)
+    with pytest.raises(NotImplementedError, match=f"{peak} bytes .* the 12345 bytes free"):
         torch_s.sample_panels_batched({"chrX": [object()]}, 1)
+    assert st.N * st.P * 4 > 1 << 30
+    assert torch_s.plan_groups([st], 1, 2 << 30, peak) == [[st]]
+
+
+def test_groups_split_where_the_budget_ends():
+    """Chromosomes of one length class group while their peak fits the
+    budget, and go alone where it does not."""
+    states = [_fake_state(f"chr{i}", 1000 + i, 9) for i in range(4)]
+    two = torch_s.group_peak_bytes(2, 1003, 9, 4, 3)
+    groups = torch_s.plan_groups(states, 3, 2 << 30, two)
+    assert [[s.chromosome for s in g] for g in groups] == [["chr0", "chr1"], ["chr2", "chr3"]]
+    assert len(torch_s.plan_groups(states, 3, 2 << 30, 1 << 40)) == 1
+
+
+def test_full_backtrace_equals_the_checkpointed_scan():
+    """The plain sampling DP over whole [N, P] backtraces gives the path
+    and score of the reference's checkpointed scan (segments of 512
+    columns) and of its full scan, at N=3000, P=9: the port's sampling of
+    long chromosomes in one sweep replaces the checkpointed scan
+    exactly."""
+    N, P = 3000, 9
+    cost, mask, switch = _iteration_inputs(11, 1, N, P, 3, 0.3)
+    seg_path, seg_score = jax_s._viterbi_iteration_segmented(cost[0], mask[0], switch[0], 512)
+    full_path, full_score = jax_s._viterbi_iteration(
+        jnp.asarray(cost[0]), jnp.asarray(mask[0]), jnp.asarray(switch[0]))
+    paths, scores = torch_s.viterbi_iteration_plain(
+        torch.from_numpy(cost.view(np.int32)), torch.from_numpy(mask),
+        torch.from_numpy(switch.view(np.int32)))
+    np.testing.assert_array_equal(np.asarray(seg_path), np.asarray(full_path))
+    np.testing.assert_array_equal(paths[0].numpy(), np.asarray(seg_path))
+    assert int(scores[0]) == int(seg_score) == int(full_score) < torch_s.UINT_MAX

@@ -1,0 +1,168 @@
+"""Times kernel S1 at chip_smoke.py's main sampling shape on one NVIDIA GPU.
+
+    python3 tools/s1_times.py [--root DIR] [--reps 3] [--variants]
+
+Builds the inputs as chip_smoke.check_s1 does (seed 5; C=2, N=55,040,
+P=123, A=4: costs 0..25 gathered through random alleles, 30% of the
+paths masked, switch costs 20..39) and times ``sampling.viterbi_iteration``
+with CUDA events, the mean of ``--reps`` calls after a warm-up. ``--root``
+imports ``pangenie_tpu_torch`` from another checkout (default: the one
+holding this script), so two versions can be timed in turns on one card.
+Where that checkout's S1 is a sweep and a chase (``sampling.s1_sweep``),
+each is timed alone too.
+
+``--variants`` also builds ``tools/s1_split.cu`` with nvcc into
+``build/tools/`` and times, on the same inputs: the kernel S1 was before
+its redesign split into its sweep alone (its loads after the column's
+barriers, as it had them), the same with the loads moved to the
+column's start and with them loaded 8 columns ahead, and its one-thread
+chase alone; and the redesigned sweep with a five-round shuffle
+butterfly in place of each ``__reduce_min_sync``. Every variant must
+give the paths and scores of
+``viterbi_iteration``. Prints one JSON line per checkout (and one for
+the variants) with the card's name and power limit. Exits non-zero
+without a GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+from fbe_times import cuda_ms, gpu_line
+
+TOOLS = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(TOOLS)
+SHAPE = (2, 55040, 123, 4)  # chip_smoke.MAIN_S1_SHAPE: (C, N, P, A)
+
+
+def s1_inputs(C, N, P, A, dev):
+    """(path_cost, mask, switch) as chip_smoke.check_s1 builds them."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(5)
+    costs = torch.from_numpy(rng.integers(0, 26, (C, N, A)).astype(np.int32)).to(dev)
+    alleles = torch.from_numpy(rng.integers(0, A, (C, N, P))).to(dev)
+    path_cost = torch.gather(costs, 2, alleles).to(torch.int32).contiguous()
+    mask = torch.from_numpy(rng.random((C, N, P)) > 0.3).to(dev)
+    switch = torch.from_numpy(rng.integers(20, 40, (C, N)).astype(np.int32)).to(dev)
+    return path_cost, mask, switch
+
+
+def variants(inputs, want, reps: int) -> dict:
+    """Builds tools/s1_split.cu and times its kernels on ``inputs``; each
+    must give ``want`` (paths, scores)."""
+    import torch
+
+    from pangenie_tpu_torch._build import _nvcc
+    from pangenie_tpu_torch.hmm import sampling
+
+    out = os.path.join(ROOT, "build", "tools", "libs1_split.so")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    build = subprocess.run(
+        [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", out,
+         os.path.join(TOOLS, "s1_split.cu")],
+        check=True, capture_output=True, text=True)
+    for line in (build.stdout + build.stderr).splitlines():
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            print("  " + line.strip(), file=sys.stderr)
+    lib = ctypes.CDLL(out)
+    V, I = ctypes.c_void_p, ctypes.c_int
+    lib.s1_old_sweep.argtypes = [V] * 6 + [I] * 4 + [V]
+    lib.s1_old_chase.argtypes = [V] * 3 + [I] * 3 + [V]
+    lib.pg_s1_sweep.argtypes = sampling.S1._argtypes
+
+    path_cost, mask, switch = inputs
+    C, N, P = path_cost.shape
+    dev = path_cost.device
+    stream = torch.cuda.current_stream().cuda_stream
+    bt = torch.empty((C, N, P), dtype=torch.int32, device=dev)
+    best = torch.empty((C,), dtype=torch.int32, device=dev)
+    ends = torch.empty((C,), dtype=torch.int32, device=dev)
+    paths = torch.empty((C, N), dtype=torch.int32, device=dev)
+
+    def checked(code):
+        if code:
+            raise RuntimeError(f"s1_split: CUDA error {code}")
+
+    def old_sweep(variant):
+        checked(lib.s1_old_sweep(path_cost.data_ptr(), mask.data_ptr(), switch.data_ptr(),
+                                 bt.data_ptr(), best.data_ptr(), ends.data_ptr(), C, N, P,
+                                 variant, stream))
+
+    def old_chase():
+        checked(lib.s1_old_chase(bt.data_ptr(), ends.data_ptr(), paths.data_ptr(), C, N, P,
+                                 stream))
+
+    def shfl_sweep(*args):
+        checked(lib.pg_s1_sweep(*args))
+
+    def same(got_paths, got_best, what):
+        if not (torch.equal(got_paths, want[0])
+                and torch.equal(got_best.to(torch.int64) & sampling.UINT_MAX, want[1])):
+            raise AssertionError(f"{what}: paths or scores differ from viterbi_iteration")
+
+    times = {}
+    for variant, name in ((0, "old_sweep_ms"), (1, "old_sweep_loads_at_column_start_ms"),
+                          (2, "old_sweep_prefetch_ms")):
+        old_sweep(variant)
+        old_chase()
+        same(paths, best, name)
+        times[name] = cuda_ms(lambda: old_sweep(variant), reps)
+    times["old_chase_ms"] = cuda_ms(old_chase, reps)
+    s_bt, s_best, s_ends = sampling.s1_sweep(path_cost, mask, switch, shfl_sweep, stream)
+    same(sampling.s1_chase(s_bt, s_ends, P, sampling.S1_CHASE, stream), s_best, "shfl sweep")
+    times["shfl_sweep_ms"] = cuda_ms(
+        lambda: sampling.s1_sweep(path_cost, mask, switch, shfl_sweep, stream), reps)
+    return times
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=ROOT)
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--variants", action="store_true")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no GPU: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    from pangenie_tpu_torch.hmm import sampling
+
+    gpu = gpu_line()
+    dev = torch.device("cuda", 0)
+    C, N, P, A = SHAPE
+    inputs = s1_inputs(C, N, P, A, dev)
+    want = sampling.viterbi_iteration(*inputs)
+    from pangenie_tpu_torch import _build
+
+    for lib, info in _build.build_log.items():  # the register and spill report
+        for line in info["report"].splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                print(f"  {lib}: {line.strip()}", file=sys.stderr)
+    record = {"root": args.root, "shape": {"C": C, "N": N, "P": P},
+              "S1_ms": cuda_ms(lambda: sampling.viterbi_iteration(*inputs), args.reps)}
+    if hasattr(sampling, "s1_sweep"):
+        bt, _best, ends = sampling.s1_sweep(*inputs)
+        record["sweep_ms"] = cuda_ms(lambda: sampling.s1_sweep(*inputs), args.reps)
+        record["chase_ms"] = cuda_ms(lambda: sampling.s1_chase(bt, ends, P), args.reps)
+        del bt
+    record["S1_us_per_column"] = record["S1_ms"] * 1e3 / N
+    if args.variants:
+        record.update(variants(inputs, want, args.reps))
+    record["gpu"] = gpu
+    print(json.dumps(record), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
