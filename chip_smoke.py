@@ -8,8 +8,8 @@ Phases, each printed as it runs; any failure exits non-zero:
 2. build: the CUDA kernels (K1-K4 in csrc/fb.cu, S1's sweep and chase
    in csrc/sampling_dp.cu) and the host k-mer engine, from this checkout,
    one compiler per source, all at once.
-   The two end-to-end workloads below are simulated meanwhile, in two
-   worker processes, once each into build/smoke_inputs/;
+   The four end-to-end workloads below are simulated meanwhile, in
+   four worker processes, once each into build/smoke_inputs/;
 3. kernel vs plain on the card, with the times of both (float32,
    rtol=2e-4, atol=1e-7 unless bit-identical): K1/K2 against the plain
    forward-backward at the bench path's shape B=2, N=65,536, P=16 and at
@@ -17,7 +17,9 @@ Phases, each printed as it runs; any failure exits non-zero:
    sampling DP, bit for bit, for one masked iteration at the bench
    path's shape C=2, N=55,040, P=123 (its chase alone against the plain
    chase too), for 15 greedy iterations at C=2, N=4096, P=123 and for
-   one iteration at C=2, N=4096, P=300; K3/K4 against their plain versions at the SV
+   one iteration at C=2, N=4096, P=300; S1 past 1024 paths, bit for bit, at
+   C=2, N=4096, P=1025/2049/4096/4097/6405, and its time at N=55,040 for
+   P=1024/2049/4096/6405; K3/K4 against their plain versions at the SV
    path's shape B=1, N=131,072, P=89, K=32, A=16, at B=2, N=8192, P=89
    with 97/2/1% of the columns at A=2/4/16 (where the whole chunked
    route in chunks of 2048 and the fused route through K1/K2 on the
@@ -38,11 +40,18 @@ Phases, each printed as it runs; any failure exits non-zero:
    summed again on the host, two greedy iterations must give paths apart
    in every column, and their peak device memory must stay within
    sampling.group_peak_bytes;
+   then the checkpointed scan S1-seg: against the full S1 at C=1,
+   N=200,000, P=2049 in 8 segments and against its plain version at
+   N=4096, P=6405, bit for bit; and one chromosome of N=2,300,000 at
+   P=6405 (14.7 G cells, beyond one card) in the longest segments the
+   free memory allows, inputs drawn on the card a segment at a time,
+   path and host score checked as above, the scan's kernels timed by
+   torch.profiler;
 4. end to end: the bench workload (20 Mb, 2 chromosomes, 61 samples =
    123 paths, 12x 150 bp reads, seed 11) genotyped with the port's
    single command on CUDA; the run must dispatch to the fused kernels,
-   launch K1, K2 and S1 (sweep and chase), load the native k-mer engine and reach genotype
-   concordance >= 0.99 against the truth;
+   launch K1, K2 and S1 (sweep and chase), load the native k-mer engine
+   and reach genotype concordance >= 0.99 against the truth;
 5. profile: the same command once more under torch.profiler; its VCF
    body must equal the first run's, and the device's busy time and idle
    share over the run are printed;
@@ -53,14 +62,28 @@ Phases, each printed as it runs; any failure exits non-zero:
    The run must dispatch to the generic kernels, launch K3 and K4, walk
    the chromosome in more than one chunk and reach concordance >= 0.98;
    ``genotype -f`` then runs once more under torch.profiler, for the
-   device time by kernel and the idle share.
+   device time by kernel and the idle share, and its VCF body must equal
+   the first run's;
+7. large panel: one 2 Mb chromosome, 1024 samples = 2049 paths, 12x
+   150 bp reads, seed 17; ``index``, ``genotype -f`` (auto-sampling: S1
+   past 1024 paths, then K1/K2 at 16 paths; concordance >= 0.98, the
+   first greedy path equal to the plain DP's, S1 timed on its inputs)
+   and ``sampling -x 15`` (a panel VCF of 15 + 1 haplotypes, a paths
+   TSV, and the same paths through the checkpointed scan under a forced
+   budget);
+8. widest panel: one 1 Mb chromosome, 3202 samples (the 1000 Genomes
+   high-coverage callset's) = 6405 paths, 12x 150 bp reads, seed 19;
+   ``index`` and ``sampling -x 15`` (S1's shared-memory sweep; the first
+   greedy path equal to the plain DP's, S1 timed on its inputs; a panel
+   VCF of 15 + 1 haplotypes and a paths TSV).
 
-Each end-to-end path runs with every kernel's launch count set to 0
-just before it and read just after. The last three lines of standard
-output are the kernels' JSON record (launches from those paths; times,
-bound, bytes and us per column at their shapes), the GPU's name and
-power limit, and the device JSON record. The script imports nothing of
-JAX.
+Each end-to-end path, and the chromosome beyond one card, runs with
+every kernel's launch count set to 0 just before it and read just
+after; runs under torch.profiler give no launch counts and no walls but
+their own. The last three lines of standard output are the kernels'
+JSON record (launches from those paths; times, bound, bytes and us per
+column at their shapes), the GPU's name and power limit, and the device
+JSON record. The script imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -85,6 +108,17 @@ MAIN_S1_SHAPE = (2, 55040, 123, 4)                     # (C, N, P, A)
 S1_GREEDY_SHAPE = (2, 4096, 123, 4, 15)                # (C, N, P, A, iterations)
 # over the old 1 GiB rule for int32 [N, P] backtraces (2^28 cells)
 LONG_S1_SHAPE = (1, 2_300_000, 123, 4)                 # (C, N, P, A)
+# S1 past 1024 paths: bit checks at (C, N) for each P; times at the bench
+# chromosomes' N (C, N, paths)
+WIDE_S1_PATHS = (1025, 2049, 4096, 4097, 6405)
+WIDE_S1_CHECK = (2, 4096)
+WIDE_S1_TIMES = (2, 55040, (1024, 2049, 4096, 6405))
+# S1-seg against the full S1 where both fit: (C, N, P, segments)
+SEG_CHECK_SHAPE = (1, 200_000, 2049, 8)
+# S1-seg's plain version on the card: (C, N, P, segment)
+SEG_PLAIN_SHAPE = (1, 4096, 6405, 512)
+# beyond one card: LONG_S1_SHAPE's length at P=6405, 14.7 G [N, P] cells
+BEYOND_SHAPE = (1, 2_300_000, 6405)
 # (B, N, P, K, mixed allele counts, forced chunk), all at A=16; the first
 # is the SV path's shape (its first chunk: fb_generic.SEGMENT columns)
 GENERIC_SHAPES = [(1, 1 << 17, 89, 32, True, 0), (2, 8192, 89, 32, True, 2048),
@@ -97,6 +131,13 @@ GENERIC_TARGETS = {"K3": 550.0, "K4": 730.0}
 BENCH = dict(mb=20.0, chroms=2, samples=61, distance=150, seed=11)
 SV_PANEL = dict(mb=20.0, chroms=1, samples=44, distance=100, seed=13,
                 sv_fraction=0.01, sv_alts=(8, 15))
+# a large panel: 1024 samples = 2049 paths with the reference, cut to 2 Mb
+LARGE_PANEL = dict(mb=2.0, chroms=1, samples=1024, distance=150, seed=17,
+                   vector_genotypes=True)
+# the widest panel: the 1000 Genomes high-coverage phased callset's 3202
+# samples = 6405 paths with the reference, cut to 1 Mb
+WIDEST_PANEL = dict(mb=1.0, chroms=1, samples=3202, distance=150, seed=19,
+                    vector_genotypes=True)
 
 
 def phase(name):
@@ -243,9 +284,9 @@ def check_s1(device, gpu):
                              "at the main path's shape")
     max_err = max(float((pk.long() - pp.long()).abs().max()),
                   float((sk - sp).abs().max()))
-    bt, _best, ends = sampling.s1_sweep(path_cost, mask, switch)
-    chase_k = sampling.s1_chase(bt, ends, P)
-    chase_p, chase_plain_ms = timed(lambda: sampling.chase_plain(bt, ends))
+    bt, _best, ends, _ = sampling.s1_sweep(path_cost, mask, switch)
+    chase_k = sampling.s1_chase(bt, ends, P)[0]
+    chase_p, chase_plain_ms = timed(lambda: sampling.chase_plain(bt, ends)[0])
     if not (torch.equal(chase_k, chase_p) and torch.equal(chase_k, pk)):
         raise AssertionError("S1's chase differs from its plain version")
     t = {"S1": cuda_ms(lambda: viterbi_iteration(path_cost, mask, switch), 3),
@@ -278,7 +319,7 @@ def check_s1(device, gpu):
     C, N, P, A, iters = S1_GREEDY_SHAPE
     # costs 0..3 force ties; switch costs on the scale of real ones
     costs = torch.from_numpy(rng.integers(0, 4, (C, N, A)).astype(np.int32)).to(device)
-    alleles = torch.from_numpy(rng.integers(0, A, (C, N, P))).to(device)
+    alleles = torch.from_numpy(rng.integers(0, A, (C, N, P)).astype(np.int32)).to(device)
     switch = torch.from_numpy(rng.integers(1, 12, (C, N)).astype(np.int32)).to(device)
     valid = torch.ones((C, N), dtype=torch.bool, device=device)
     valid[1, N - 100:] = False
@@ -334,7 +375,7 @@ def check_long_chromosome(device, gpu) -> None:
 
     base = torch.cuda.memory_allocated()
     costs = torch.randint(0, 26, (C, N, A), generator=g, device=device, dtype=torch.int32)
-    alleles = torch.randint(0, A, (C, N, P), generator=g, device=device)
+    alleles = torch.randint(0, A, (C, N, P), generator=g, device=device, dtype=torch.int32)
     valid = torch.ones((C, N), dtype=torch.bool, device=device)
     torch.cuda.reset_peak_memory_stats()
     sampled, greedy_ms = timed(lambda: sampling.sample_group(costs, alleles, switch, valid, 2, 10))
@@ -352,6 +393,216 @@ def check_long_chromosome(device, gpu) -> None:
         raise AssertionError(f"measured peak {peak} > group_peak_bytes {predicted}")
     del costs, alleles, valid, switch, sampled
     torch.cuda.empty_cache()
+
+
+def card_s1_inputs(g, C, N, P, device, A=4):
+    """:func:`s1_iteration_inputs`' distributions drawn on the card from
+    the generator ``g`` (for shapes whose inputs are slow to draw on the
+    host)."""
+    import torch
+
+    costs = torch.randint(0, 26, (C, N, A), generator=g, device=device, dtype=torch.int32)
+    alleles = torch.randint(0, A, (C, N, P), generator=g, device=device)
+    path_cost = torch.gather(costs, 2, alleles).contiguous()
+    del alleles
+    mask = torch.rand((C, N, P), generator=g, device=device) > 0.3
+    switch = torch.randint(20, 40, (C, N), generator=g, device=device, dtype=torch.int32)
+    return path_cost, mask, switch
+
+
+def paths_error(got, want) -> float:
+    """The largest absolute difference between two (paths, best) pairs."""
+    return max(float((a.long() - b.long()).abs().max()) if a.numel() else 0.0
+               for a, b in zip(got, want))
+
+
+def check_s1_wide(device, gpu) -> None:
+    """S1 past 1024 paths against the plain sampling DP, bit for bit, at
+    C=2 N=4096 for every WIDE_S1_PATHS entry (up to 32 warps of 4 paths a
+    lane, then 1024 threads of several paths with their scores in shared
+    memory); then S1's time at the bench chromosomes' N=55,040 for every
+    P of WIDE_S1_TIMES beside its bound, inputs drawn on the card. (The
+    kernels' record takes S1's times past 1024 paths from the panels'
+    end-to-end runs, on their own inputs.)"""
+    import numpy as np
+    import torch
+
+    from pangenie_tpu_torch.hmm import bounds, sampling
+    from pangenie_tpu_torch.hmm.sampling import viterbi_iteration, viterbi_iteration_plain
+
+    rng = np.random.default_rng(29)
+    C, N = WIDE_S1_CHECK
+    for P in WIDE_S1_PATHS:
+        inputs = s1_iteration_inputs(rng, C, N, P, 4, device)
+        got = viterbi_iteration(*inputs)
+        want, plain_ms = timed(lambda: viterbi_iteration_plain(*inputs))
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"S1 paths or scores differ from the plain DP at P={P}")
+        warps, per_lane, _row = sampling.sweep_layout(P)
+        print(f"  s1 C={C} N={N} P={P} ({warps} warps of {per_lane} paths a lane, "
+              f"{sampling.backtrace_dtype(P)} backtraces): bit-identical (max_abs_err "
+              f"{paths_error(got, want)}); plain {plain_ms:.3f} ms", flush=True)
+        del inputs, got, want
+    C, N, paths = WIDE_S1_TIMES
+    g = torch.Generator(device=device)
+    g.manual_seed(31)
+    for P in paths:
+        inputs = card_s1_inputs(g, C, N, P, device)
+        t = {"S1": cuda_ms(lambda: viterbi_iteration(*inputs), 3),
+             "S1_work": bounds.s1(C, N, P), "S1_cols": N}
+        bt, _best, ends, _ = sampling.s1_sweep(*inputs)
+        sweep_ms = cuda_ms(lambda: sampling.s1_sweep(*inputs), 3)
+        chase_ms = cuda_ms(lambda: sampling.s1_chase(bt, ends, P), 3)
+        del bt
+        print(f"  times C={C} N={N} P={P} ({sampling.sweep_layout(P)[0]} warps) [{gpu}]: "
+              f"S1 {t['S1']:.3f} ms (sweep {sweep_ms:.3f} ms, chase {chase_ms:.3f} ms); "
+              f"{against_bound(t, 'S1')}", flush=True)
+        del inputs
+        torch.cuda.empty_cache()
+
+
+def check_s1_seg(device, gpu):
+    """S1-seg (sampling.viterbi_iteration_segmented through the kernels)
+    against the full S1 where both fit, at SEG_CHECK_SHAPE in segments
+    short enough for at least that many: paths and best bit-identical;
+    then against its plain version on the card at SEG_PLAIN_SHAPE.
+    Returns the largest absolute difference of those comparisons and the
+    plain version's time and shape."""
+    import torch
+
+    from pangenie_tpu_torch.hmm import sampling
+
+    g = torch.Generator(device=device)
+    g.manual_seed(37)
+    C, N, P, S = SEG_CHECK_SHAPE
+    inputs = card_s1_inputs(g, C, N, P, device)
+
+    def source(lo, hi):
+        return tuple(t[:, lo:hi].contiguous() for t in inputs)
+
+    segment = -(-N // S)
+    got, seg_ms = timed(lambda: sampling.viterbi_iteration_segmented(
+        source, C, N, P, segment, device))
+    want, full_ms = timed(lambda: sampling.viterbi_iteration(*inputs))
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"S1-seg differs from the full S1 at C={C} N={N} P={P}")
+    err = paths_error(got, want)
+    print(f"  s1-seg C={C} N={N} P={P} in {-(-N // segment)} segments of {segment}: paths "
+          f"and best equal the full S1's (max_abs_err {err}); [{gpu}] {seg_ms:.3f} ms "
+          f"(slices included), full S1 {full_ms:.3f} ms", flush=True)
+    del inputs, got, want
+
+    C, N, P, segment = SEG_PLAIN_SHAPE
+    inputs = card_s1_inputs(g, C, N, P, device)
+    got, seg_ms = timed(lambda: sampling.viterbi_iteration_segmented(
+        source, C, N, P, segment, device))
+    want, plain_ms = timed(lambda: sampling.viterbi_iteration_segmented(
+        source, C, N, P, segment, device, plain=True))
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"S1-seg differs from its plain version at C={C} N={N} P={P}")
+    err = max(err, paths_error(got, want))
+    shape = f"C={C} N={N} P={P} segments of {segment}"
+    print(f"  s1-seg {shape}: bit-identical to its plain version (max_abs_err "
+          f"{paths_error(got, want)}); [{gpu}] {seg_ms:.3f} ms, plain {plain_ms:.3f} ms",
+          flush=True)
+    del inputs
+    torch.cuda.empty_cache()
+    return err, plain_ms, shape
+
+
+def beyond_source(device, C: int, P: int, seed: int):
+    """The segments of a chromosome made on the card: columns lo..hi-1
+    drawn from a torch.Generator seeded by ``seed + lo``, so a segment
+    asked for again gives the same values. Costs 0..25, a third of the
+    paths masked, switch costs 20..39; 6 bytes a cell while drawn."""
+    import torch
+
+    def source(lo, hi):
+        g = torch.Generator(device=device)
+        g.manual_seed(seed + lo)
+        shape = (C, hi - lo, P)
+        cost = torch.randint(0, 26, shape, generator=g, device=device, dtype=torch.int32)
+        mask = torch.randint(0, 3, shape, generator=g, device=device, dtype=torch.uint8) > 0
+        switch = torch.randint(20, 40, (C, hi - lo), generator=g, device=device,
+                               dtype=torch.int32)
+        return cost, mask, switch
+
+    return source
+
+
+def check_beyond_card(device, gpu):
+    """One greedy iteration on a chromosome of BEYOND_SHAPE, whose full
+    sweep does not fit the card, through the checkpointed scan in the
+    longest segments the card's free memory allows, inputs drawn on the
+    card a segment at a time (:func:`beyond_source`), under
+    torch.profiler: S1-seg's time is the device time of its kernels (the
+    sweeps and the chases' maps and re-walks), apart from the kernels
+    that draw the inputs. The path must avoid every masked cell and its
+    score, summed again on the host in int64 with uint32 saturation,
+    equal the scan's best. Kernel launch counts are set to 0 just before
+    the scan and read just after. Returns the times and launches for the
+    kernels' record."""
+    import numpy as np
+    import torch
+
+    from pangenie_tpu_torch.hmm import bounds, sampling
+
+    C, N, P = BEYOND_SHAPE
+    torch.cuda.empty_cache()
+    budget = sampling.memory_budget(device)
+    if sampling.group_peak_bytes(C, N, P, 4, 1) <= budget:
+        raise AssertionError(f"{N} x {P} fits the card's {budget} bytes: not beyond it")
+    source = beyond_source(device, C, P, seed=41)
+    segment = sampling.segment_columns(budget, C, N, P, 6 * P + 4)
+    bounds_ = [(lo, min(N, lo + segment)) for lo in range(0, N, segment)]
+    out = {}
+
+    def scan():
+        out["paths"], out["best"] = sampling.viterbi_iteration_segmented(
+            source, C, N, P, segment, device)
+
+    for k in kernels().values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    wall, busy, by_name = profile_device(scan)
+    paths, best = out.pop("paths"), out.pop("best")
+    kernel_ms = 1e3 * sum(dt for name, (dt, _n) in by_name.items()
+                          if any(k in name for k in ("s1_sweep", "s1_maps", "s1_rewalk")))
+    launches = {"S1": sampling.S1.launches, "S1_CHASE": sampling.S1_CHASE.launches}
+    peak = torch.cuda.max_memory_allocated()
+    S = len(bounds_)
+    if launches != {"S1": 2 * S - 1, "S1_CHASE": S}:
+        raise AssertionError(f"launches {launches} for {S} segments")
+    on_path = paths[0].long()
+    costs, switches = [], []
+    for lo, hi in bounds_:
+        cost, mask, switch = source(lo, hi)
+        cols = torch.arange(hi - lo, device=device)
+        if not bool(mask[0, cols, on_path[lo:hi]].all()):
+            raise AssertionError("the path beyond one card steps on a masked cell")
+        costs.append(cost[0, cols, on_path[lo:hi]].cpu().numpy().astype(np.int64))
+        switches.append(switch[0].cpu().numpy().astype(np.int64))
+        del cost, mask, switch
+    p = on_path.cpu().numpy()
+    sw = np.concatenate(switches)
+    score = min(int(np.concatenate(costs).sum() + sw[1:][p[1:] != p[:-1]].sum()),
+                sampling.UINT_MAX)
+    if score != int(best[0]):
+        raise AssertionError(f"beyond one card: the path scores {score} on the host, "
+                             f"S1-seg says {int(best[0])}")
+    swept = N + bounds_[-1][0]  # the reverse pass and the forward one
+    print(f"  beyond one card C={C} N={N} P={P} ({C * N * P} cells; budget {budget} bytes, "
+          f"full sweep's group peak {sampling.group_peak_bytes(C, N, P, 4, 1)}): {S} "
+          f"segments of {segment}, path avoids every masked cell, host score {score} == "
+          f"S1-seg best; [{gpu}] profiled wall {wall:.2f} s, device busy {busy * 1e3:.3f} ms "
+          f"of which S1-seg's kernels {kernel_ms:.3f} ms over {swept} swept columns "
+          f"({kernel_ms * 1e3 / swept:.3f} us a column a pass); peak device memory "
+          f"{peak} bytes; launches {launches}", flush=True)
+    del paths, on_path
+    torch.cuda.empty_cache()
+    t = {"S1_SEG": kernel_ms, "S1_SEG_work": bounds.s1_seg(C, N, P, segment),
+         "S1_SEG_cols": N}
+    return t, launches
 
 
 def generic_columns(B, N, P, K, mixed, seed, device):
@@ -588,13 +839,29 @@ def rewrite_sv_sites(variants, rng, n_alts, lengths=(100, 400)):
     return rewritten
 
 
+def draw_genotypes(variants, samples: int, rng) -> None:
+    """Each variant's phased genotypes drawn as utils/simulate.py draws
+    them (allele frequencies from a Dirichlet(0.8) over its alleles, at
+    least one non-reference haplotype), in one call a variant instead of
+    two a sample: for panels of a thousand samples."""
+    import numpy as np
+
+    for v in variants:
+        k = len(v.alts) + 1
+        haps = rng.choice(k, size=(samples, 2), p=rng.dirichlet(np.ones(k) * 0.8))
+        if not haps.any():
+            haps[0, 0] = 1
+        v.genotypes = [(int(a), int(b)) for a, b in haps]
+
+
 def build_inputs(workdir: str, mb: float, chroms: int, samples: int,
                  distance: int, seed: int, sv_fraction: float = 0.0,
-                 sv_alts=None) -> str:
+                 sv_alts=None, vector_genotypes: bool = False) -> str:
     """A workload made with the port's simulator (as bench.py and
     benchmarks/genome_scale.py make theirs), 12x 150 bp reads of sample
     0, cached by its parameters. With ``sv_alts`` the SV sites are
-    rewritten by :func:`rewrite_sv_sites`."""
+    rewritten by :func:`rewrite_sv_sites`; with ``vector_genotypes`` the
+    genotypes are drawn by :func:`draw_genotypes`."""
     import numpy as np
 
     from pangenie_tpu_torch.utils import simulate as sim
@@ -603,6 +870,8 @@ def build_inputs(workdir: str, mb: float, chroms: int, samples: int,
     tag = f"mb{mb}_c{chroms}_s{samples}_cov{coverage}_d{distance}_seed{seed}"
     if sv_alts:
         tag += f"_sv{sv_fraction}_alts{sv_alts[0]}-{sv_alts[1]}"
+    if vector_genotypes:
+        tag += "_vg"
     casedir = os.path.join(workdir, tag)
     if os.path.exists(os.path.join(casedir, "DONE")):
         return casedir
@@ -623,9 +892,11 @@ def build_inputs(workdir: str, mb: float, chroms: int, samples: int,
         for c in range(chroms):
             name = f"chr{c + 1}"
             ref = sim.random_reference(length, rng)
-            variants = sim.simulate_panel(ref, nr_samples=samples, rng=rng,
-                                          mean_distance=distance,
+            variants = sim.simulate_panel(ref, nr_samples=1 if vector_genotypes else samples,
+                                          rng=rng, mean_distance=distance,
                                           sv_fraction=sv_fraction)
+            if vector_genotypes:
+                draw_genotypes(variants, samples, rng)
             if sv_alts:
                 n_sv += rewrite_sv_sites(variants, rng, sv_alts)
             n_var += len(variants)
@@ -858,6 +1129,235 @@ def run_sv_index_genotype(casedir: str, gpu: str):
     return launches
 
 
+@contextlib.contextmanager
+def patched(module, name, value):
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+@contextlib.contextmanager
+def first_group_kept(captured: dict):
+    """While it is open, the first sample_group call's inputs and first
+    path go to ``captured["group"]``."""
+    from pangenie_tpu_torch.hmm import sampling
+
+    sample_group = sampling.sample_group
+
+    def first_group(costs, alleles, switch, valid, size, penalty):
+        out = sample_group(costs, alleles, switch, valid, size, penalty)
+        captured.setdefault("group", (costs, alleles, switch, out[:1].clone()))
+        return out
+
+    with patched(sampling, "sample_group", first_group):
+        yield
+
+
+@contextlib.contextmanager
+def panels_kept(captured: dict, copy_records: bool):
+    """While it is open, sample_panels_batched's arguments go to
+    ``captured["args"]``, its chromosomes to ``captured["chromosomes"]``
+    and its result to ``captured["paths"]``; with ``copy_records`` a copy
+    of its records, taken before it changes them, to
+    ``captured["records"]``."""
+    import copy
+
+    from pangenie_tpu_torch.hmm import sampling
+
+    sample_panels = sampling.sample_panels_batched
+
+    def panels(chrom_records, *args, **kwargs):
+        if copy_records:
+            captured["records"] = copy.deepcopy(chrom_records)
+        captured["chromosomes"] = list(chrom_records)
+        captured["args"] = args, kwargs
+        captured["paths"] = sample_panels(chrom_records, *args, **kwargs)
+        return captured["paths"]
+
+    with patched(sampling, "sample_panels_batched", panels):
+        yield
+
+
+def s1_on_first_group(captured: dict):
+    """S1 against the plain DP, on the card, on the first greedy iteration
+    of a command's run (the inputs its first sample_group call was given,
+    ``first_group_kept``): both paths must equal the command's first path
+    and each other, scores too. Returns the largest absolute difference
+    and the times, S1's over 3 launches after a warm-up."""
+    import torch
+
+    from pangenie_tpu_torch.hmm import bounds, sampling
+
+    costs, alleles, switch, first = captured["group"]
+    C, N, P = alleles.shape
+    path_cost = sampling._gather_costs(costs, alleles)
+    mask = torch.ones((C, N, P), dtype=torch.bool, device=alleles.device)
+    args = (path_cost, mask, switch)
+    got = sampling.viterbi_iteration(*args)
+    want, plain_ms = timed(lambda: sampling.viterbi_iteration_plain(*args))
+    if not (all(torch.equal(a, b) for a, b in zip(got, want)) and torch.equal(got[0], first[0])):
+        raise AssertionError(f"S1 at P={P}: the first greedy path differs from the plain DP's")
+    t = {"S1": cuda_ms(lambda: sampling.viterbi_iteration(*args), 3), "S1_plain": plain_ms,
+         "S1_work": bounds.s1(C, N, P), "S1_cols": N, "shape": f"C={C} N={N} P={P}"}
+    return paths_error(got, want), t
+
+
+def check_sampled_panel(casedir: str, outname: str, captured: dict) -> str:
+    """The ``sampling`` command's outputs: a panel VCF of the sampled
+    haplotypes (and the reference path, where the index adds it) and one
+    paths TSV per chromosome. Returns what was checked."""
+    args, _kwargs = captured["args"]
+    size, add_reference = args[0], args[3]
+    with open(os.path.join(casedir, outname + "_panel.vcf")) as f:
+        header = next(line for line in f if line.startswith("#CHROM")).split("\t")
+    if len(header) - 9 != size + int(add_reference):
+        raise AssertionError(f"the panel VCF has {len(header) - 9} haplotypes")
+    for chrom in captured["chromosomes"]:
+        if not os.path.exists(os.path.join(casedir, f"{outname}_paths_{chrom}.tsv")):
+            raise AssertionError(f"sampling wrote no paths TSV for {chrom}")
+    return (f"sampling wrote {size} + {int(add_reference)} haplotypes and "
+            f"{len(captured['chromosomes'])} paths TSV(s)")
+
+
+def timed_commands(walls: dict):
+    """A runner of one command: its wall (to the device's last work) and
+    phase walls go to ``walls[name]``."""
+    import torch
+
+    from pangenie_tpu_torch.utils import timer
+
+    def command(name, fn):
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        walls[name] = (time.monotonic() - t0, dict(timer.last_phases))
+
+    return command
+
+
+def print_walls(walls: dict) -> None:
+    for name, (_wall, phases) in walls.items():
+        print(f"  {name} phase walls (s): "
+              f"{json.dumps({k: round(v, 2) for k, v in phases.items()})}", flush=True)
+
+
+def run_large_panel(casedir: str, gpu: str, device: str = "cuda"):
+    """``index``, ``genotype -f`` and ``sampling -x 15`` on CUDA over the
+    large panel (2049 paths, so auto-sampling runs S1 past 1024 paths,
+    then K1/K2 at 16 paths). Checks: concordance >= 0.98; the first
+    greedy path of ``genotype -f`` equals the plain DP's on the card for
+    the same inputs (:func:`s1_on_first_group`, which also times S1
+    there); ``sampling`` writes its panel VCF and paths TSVs
+    (:func:`check_sampled_panel`); the same records sampled through
+    sample_panels_batched with a budget that forces the checkpointed scan
+    give the same paths. Returns the launch counts of the three commands,
+    and S1's largest difference from the plain DP and times."""
+    from pangenie_tpu_torch import commands
+    from pangenie_tpu_torch.eval.concordance import genotype_concordance
+    from pangenie_tpu_torch.hmm import batch, sampling
+
+    prefix = os.path.join(casedir, "index")
+    reads = os.path.join(casedir, "reads.fa")
+    captured, walls = {}, {}
+    command = timed_commands(walls)
+    for k in kernels().values():
+        k.launches = 0
+    command("index", lambda: commands.run_index_command(
+        os.path.join(casedir, "ref.fa"), os.path.join(casedir, "panel.vcf"), 31, prefix,
+        nr_jellyfish_threads=2))
+    with first_group_kept(captured):
+        command("genotype -f", lambda: commands.run_genotype_command(
+            prefix, reads, os.path.join(casedir, "out"), nr_jellyfish_threads=2,
+            nr_core_threads=2, device=device))
+    if batch.last_dispatch != "cuda_fused":
+        raise AssertionError(f"dispatch was {batch.last_dispatch}, not cuda_fused")
+    with panels_kept(captured, copy_records=True):
+        command("sampling -x 15", lambda: commands.run_sampling(
+            prefix, reads, os.path.join(casedir, "sampled"), 2, 2, panel_size=15,
+            device=device))
+    launches = {name: k.launches for name, k in kernels().items()}
+    for name in ("K1", "K2", "S1", "S1_CHASE"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the large panel's path")
+    result = genotype_concordance(os.path.join(casedir, "out_genotyping.vcf"),
+                                  os.path.join(casedir, "truth.vcf"))
+    err, t = s1_on_first_group(captured)
+    wrote = check_sampled_panel(casedir, "sampled", captured)
+
+    records = captured["records"]
+    args, kwargs = captured["args"]
+    size = args[0]
+    states = [sampling._ChromState(c, r, args[1], args[2]) for c, r in records.items()]
+    budget = min(sampling._group_peak([st], size) for st in states) // 2
+    if sampling.plan_groups(states, size, 2 << 30, budget)[0]:
+        raise AssertionError("the forced budget left a chromosome in a group")
+    segments = []
+    for st in states:
+        source = sampling._PanelSegments(st, "cpu")
+        segments.append(-(-st.N // sampling.segment_columns(
+            budget, 1, st.N, st.P, source.column_bytes())))
+    segmented = sampling.sample_panels_batched(records, *args[:4], {}, *args[5:],
+                                               **dict(kwargs, budget=budget))
+    if segmented != captured["paths"]:
+        raise AssertionError("the checkpointed route sampled other paths")
+
+    with open(os.path.join(casedir, "DONE")) as f:
+        made = f.read().strip()
+    print(f"  large panel ({made}, {t['shape']}) [{gpu}]: "
+          + ", ".join(f"{name} wall {wall:.2f} s" for name, (wall, _p) in walls.items())
+          + f"; concordance {result.concordance:.5f} over {result.total} variants; first "
+          f"greedy path equals the plain DP's (max_abs_err {err}); S1 on its inputs "
+          f"{t['S1']:.3f} ms, plain {t['S1_plain']:.3f} ms, {against_bound(t, 'S1')}; "
+          f"{wrote}; the checkpointed route (budget {budget} bytes, segments {segments}) "
+          f"sampled the same paths; launches {launches}")
+    print_walls(walls)
+    if result.concordance < 0.98:
+        raise AssertionError(f"concordance {result.concordance} < 0.98")
+    return launches, err, t
+
+
+def run_widest_panel(casedir: str, gpu: str, device: str = "cuda"):
+    """``index`` and ``sampling -x 15`` on CUDA over the widest panel
+    (6405 paths: S1's sweep of 1024 threads with the scores in shared
+    memory). Checks: the first greedy path equals the plain DP's on the
+    card for the same inputs (:func:`s1_on_first_group`, which also times
+    S1 there); ``sampling`` writes its panel VCF and paths TSVs
+    (:func:`check_sampled_panel`). Returns the launch counts of the two
+    commands, and S1's largest difference from the plain DP and times."""
+    from pangenie_tpu_torch import commands
+
+    prefix = os.path.join(casedir, "index")
+    captured, walls = {}, {}
+    command = timed_commands(walls)
+    for k in kernels().values():
+        k.launches = 0
+    command("index", lambda: commands.run_index_command(
+        os.path.join(casedir, "ref.fa"), os.path.join(casedir, "panel.vcf"), 31, prefix,
+        nr_jellyfish_threads=2))
+    with first_group_kept(captured), panels_kept(captured, copy_records=False):
+        command("sampling -x 15", lambda: commands.run_sampling(
+            prefix, os.path.join(casedir, "reads.fa"), os.path.join(casedir, "sampled"), 2, 2,
+            panel_size=15, device=device))
+    launches = {name: k.launches for name, k in kernels().items()}
+    for name in ("S1", "S1_CHASE"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the widest panel's path")
+    err, t = s1_on_first_group(captured)
+    wrote = check_sampled_panel(casedir, "sampled", captured)
+    with open(os.path.join(casedir, "DONE")) as f:
+        made = f.read().strip()
+    print(f"  widest panel ({made}, {t['shape']}) [{gpu}]: "
+          + ", ".join(f"{name} wall {wall:.2f} s" for name, (wall, _p) in walls.items())
+          + f"; first greedy path equals the plain DP's (max_abs_err {err}); S1 on its "
+          f"inputs {t['S1']:.3f} ms, plain {t['S1_plain']:.3f} ms, "
+          f"{against_bound(t, 'S1')}; {wrote}; launches {launches}")
+    print_walls(walls)
+    return launches, err, t
+
+
 def kernels():
     from pangenie_tpu_torch.hmm import fb_kernels, sampling
 
@@ -888,21 +1388,24 @@ def main() -> int:
 
     import multiprocessing
 
-    # the workloads are simulated on two host cores while the kernels
+    # the workloads are simulated on four host cores while the kernels
     # build and are checked on the card
-    pool = multiprocessing.get_context("spawn").Pool(2)
+    pool = multiprocessing.get_context("spawn").Pool(4)
     try:
-        bench_inputs = pool.apply_async(timed_inputs, (BENCH,))
-        sv_inputs = pool.apply_async(timed_inputs, (SV_PANEL,))
+        inputs = {name: pool.apply_async(timed_inputs, (params,)) for name, params in (
+            ("bench", BENCH), ("sv", SV_PANEL), ("large", LARGE_PANEL),
+            ("widest", WIDEST_PANEL))}
         pool.close()
-        return smoke(device, gpu, bench_inputs, sv_inputs)
+        return smoke(device, gpu, inputs)
     finally:
         pool.terminate()
         pool.join()
 
 
-def smoke(device, gpu, bench_inputs, sv_inputs) -> int:
+def smoke(device, gpu, inputs) -> int:
     import torch
+
+    t0_smoke = time.monotonic()
 
     from pangenie_tpu_torch import _build
 
@@ -920,20 +1423,31 @@ def smoke(device, gpu, bench_inputs, sv_inputs) -> int:
     print(f"  built in {time.monotonic() - t0:.1f} s")
     for lib, info in _build.build_log.items():
         print(f"  {lib}: {info['seconds']:.1f} s")
+        entry = ""
         for line in info["report"].splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                print("    " + line.strip())
+            if "Compiling entry function" in line:  # the mangled name, templates and all
+                entry = line.split("'")[1][:48]
+            elif "spill" in line:
+                print(f"    {entry}: {line.strip()}")
+            elif "registers" in line or "error" in line.lower():
+                print(f"    {entry}: {line.split(':', 1)[-1].strip()}")
 
     phase("kernel vs plain (and times)")
     err, fb_times = check_fb(device, gpu)
     s1_err, s1_times = check_s1(device, gpu)
+    check_s1_wide(device, gpu)
     g_err, g_times = check_generic(device, gpu)
 
     phase("long chromosome: sampling DP over the old 1 GiB backtrace rule")
     check_long_chromosome(device, gpu)
 
+    phase("checkpointed sampling scan (S1-seg), and a chromosome beyond one card")
+    seg_err, seg_plain_ms, seg_plain_shape = check_s1_seg(device, gpu)
+    seg_times, seg_launches = check_beyond_card(device, gpu)
+    seg_times.update(S1_SEG_plain=seg_plain_ms)
+
     phase("end to end")
-    casedir, seconds = bench_inputs.get()
+    casedir, seconds = inputs["bench"].get()
     print(f"  bench inputs ({BENCH}) simulated in {seconds:.1f} s", flush=True)
     launches = run_e2e(casedir, gpu)
 
@@ -941,9 +1455,20 @@ def smoke(device, gpu, bench_inputs, sv_inputs) -> int:
     run_profiled(casedir, gpu)
 
     phase("sv panel: index + genotype -f")
-    sv_dir, seconds = sv_inputs.get()
+    sv_dir, seconds = inputs["sv"].get()
     print(f"  sv inputs ({SV_PANEL}) simulated in {seconds:.1f} s", flush=True)
     sv_launches = run_sv_index_genotype(sv_dir, gpu)
+
+    phase("large panel: index + genotype -f + sampling at 2049 paths")
+    large_dir, seconds = inputs["large"].get()
+    print(f"  large panel inputs ({LARGE_PANEL}) simulated in {seconds:.1f} s", flush=True)
+    large_launches, large_err, large_times = run_large_panel(large_dir, gpu)
+
+    phase("widest panel: index + sampling at 6405 paths")
+    widest_dir, seconds = inputs["widest"].get()
+    print(f"  widest panel inputs ({WIDEST_PANEL}) simulated in {seconds:.1f} s", flush=True)
+    widest_launches, widest_err, widest_times = run_widest_panel(widest_dir, gpu)
+    print(f"  smoke wall {time.monotonic() - t0_smoke:.1f} s", flush=True)
 
     def entry(name, source, replaces, n, e, t, key):
         bound, by = t[key + "_work"].bound()
@@ -969,6 +1494,16 @@ def smoke(device, gpu, bench_inputs, sv_inputs) -> int:
               "pangenie_tpu/hmm/sampling.py:174", launches["S1"], s1_err, s1_times, "S1"),
         entry("backtrace chase (S1)", s1_src, "pangenie_tpu/hmm/sampling.py:232",
               launches["S1_CHASE"], s1_err, s1_times, "S1_CHASE"),
+        dict(entry("viterbi_iteration at P=2049 (S1: 17 warps of 4 paths a lane, lane merge)",
+                   s1_src, "pangenie_tpu/hmm/sampling.py:174", large_launches["S1"], large_err,
+                   large_times, "S1"), at=large_times["shape"]),
+        dict(entry("viterbi_iteration at P=6405 (S1: 1024 threads, scores in shared memory)",
+                   s1_src, "pangenie_tpu/hmm/sampling.py:174", widest_launches["S1"],
+                   widest_err, widest_times, "S1"), at=widest_times["shape"]),
+        dict(entry("viterbi_iteration_segmented (S1-seg: sweeps with entry and exit rows, "
+                   "chases from handed-back states)", s1_src,
+                   "pangenie_tpu/hmm/sampling.py:652", sum(seg_launches.values()), seg_err,
+                   seg_times, "S1_SEG"), plain_at=seg_plain_shape),
     ]}
     print(json.dumps(record))
     print(gpu_line())

@@ -3,17 +3,22 @@
     python -m pangenie_tpu_torch index    -r ref.fa -v vars.vcf -o prefix [-k 31] [-t N] [-e N]
     python -m pangenie_tpu_torch genotype -i reads.fa (-f prefix | -r ref.fa -v vars.vcf) -o out [...]
     python -m pangenie_tpu_torch vcf      -z results.pkl -f prefix -o out [...]
+    python -m pangenie_tpu_torch sampling -i reads.fa -f prefix -o out -x size [...]
+    python -m pangenie_tpu_torch analyze-uk -i prefix_UniqueKmersMap.pkl
 
 Subcommands and flags follow the reference package
 (``pangenie_tpu/cli.py``): ``index`` once per panel, then
 ``genotype -f`` once per sample, or ``genotype -r -v`` for both in one
 run; ``genotype -w`` serializes the results and ``vcf`` turns them into
-a VCF. An index or result written by ``pangenie_tpu`` is not readable
-here (its pickles hold that package's classes, and unpickling them
-imports JAX): index the panel with this port. The device comes from
-``PANGENIE_TORCH_DEVICE`` (default ``cuda``, see ``device.py``). The
-``sampling`` and ``analyze-uk`` commands and phasing (``-p``) are not
-ported yet and exit with an error that names their ROADMAP.md item.
+a VCF. ``sampling`` reduces an index's panel to ``-x`` haplotypes from
+one sample's reads and writes the panel VCF and per-chromosome paths
+TSVs; ``analyze-uk`` prints an index's unique k-mer matrices. An index
+or result written by ``pangenie_tpu`` is not readable here (its pickles
+hold that package's classes, and unpickling them imports JAX): index
+the panel with this port. The device comes from
+``PANGENIE_TORCH_DEVICE`` (default ``cuda``, see ``device.py``).
+Phasing (``-p``) is not ported yet and exits with an error that names
+its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -23,10 +28,6 @@ import sys
 
 VERSION = "0.1.0"
 
-_NOT_PORTED = {
-    "sampling": "ROADMAP queue 1: remaining commands (sampling, analyze-uk)",
-    "analyze-uk": "ROADMAP queue 1: remaining commands (sampling, analyze-uk)",
-}
 _PHASING = "phasing (-p) is not ported yet (ROADMAP queue 1, hmm/viterbi.py)"
 
 
@@ -115,18 +116,39 @@ def main(argv=None) -> int:
     p_vcf.add_argument("-p", dest="phasing_flag", action="store_true",
                        help="phasing output (not ported yet)")
     p_vcf.add_argument("-u", dest="ignore_imputed", action="store_true")
-    for name in _NOT_PORTED:
-        sub.add_parser(name, help="not ported yet", add_help=False)
 
-    args, extra = parser.parse_known_args(argv)
-    if args.command in _NOT_PORTED:
-        raise NotImplementedError(
-            f"'{args.command}' is not ported yet ({_NOT_PORTED[args.command]})"
-        )
-    if extra:
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    # flag for flag with the reference package's
+    p_uk = sub.add_parser("analyze-uk", help="print unique-kmer matrices")
+    p_uk.add_argument("-i", dest="precomputed_uk", required=True,
+                      help="serialized UniqueKmersMap (.pkl)")
+
+    p_sm = sub.add_parser("sampling", help="subsample panel, emit panel VCF")
+    p_sm.add_argument("-i", dest="readfile", required=True)
+    p_sm.add_argument("-f", dest="precomputed_prefix", required=True)
+    p_sm.add_argument("-o", dest="outname", required=True)
+    p_sm.add_argument("-x", dest="panel_size", type=int, required=True)
+    p_sm.add_argument("-j", dest="nr_jellyfish_threads", type=int, default=1)
+    p_sm.add_argument("-t", dest="nr_core_threads", type=int, default=1)
+    p_sm.add_argument("-c", dest="count_all", action="store_true")
+    p_sm.add_argument("-y", dest="allele_penalty", type=int, default=5)
+    p_sm.add_argument("-b", dest="sampling_effective_N", type=float, default=0.01)
+
+    args = parser.parse_args(argv)
 
     from . import commands
+
+    if args.command == "analyze-uk":
+        return commands.run_analyze_uk(args.precomputed_uk)
+
+    if args.command == "sampling":
+        return commands.run_sampling(
+            args.precomputed_prefix, args.readfile, args.outname,
+            args.nr_jellyfish_threads, args.nr_core_threads,
+            count_only_graph=not args.count_all,
+            panel_size=args.panel_size,
+            allele_penalty=args.allele_penalty,
+            sampling_effective_N=args.sampling_effective_N,
+        )
 
     if args.command == "index":
         return commands.run_index_command(

@@ -1,5 +1,6 @@
 """Pipeline commands: ``index``, ``genotype`` (from an index),
-``single`` (index + genotype fused) and ``vcf``.
+``single`` (index + genotype fused), ``vcf``, ``sampling`` (panel
+reduction to a panel VCF) and ``analyze-uk``.
 
 Port of ``pangenie_tpu/commands.py`` (reference src/commands.cpp): same
 phase structure, same intermediate artifacts (path-segments FASTA,
@@ -14,8 +15,8 @@ stages — haplotype sampling (kernel S1) and genotyping forward-backward
 Pickles hold the port's own classes: an index or result pickled by
 ``pangenie_tpu`` cannot be read here (unpickling it imports JAX).
 
-Not ported yet: phasing (``-p``); the ``sampling`` and ``analyze-uk``
-commands; the device k-mer counter; multi-process runs.
+Not ported yet: phasing (``-p``); the device k-mer counter;
+multi-process runs.
 """
 
 from __future__ import annotations
@@ -794,4 +795,114 @@ def run_vcf_command(
             results.bulk.get(chromosome),
         )
         write_header = False
+    return 0
+
+
+def run_sampling(
+    precomputed_prefix: str,
+    readfile: str,
+    outname: str,
+    nr_jellyfish_threads: int = 1,
+    nr_core_threads: int = 1,
+    regularization: float = 0.01,
+    count_only_graph: bool = True,
+    panel_size: int = 0,
+    recombrate: float = 1.26,
+    sampling_effective_N: float = 0.01,
+    allele_penalty: int = 5,
+    hash_size: int = 3_000_000_000,
+    device: Optional[str] = None,
+) -> int:
+    """PanGenie-sampling (reference src/commands.cpp:1156-1360): reduce
+    an index's panel to ``panel_size`` haplotypes from one sample's reads
+    and write them as ``<outname>_panel.vcf``, with the per-column
+    ``<outname>_paths_<chromosome>.tsv`` files. ``device`` as in
+    :func:`run_single_command`; ``hash_size`` (-e) is accepted for
+    compatibility."""
+    check_input_file(readfile)
+    segment_file = precomputed_prefix + "_path_segments.fasta"
+    check_input_file(segment_file)
+    archive = precomputed_prefix + "_UniqueKmersMap.pkl"
+    check_input_file(archive)
+
+    dev = _use_device(device)
+    summary = PhaseSummary("PanGenie-sampling")
+    unique_kmers_list: UniqueKmersMap = _load(archive)
+    chromosomes = sorted(unique_kmers_list.unique_kmers.keys())
+    if not sum(len(unique_kmers_list.unique_kmers[c]) for c in chromosomes):
+        return 0
+    summary.phase("reading UniqueKmersMap from disk")
+
+    read_kmer_counts = _read_counter(
+        readfile, segment_file, unique_kmers_list.kmersize, count_only_graph,
+        nr_jellyfish_threads,
+    )
+    kmer_abundance_peak = read_kmer_counts.compute_histogram(
+        10000, count_only_graph, outname + "_histogram.histo"
+    )
+    probabilities = ProbabilityTable(
+        kmer_abundance_peak // 4,
+        kmer_abundance_peak * 4,
+        2 * kmer_abundance_peak,
+        regularization,
+    )
+    summary.phase("counting kmers in reads")
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .hmm.sampling import sample_panels_batched
+
+    def _fill(chromosome):
+        fill_read_kmercounts(
+            chromosome, unique_kmers_list, read_kmer_counts, probabilities,
+            precomputed_prefix, kmer_abundance_peak,
+        )
+
+    workers = max(1, min(nr_core_threads, len(chromosomes)))
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        list(pool.map(_fill, chromosomes))
+    summary.phase("updating unique kmers")
+    # sampling always writes the paths TSVs (src/commands.cpp:1285)
+    sample_panels_batched(
+        {c: unique_kmers_list.unique_kmers[c] for c in chromosomes},
+        panel_size, recombrate, sampling_effective_N,
+        unique_kmers_list.add_reference,
+        {c: f"{outname}_paths_{c}.tsv" for c in chromosomes},
+        allele_penalty, device=dev,
+    )
+    summary.phase("sampling haplotypes")
+
+    _log("Write sampled panel to VCF ...")
+    write_header = True
+    for chromosome in chromosomes:
+        sampled = [
+            SampledPanel(record.get_path_ids()[1], record.size())
+            for record in unique_kmers_list.unique_kmers[chromosome]
+        ]
+        graph: ChromosomeGraph = _load(f"{precomputed_prefix}_{chromosome}_Graph.pkl")
+        graph.write_sampled_panel(outname + "_panel.vcf", sampled, write_header)
+        write_header = False
+    summary.phase("writing output")
+    summary.print_summary()
+    return 0
+
+
+def run_analyze_uk(precomputed_uk: str) -> int:
+    """Print the kmer x allele incidence matrix of every variant of a
+    serialized UniqueKmersMap (reference src/analyze-uk.cpp: one line per
+    allele, chromosome / position / 0-1 kmer bitstring). Host only."""
+    check_input_file(precomputed_uk)
+    unique_kmers_list: UniqueKmersMap = _load(precomputed_uk)
+    try:
+        for chromosome in sorted(unique_kmers_list.unique_kmers.keys()):
+            for record in unique_kmers_list.unique_kmers[chromosome]:
+                for allele in record.get_allele_ids():
+                    bits = "".join(
+                        "1" if record.kmer_on_allele(ki, allele) else "0"
+                        for ki in range(record.size())
+                    )
+                    print(f"{chromosome}\t{record.get_variant_position()}\t{bits}")
+    except BrokenPipeError:
+        # downstream pipe (e.g. `| head`) closed: standard unix-tool exit
+        os.dup2(os.open(os.devnull, os.O_WRONLY), sys.stdout.fileno())
     return 0

@@ -1,13 +1,18 @@
 // Kernel S1: one masked single-path min-plus Viterbi iteration of the
 // greedy haplotype sampler, for Hopper (sm_90a): a forward sweep that
-// keeps backtraces, then a parallel chase of the path through them.
+// keeps backtraces, then a parallel chase of the path through them. The
+// same two kernels run the checkpointed scan (S1-seg) for chromosomes
+// beyond one card: the sweep takes an entry score row and writes an exit
+// score row, may keep no backtraces, and the chase starts from given
+// states and hands back the state before its first column.
 //
 // Replaces: pangenie_tpu/hmm/sampling.py:_viterbi_iteration (the column
 // scan, :174, and its chase, :232) and :_blocked_viterbi (its blocked TPU
 // formulation, bit-identical to the scan by construction), both XLA, run
-// per greedy iteration by :_sample_group. Plain version:
-// pangenie_tpu_torch/hmm/sampling.py (viterbi_iteration_plain; the chase
-// alone: chase_plain).
+// per greedy iteration by :_sample_group; and :_viterbi_iteration_segmented
+// (:652) with :_segment_forward (:574) and :_segment_backtrace (:604).
+// Plain versions: pangenie_tpu_torch/hmm/sampling.py (sweep_plain,
+// chase_plain, viterbi_iteration_plain).
 //
 // What bounds it on the H100: the sweep is a serial chain over N columns;
 // a column is one reduction over the P paths and a few integer operations
@@ -15,7 +20,7 @@
 // its instructions, not bandwidth or arithmetic: the design shortens the
 // chain and keeps what is not on it off it.
 //
-// Sweep (s1_sweep_kernel), one CTA per chromosome:
+// Sweep, one CTA per chromosome, in three tiers by P (sweep_layout):
 // - P <= 128: one warp, each lane holding R = ceil(P/32) consecutive
 //   paths in registers, so lane order is path order. No barrier. Only the
 //   column minimum is on the chain (one __reduce_min_sync, redux.sync):
@@ -25,28 +30,40 @@
 //   more reduction off the chain, and the next path at it another, only
 //   before a column whose switch is free. P <= 1024: W = ceil(P/128)
 //   warps of 4 paths a lane merge theirs through double-buffered shared
-//   partials, one barrier a column.
-// - No load on the column's chain: cost, mask and switch of column
-//   n + S1_DEPTH are loaded into a register ring while column n reduces.
-// - Backtraces uint8 (P <= 256) or uint16, rows of 32*W*R entries (entry
-//   p of a row is path p's); a lane's R entries leave as one store where
-//   they make 1, 2, 4 or 8 bytes.
+//   partials, one barrier a column, each thread reading the W partials.
+// - P <= 4096 (S1_REGISTER_PATHS): the same with W = ceil(P/128) up to 32
+//   warps, W a runtime value (one instance), a ring of S1_WIDE_DEPTH
+//   columns (1024 threads leave 64 registers a thread), and each warp
+//   merging the W partials in its lanes: one shared load and three
+//   redux.sync instead of 2W loads in every thread.
+// - P > 4096: 1024 threads, thread t holding paths t, t + 1024, ...,
+//   their scores in shared memory (4 bytes a path, up to 57,856 paths),
+//   past that in a global scratch row [C, P] (L2-resident). A thread keeps
+//   the first two of its paths at its minimum as it walks them; warps and
+//   block merge as above. Columns S1_AHEAD ahead are prefetched into L2.
+// - No load on the column's chain in the register tiers: cost, mask and
+//   switch of column n + depth are loaded into a register ring while
+//   column n reduces.
+// - Backtraces uint8 (P <= 256), uint16 (P <= 65,536) or uint32, rows of
+//   32*W*R entries (entry p of a row is path p's); a lane's R entries
+//   leave as one store where they make 1, 2, 4 or 8 bytes.
 // Chase, N columns cut into S segments of L (hmm/sampling.py picks L):
 // - s1_maps_kernel: for every segment but the first and every state at
 //   its last column, follow its L backtraces to the state at the column
 //   before it: C x (S-1) x P independent chains across the SMs;
 // - s1_rewalk_kernel: one thread per segment composes the maps of the
-//   segments after it, from the last column's first minimum, then
-//   re-walks its own segment writing the path. The path is the serial
-//   chase's by construction.
+//   segments after it, from the given end state, then re-walks its own
+//   segment writing the path. The path is the serial chase's by
+//   construction.
 // Rules of the column scan, kept bit for bit: uint32 scores with
 // saturating adds; a masked path's score is UMAX; the first minimum is
 // the lowest index among equal scores (padding paths, past P, never
 // win); the second minimum is the first minimum of the column with the
 // first's score replaced by UMAX; a path stays only on strict '<';
-// column 0 is score 0 and backtrace 0; the last column's first minimum
-// ends the path and its score is `best`. Allocates nothing; launches on
-// the caller's stream.
+// column 0 is score 0 and backtrace 0 unless an entry row carries the
+// previous column's scores; the last column's first minimum ends the
+// path and its score is `best`. Allocates nothing; launches on the
+// caller's stream.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,13 +71,28 @@
 #define UMAX 0xFFFFFFFFu
 #define NONE 0xFFFFFFFFu  // the index of no path: above every real one
 #define FULL_MASK 0xFFFFFFFFu
-#define S1_MAX_PATHS 1024
-// columns in flight in the register ring
+// the register tiers' edge: 32 warps of 4 paths a lane
+#define S1_REGISTER_PATHS 4096
+// columns in flight in the register ring, up to 8 warps and above
 #define S1_DEPTH 8
+#define S1_WIDE_DEPTH 2
+// threads of the wide tiers' CTA and the partials' words: [2][32][4]
+#define S1_THREADS 1024
+#define S1_PART_WORDS (2 * 4 * 32)
+// dynamic shared memory one H100 block can use
+#define S1_SMEM_BYTES 232448
+// columns the shared tier prefetches into L2 ahead of the one it sweeps,
+// and the paths a thread loads together
+#define S1_AHEAD 8
+#define S1_UNROLL 8
+#ifndef PREFETCH_L2
+#define PREFETCH_L2(p) asm volatile("prefetch.global.L2 [%0];" ::"l"(p))
+#endif
 
 typedef unsigned long long u64;
 
-// the multi-warp sweep's partials: [2 buffers][W warps][m1, f1, g, -]
+// the multi-warp sweeps' partials: [2 buffers][warps][m1, f1, g, -]; the
+// shared tier keeps its scores after S1_PART_WORDS
 extern __shared__ __align__(16) u64 s1_shm[];
 
 // min(a + b, UMAX) as uint32: where a > ~b the sum overflows and
@@ -98,13 +130,48 @@ __device__ __forceinline__ Col warp_col(const unsigned (&score)[R], unsigned lan
     return {m1, f1, g};
 }
 
-// The block's Col; `step` alternates the partials' buffer.
+// The warp's Col where each lane brings its own least score m and its
+// first two paths at m, i1 < i2 (in any order across lanes): the second
+// path at m1 is the holder's i2 or the least i1 of the other lanes at m1.
+__device__ __forceinline__ Col lane_merge(unsigned m, unsigned i1, unsigned i2, bool need_g) {
+    const unsigned m1 = __reduce_min_sync(FULL_MASK, m);
+    if (m != m1) i1 = i2 = NONE;
+    const unsigned f1 = __reduce_min_sync(FULL_MASK, i1);
+    const unsigned g = need_g ? __reduce_min_sync(FULL_MASK, i1 == f1 ? i2 : i1) : NONE;
+    return {m1, f1, g};
+}
+
+// The block's Col from its warps' (at most 32), every warp merging the
+// partials in its lanes; `step` alternates the partials' buffer.
+__device__ __forceinline__ Col block_merge(const Col c, int step, bool need_g) {
+    unsigned* part = reinterpret_cast<unsigned*>(s1_shm) + (step & 1) * 4 * 32;
+    const unsigned lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+    if (lane == 0) {
+        part[4 * (threadIdx.x >> 5)] = c.m1;
+        part[4 * (threadIdx.x >> 5) + 1] = c.f1;
+        part[4 * (threadIdx.x >> 5) + 2] = c.g;
+    }
+    __syncthreads();
+    unsigned m = UMAX, i1 = NONE, i2 = NONE;
+    if (lane < warps) {
+        m = part[4 * lane];
+        i1 = part[4 * lane + 1];
+        i2 = part[4 * lane + 2];
+    }
+    return lane_merge(m, i1, i2, need_g);
+}
+
+// The block's Col; `step` alternates the partials' buffer. W = 0: the
+// warps are blockDim.x / 32, up to 32, merged by block_merge; W <= 8:
+// every thread reads the W partials.
 template <int R, int W>
 __device__ __forceinline__ Col block_col(const unsigned (&score)[R], unsigned lane_min,
                                          unsigned first, int step, bool need_g) {
     const Col c = warp_col<R>(score, lane_min, first, need_g);
     if constexpr (W == 1) {
         return c;
+    } else if constexpr (W == 0) {
+        return block_merge(c, step, need_g);
     } else {
         unsigned* part = reinterpret_cast<unsigned*>(s1_shm) + (step & 1) * 4 * W;
         const int warp = threadIdx.x >> 5;
@@ -193,19 +260,27 @@ __device__ __forceinline__ void store_backs(BT* dst, const unsigned (&back)[R]) 
 //   U = min_i sat(sw + cost[i]),
 // where A and U do not wait for m1: the chain from one column's m1 to
 // the next is three operations and one redux.
-template <int R, int W, typename BT>
-__global__ void __launch_bounds__(32 * W)
+// With CARRY, an entry row (the scores of the column before column 0,
+// UMAX where masked, as an exit row holds them) makes column 0 such a
+// column too, an exit row takes the last column's scores, and without
+// backtraces (bt null) the sweep only carries the scores; without
+// CARRY, none of this is in the code: the unrolled columns stay one
+// block of straight-line code, with no branch a column (a branch a
+// column made the one-warp sweep at P=123 46% slower on an H100).
+template <int R, int W, int D, bool CARRY, typename BT>
+__global__ void __launch_bounds__(W ? 32 * W : S1_THREADS)
     s1_sweep_kernel(const unsigned* __restrict__ cost, const unsigned char* __restrict__ mask,
-                    const unsigned* __restrict__ sw, BT* __restrict__ bt,
+                    const unsigned* __restrict__ sw, const unsigned* __restrict__ carry_in,
+                    unsigned* __restrict__ carry_out, BT* __restrict__ bt,
                     unsigned* __restrict__ best, int* __restrict__ ends, int N, int P) {
-    constexpr int D = S1_DEPTH;
     const int c = blockIdx.x;
     const unsigned first = threadIdx.x * R;  // the lane's first path
-    const size_t row = 32 * W * R;
+    const size_t row = (size_t)(W ? 32 * W : blockDim.x) * R;
+    const bool keep = !CARRY || bt != nullptr;
     cost += (size_t)c * N * P;
     mask += (size_t)c * N * P;
     sw += (size_t)c * N;
-    bt += (size_t)c * N * row + first;
+    if (keep) bt += (size_t)c * N * row + first;
 
     // column n lives in slot n % D; loads past the last column read it again
     unsigned ring_cost[D][R], ring_live[D][R], ring_sw[D];
@@ -214,19 +289,8 @@ __global__ void __launch_bounds__(32 * W)
         load_column<R>(ring_cost[d], ring_live[d], ring_sw[d], cost, mask, sw, min(d, N - 1),
                        P, first);
 
-    // column 0: score 0 before its cost, backtrace 0
     unsigned score[R], back[R], lane_min = UMAX;
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-        score[j] = ring_live[0][j] ? ring_cost[0][j] : UMAX;
-        lane_min = min(lane_min, score[j]);
-        back[j] = 0;
-    }
-    store_backs<R>(bt, back);
-    load_column<R>(ring_cost[0], ring_live[0], ring_sw[0], cost, mask, sw, min(D, N - 1), P,
-                   first);
-    Col col = block_col<R, W>(score, lane_min, first, 0, ring_sw[1 % D] == 0);
-
+    Col col = {UMAX, NONE, NONE};
     auto step = [&](int n, int k) {
         const unsigned s = ring_sw[k], c1 = sat_add(col.m1, s);
         const unsigned at_first =
@@ -242,12 +306,34 @@ __global__ void __launch_bounds__(32 * W)
             a_min = min(a_min, a);
             u_min = min(u_min, u);
         }
-        store_backs<R>(bt + (size_t)n * row, back);
+        if (keep) store_backs<R>(bt + (size_t)n * row, back);
         load_column<R>(ring_cost[k], ring_live[k], ring_sw[k], cost, mask, sw,
                        min(n + D, N - 1), P, first);
         col = block_col<R, W>(score, min(a_min, sat_add(col.m1, u_min)), first, n,
                               ring_sw[(k + 1) % D] == 0);
     };
+    if (CARRY && carry_in) {
+        // the carried column's Col (partials' buffer 1), then column 0
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+            score[j] = first + j < (unsigned)P ? carry_in[(size_t)c * P + first + j] : UMAX;
+            lane_min = min(lane_min, score[j]);
+        }
+        col = block_col<R, W>(score, lane_min, first, -1, ring_sw[0] == 0);
+        step(0, 0);
+    } else {
+        // column 0: score 0 before its cost, backtrace 0
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+            score[j] = ring_live[0][j] ? ring_cost[0][j] : UMAX;
+            lane_min = min(lane_min, score[j]);
+            back[j] = 0;
+        }
+        if (keep) store_backs<R>(bt, back);
+        load_column<R>(ring_cost[0], ring_live[0], ring_sw[0], cost, mask, sw, min(D, N - 1),
+                       P, first);
+        col = block_col<R, W>(score, lane_min, first, 0, ring_sw[1 % D] == 0);
+    }
     int n0 = 1;
     for (; n0 + D <= N; n0 += D) {
 #pragma unroll
@@ -262,15 +348,146 @@ __global__ void __launch_bounds__(32 * W)
         best[c] = col.m1;
         ends[c] = (int)col.f1;
     }
+    if (CARRY && carry_out) {
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+            if (first + j < (unsigned)P) carry_out[(size_t)c * P + first + j] = score[j];
+    }
+}
+
+// Path p's score x into the thread's least score m and its first two
+// paths at it (the thread walks its paths in increasing order).
+__device__ __forceinline__ void keep_top2(unsigned& m, unsigned& i1, unsigned& i2,
+                                          unsigned x, unsigned p) {
+    if (i1 == NONE || x < m) {
+        m = x;
+        i1 = p;
+        i2 = NONE;
+    } else if (x == m && i2 == NONE) {
+        i2 = p;
+    }
+}
+
+// The block's Col from every thread's (m, i1, i2): warps by lane_merge,
+// then the warps' partials.
+__device__ __forceinline__ Col block_top(unsigned m, unsigned i1, unsigned i2, int step) {
+    return block_merge(lane_merge(m, i1, i2, true), step, true);
+}
+
+// Column n's cost and mask lines into L2: one 128-byte line a thread.
+__device__ __forceinline__ void prefetch_column(const unsigned* cost,
+                                                const unsigned char* mask, int n, int P) {
+    const size_t at = (size_t)n * P;
+    for (unsigned p = threadIdx.x * 32; p < (unsigned)P; p += S1_THREADS * 32)
+        PREFETCH_L2(cost + at + p);
+    for (unsigned p = threadIdx.x * 128; p < (unsigned)P; p += S1_THREADS * 128)
+        PREFETCH_L2(mask + at + p);
+}
+
+// The sweep for P > S1_REGISTER_PATHS: 1024 threads, thread t holding
+// paths t, t + 1024, ...; its scores in shared memory or, where
+// `scratch` is given, in scratch [C, P]. A thread reads and writes only
+// its own scores, so only the Col's merge needs a barrier. The same
+// recurrence, entry and exit rows and backtrace rule as s1_sweep_kernel,
+// written for one path at a time: s' = sat(min(s, c1) + cost).
+template <typename BT>
+__global__ void __launch_bounds__(S1_THREADS)
+    s1_sweep_many_kernel(const unsigned* __restrict__ cost,
+                         const unsigned char* __restrict__ mask,
+                         const unsigned* __restrict__ sw, const unsigned* __restrict__ carry_in,
+                         unsigned* __restrict__ carry_out, BT* __restrict__ bt,
+                         unsigned* __restrict__ best, int* __restrict__ ends,
+                         unsigned* __restrict__ scratch, int N, int P, int row) {
+    const int c = blockIdx.x;
+    const unsigned t = threadIdx.x;
+    unsigned* __restrict__ score = scratch ? scratch + (size_t)c * P
+                                           : reinterpret_cast<unsigned*>(s1_shm) + S1_PART_WORDS;
+    const bool keep = bt != nullptr;
+    cost += (size_t)c * N * P;
+    mask += (size_t)c * N * P;
+    sw += (size_t)c * N;
+    if (keep) bt += (size_t)c * N * row;
+    for (int n = 0; n < min(N, S1_AHEAD); ++n) prefetch_column(cost, mask, n, P);
+
+    unsigned m = UMAX, i1 = NONE, i2 = NONE;
+    Col col = {UMAX, NONE, NONE};
+    int n_first = 0;
+    if (carry_in) {
+        for (unsigned p = t; p < (unsigned)P; p += S1_THREADS) {
+            const unsigned x = carry_in[(size_t)c * P + p];
+            score[p] = x;
+            keep_top2(m, i1, i2, x, p);
+        }
+        col = block_top(m, i1, i2, -1);
+    } else {
+        // column 0: score 0 before its cost, backtrace 0
+        for (unsigned p = t; p < (unsigned)P; p += S1_THREADS) {
+            const unsigned x = mask[p] ? cost[p] : UMAX;
+            score[p] = x;
+            if (keep) bt[p] = 0;
+            keep_top2(m, i1, i2, x, p);
+        }
+        col = block_top(m, i1, i2, 0);
+        n_first = 1;
+    }
+    unsigned s_next = sw[min(n_first, N - 1)];
+    for (int n = n_first; n < N; ++n) {
+        const unsigned s = s_next;
+        s_next = sw[min(n + 1, N - 1)];
+        if (n + S1_AHEAD < N) prefetch_column(cost, mask, n + S1_AHEAD, P);
+        const unsigned c1 = sat_add(col.m1, s);
+        const unsigned at_first =
+            col.g != NONE && s == 0 && col.m1 != UMAX ? col.g : col.f1;
+        const size_t at = (size_t)n * P;
+        m = UMAX;
+        i1 = i2 = NONE;
+        // S1_UNROLL of the thread's paths at a time: their loads first
+        // (the cost whatever the mask, so no load waits for another),
+        // then their recurrence in path order
+        for (unsigned p0 = t; p0 < (unsigned)P; p0 += S1_UNROLL * S1_THREADS) {
+            unsigned k_cost[S1_UNROLL], x[S1_UNROLL];
+#pragma unroll
+            for (int u = 0; u < S1_UNROLL; ++u) {
+                const unsigned p = p0 + u * S1_THREADS;
+                k_cost[u] = x[u] = UMAX;
+                if (p < (unsigned)P) {
+                    const unsigned v = cost[at + p];
+                    k_cost[u] = mask[at + p] ? v : UMAX;
+                    x[u] = score[p];
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < S1_UNROLL; ++u) {
+                const unsigned p = p0 + u * S1_THREADS;
+                if (p >= (unsigned)P) break;
+                if (keep)
+                    bt[(size_t)n * row + p] =
+                        (BT)(p == col.f1 ? at_first : x[u] < c1 ? p : col.f1);
+                const unsigned y = sat_add(min(x[u], c1), k_cost[u]);
+                score[p] = y;
+                keep_top2(m, i1, i2, y, p);
+            }
+        }
+        col = block_top(m, i1, i2, n);
+    }
+    if (t == 0) {
+        best[c] = col.m1;
+        ends[c] = (int)col.f1;
+    }
+    if (carry_out)
+        for (unsigned p = t; p < (unsigned)P; p += S1_THREADS)
+            carry_out[(size_t)c * P + p] = score[p];
 }
 
 // maps[c][s][e]: the state at segment s's column before it (s*L - 1),
-// given state e at its last column, for s = 1..S-1.
+// given state e at its last column, for s = 1..S-1; `chunks` blocks of
+// blockDim.x states each per (chromosome, segment).
 template <typename BT>
 __global__ void s1_maps_kernel(const BT* __restrict__ bt, int* __restrict__ maps, int N,
-                               int P, int row, int L, int S) {
-    const int c = blockIdx.x / (S - 1), s = blockIdx.x % (S - 1) + 1;
-    const int e = threadIdx.x;
+                               int P, int row, int L, int S, int chunks) {
+    const int cs = blockIdx.x / chunks;
+    const int c = cs / (S - 1), s = cs % (S - 1) + 1;
+    const int e = (blockIdx.x % chunks) * blockDim.x + threadIdx.x;
     if (e >= P) return;
     const BT* b = bt + (size_t)c * N * row;
     const int lo = s * L, hi = min(N, lo + L);
@@ -280,11 +497,15 @@ __global__ void s1_maps_kernel(const BT* __restrict__ bt, int* __restrict__ maps
 }
 
 // One thread per (chromosome, segment): its last column's state from the
-// chromosome's end through the later segments' maps, then its columns.
+// given end through the later segments' maps, then its columns. The
+// first segment's thread also writes, where `state_out` is given, the
+// backtrace at column 0 of the path's state there: the state at the
+// column before it (the previous segment's last, in the checkpointed scan).
 template <typename BT>
 __global__ void s1_rewalk_kernel(const BT* __restrict__ bt, const int* __restrict__ maps,
-                                 const int* __restrict__ ends, int* __restrict__ path, int C,
-                                 int N, int P, int row, int L, int S) {
+                                 const int* __restrict__ ends, int* __restrict__ path,
+                                 int* __restrict__ state_out, int C, int N, int P, int row,
+                                 int L, int S) {
     const int t = blockIdx.x * blockDim.x + threadIdx.x;
     if (t >= C * S) return;
     const int c = t / S, s = t % S;
@@ -299,15 +520,30 @@ __global__ void s1_rewalk_kernel(const BT* __restrict__ bt, const int* __restric
         if (n == lo) break;
         x = b[(size_t)n * row + x];
     }
+    if (s == 0 && state_out) state_out[c] = b[x];
 }
 
 // The sweep's layout, as hmm/sampling.py:sweep_layout derives it: W warps
 // of R paths a lane.
 static bool sweep_layout(int P, int& W, int& R) {
-    if (P < 1 || P > S1_MAX_PATHS) return false;
-    W = P <= 128 ? 1 : (P + 127) / 128;
-    R = P <= 128 ? (P + 31) / 32 : 4;
+    if (P < 1) return false;
+    if (P <= 128) {
+        W = 1;
+        R = (P + 31) / 32;
+    } else if (P <= S1_REGISTER_PATHS) {
+        W = (P + 127) / 128;
+        R = 4;
+    } else {
+        W = S1_THREADS / 32;
+        R = (P + S1_THREADS - 1) / S1_THREADS;
+    }
     return true;
+}
+
+// Whether the shared tier keeps P scores in shared memory, beside the
+// partials (else the caller gives a scratch row a chromosome).
+static bool scores_in_shared(int P) {
+    return 4 * ((size_t)S1_PART_WORDS + P) <= S1_SMEM_BYTES;
 }
 
 template <typename Kernel, typename... Args>
@@ -318,36 +554,75 @@ static int launch(Kernel kernel, int blocks, int threads, size_t smem, void* str
 }
 
 template <typename BT>
-static int chase(const void* bt, const int* ends, int* maps, int* path, int C, int N,
-                 int P, int row, int L, void* stream) {
+static int sweep_many(const unsigned* cost, const unsigned char* mask, const unsigned* sw,
+                      const unsigned* carry_in, unsigned* carry_out, void* bt, unsigned* best,
+                      int* ends, unsigned* scratch, int C, int N, int P, int row,
+                      void* stream) {
+    const bool shared = scores_in_shared(P);
+    if (!shared && !scratch) return (int)cudaErrorInvalidValue;
+    const size_t smem = 4 * ((size_t)S1_PART_WORDS + (shared ? P : 0));
+    const int err = (int)cudaFuncSetAttribute(
+        s1_sweep_many_kernel<BT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err) return err;
+    return launch(s1_sweep_many_kernel<BT>, C, S1_THREADS, smem, stream, cost, mask, sw,
+                  carry_in, carry_out, (BT*)bt, best, ends, shared ? nullptr : scratch, N, P,
+                  row);
+}
+
+template <typename BT>
+static int chase(const void* bt, const int* ends, int* maps, int* path, int* state_out, int C,
+                 int N, int P, int row, int L, void* stream) {
     const int S = (N + L - 1) / L;
     const BT* b = (const BT*)bt;
     if (S > 1) {
-        const int err = launch(s1_maps_kernel<BT>, C * (S - 1), (P + 31) / 32 * 32, 0,
-                               stream, b, maps, N, P, row, L, S);
+        const int threads = min(256, (P + 31) / 32 * 32), chunks = (P + threads - 1) / threads;
+        const int err = launch(s1_maps_kernel<BT>, C * (S - 1) * chunks, threads, 0, stream,
+                               b, maps, N, P, row, L, S, chunks);
         if (err) return err;
     }
     return launch(s1_rewalk_kernel<BT>, (C * S + 127) / 128, 128, 0, stream, b,
-                  (const int*)maps, ends, path, C, N, P, row, L, S);
+                  (const int*)maps, ends, path, state_out, C, N, P, row, L, S);
 }
 
 extern "C" const char* pg_s1_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }
 
-// bt: [C, N, row] uint8 for P <= 256, else uint16; best (uint32 bits) and
-// ends: [C].
+// cost, mask [C, N, P]; sw [C, N]; carry_in, carry_out [C, P] (uint32
+// scores of the column before column 0 and of the last column) or null;
+// bt [C, N, row] uint8 for P <= 256, uint16 for P <= 65,536, else
+// uint32, or null (no backtraces); best (uint32 bits) and ends [C]; scratch [C, P]
+// uint32 where P > S1_REGISTER_PATHS and the scores do not fit in shared
+// memory, else ignored.
 extern "C" int pg_s1_sweep(const unsigned* cost, const unsigned char* mask,
-                           const unsigned* sw, void* bt, unsigned* best, int* ends, int C,
+                           const unsigned* sw, const unsigned* carry_in, unsigned* carry_out,
+                           void* bt, unsigned* best, int* ends, unsigned* scratch, int C,
                            int N, int P, int row, void* stream) {
     int W, R;
     if (C < 1 || N < 1 || !sweep_layout(P, W, R) || row != 32 * W * R)
         return (int)cudaErrorInvalidValue;
+    if (P > S1_REGISTER_PATHS)
+        return P <= 65536 ? sweep_many<uint16_t>(cost, mask, sw, carry_in, carry_out, bt, best,
+                                                 ends, scratch, C, N, P, row, stream)
+                          : sweep_many<uint32_t>(cost, mask, sw, carry_in, carry_out, bt, best,
+                                                 ends, scratch, C, N, P, row, stream);
+    const bool carry = carry_in || carry_out || !bt;
+    if (W > 8)
+        return carry ? launch(s1_sweep_kernel<4, 0, S1_WIDE_DEPTH, true, uint16_t>, C, 32 * W,
+                              4 * S1_PART_WORDS, stream, cost, mask, sw, carry_in, carry_out,
+                              (uint16_t*)bt, best, ends, N, P)
+                     : launch(s1_sweep_kernel<4, 0, S1_WIDE_DEPTH, false, uint16_t>, C,
+                              32 * W, 4 * S1_PART_WORDS, stream, cost, mask, sw, carry_in,
+                              carry_out, (uint16_t*)bt, best, ends, N, P);
     const size_t smem = W > 1 ? 8 * W * sizeof(unsigned) : 0;
-#define S1_SWEEP(w, r, T)                                                                \
-    if (W == w && R == r)                                                                \
-        return launch(s1_sweep_kernel<r, w, T>, C, 32 * w, smem, stream, cost, mask, sw, \
-                      (T*)bt, best, ends, N, P);
+#define S1_SWEEP(w, r, T)                                                                  \
+    if (W == w && R == r)                                                                  \
+        return carry ? launch(s1_sweep_kernel<r, w, S1_DEPTH, true, T>, C, 32 * w, smem,   \
+                              stream, cost, mask, sw, carry_in, carry_out, (T*)bt, best,   \
+                              ends, N, P)                                                  \
+                     : launch(s1_sweep_kernel<r, w, S1_DEPTH, false, T>, C, 32 * w, smem,  \
+                              stream, cost, mask, sw, carry_in, carry_out, (T*)bt, best,   \
+                              ends, N, P);
     S1_SWEEP(1, 1, uint8_t) S1_SWEEP(1, 2, uint8_t) S1_SWEEP(1, 3, uint8_t)
     S1_SWEEP(1, 4, uint8_t) S1_SWEEP(2, 4, uint8_t) S1_SWEEP(3, 4, uint16_t)
     S1_SWEEP(4, 4, uint16_t) S1_SWEEP(5, 4, uint16_t) S1_SWEEP(6, 4, uint16_t)
@@ -356,13 +631,19 @@ extern "C" int pg_s1_sweep(const unsigned* cost, const unsigned char* mask,
     return (int)cudaErrorInvalidValue;
 }
 
-// The path [C, N] from the sweep's bt and ends, through segments of L
-// columns; maps: [C, ceil(N / L), P] int32 scratch.
-extern "C" int pg_s1_chase(const void* bt, const int* ends, int* maps, int* path, int C,
-                           int N, int P, int row, int L, void* stream) {
+// The path [C, N] from the sweep's bt and the states `ends` [C] at the
+// last column, through segments of L columns; maps: [C, ceil(N / L), P]
+// int32 scratch; state_out [C] (or null): the state at the column before
+// column 0 that the path's backtrace there names.
+extern "C" int pg_s1_chase(const void* bt, const int* ends, int* maps, int* path,
+                           int* state_out, int C, int N, int P, int row, int L,
+                           void* stream) {
     int W, R;
     if (C < 1 || N < 1 || L < 1 || !sweep_layout(P, W, R) || row != 32 * W * R)
         return (int)cudaErrorInvalidValue;
-    return P <= 256 ? chase<uint8_t>(bt, ends, maps, path, C, N, P, row, L, stream)
-                    : chase<uint16_t>(bt, ends, maps, path, C, N, P, row, L, stream);
+    if (P <= 256)
+        return chase<uint8_t>(bt, ends, maps, path, state_out, C, N, P, row, L, stream);
+    if (P <= 65536)
+        return chase<uint16_t>(bt, ends, maps, path, state_out, C, N, P, row, L, stream);
+    return chase<uint32_t>(bt, ends, maps, path, state_out, C, N, P, row, L, stream);
 }

@@ -73,11 +73,21 @@ def k4(B: int, N: int, P: int) -> Work:
 
 
 def s1(C: int, N: int, P: int) -> Work:
-    """viterbi_iteration: path_cost (int32) [C, N, P], mask (1 byte)
-    [C, N, P], switch (int32) [C, N] in; paths (int32) [C, N], best
+    """viterbi_iteration, at any P: path_cost (int32) [C, N, P], mask (1
+    byte) [C, N, P], switch (int32) [C, N] in; paths (int32) [C, N], best
     (int32) [C] out. The backtrace the kernel keeps is its own scratch,
     not counted. Integer operations count at the float32 rate."""
     return Work(5 * C * N * P + 4 * C * N + 4 * C * N + 4 * C, S1_OPS * C * N * P)
+
+
+def s1_seg(C: int, N: int, P: int, segment: int) -> Work:
+    """viterbi_iteration_segmented over segments of ``segment`` columns:
+    the same function as :func:`s1`, so the same bytes (each input read
+    once; the exit rows, entry rows and backtraces are its own scratch);
+    the operations of the forward pass over every segment but the last,
+    and of the reverse pass over all."""
+    forward = C * P * max(0, N - (N - 1) % segment - 1)
+    return Work(s1(C, N, P).nbytes, S1_OPS * (C * N * P + forward))
 
 
 def s1_chase(C: int, N: int, bt_bytes: int) -> Work:

@@ -7,13 +7,17 @@ chromosome — kernel S1 (``csrc/sampling_dp.cu``: a sweep, then a
 parallel chase of the backtraces) on the card, the plain column loop
 :func:`viterbi_iteration_plain` on the CPU — then masks the chosen
 paths and penalizes their alleles with elementwise torch
-(``min(cost + penalty, 25)``, padding columns left alone).
+(``min(cost + penalty, 25)``, padding columns left alone). Any number
+of paths.
 
 The full ``[N, P]`` backtraces stay on the device (uint8 up to 256
-paths), so a chromosome is sampled in one sweep wherever its group's
-peak (:func:`group_peak_bytes`) fits the device's free memory
-(:func:`memory_budget`); the reference package's checkpointed scan,
-which gives the same paths, is needed only beyond that.
+paths, 16 bits up to 65,536), so a chromosome is sampled in one sweep
+wherever its group's peak (:func:`group_peak_bytes`) fits the device's
+free memory (:func:`memory_budget`). A chromosome beyond that runs
+through the checkpointed scan, S1-seg
+(:func:`viterbi_iteration_segmented`): the same kernels over segments
+sized from the free memory (:func:`segment_columns`), with the same
+paths.
 
 Scores are uint32 with saturating adds (the reference's overflow
 clamps). Torch on the CPU has no uint32 add/min/argmin/compare, so the
@@ -29,7 +33,7 @@ from __future__ import annotations
 import ctypes
 import math
 import os
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -42,24 +46,44 @@ UINT_MAX = 0xFFFFFFFF
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # kernel S1: replaces pangenie_tpu/hmm/sampling.py:_viterbi_iteration
-# (and its blocked form _blocked_viterbi): the sweep, then the chase
-S1 = CudaKernel("sampling_dp", "pg_s1_sweep", "s1", [_P] * 6 + [_I] * 4 + [_P])
-S1_CHASE = CudaKernel("sampling_dp", "pg_s1_chase", "s1", [_P] * 4 + [_I] * 5 + [_P])
-# eight warps of four paths a lane
-MAX_PATHS = 1024
+# (and its blocked form _blocked_viterbi): the sweep, then the chase; with
+# entry and exit rows, the checkpointed scan _viterbi_iteration_segmented
+S1 = CudaKernel("sampling_dp", "pg_s1_sweep", "s1", [_P] * 9 + [_I] * 4 + [_P])
+S1_CHASE = CudaKernel("sampling_dp", "pg_s1_chase", "s1", [_P] * 5 + [_I] * 5 + [_P])
+# the register tiers' edge (csrc/sampling_dp.cu: S1_REGISTER_PATHS): 32
+# warps of 4 paths a lane; above it, 1024 threads of ceil(P/1024) paths
+REGISTER_PATHS = 4096
+THREADS = 1024
+# an H100 block's shared memory, and the words of the partials before
+# the shared tier's scores there
+SMEM_BYTES = 232_448
+PART_WORDS = 2 * 4 * 32
 
 
 def sweep_layout(P: int):
     """(warps, paths a lane, backtrace row) of S1's sweep for P paths:
-    one warp of ceil(P/32) paths a lane up to 128 paths, else
-    ceil(P/128) warps of 4; a row holds every lane's paths."""
-    warps, per_lane = (1, -(-P // 32)) if P <= 128 else (-(-P // 128), 4)
+    one warp of ceil(P/32) paths a lane up to 128 paths, ceil(P/128)
+    warps of 4 up to 4096, else 32 warps of ceil(P/1024); a row holds
+    every lane's paths."""
+    if P <= 128:
+        warps, per_lane = 1, -(-P // 32)
+    elif P <= REGISTER_PATHS:
+        warps, per_lane = -(-P // 128), 4
+    else:
+        warps, per_lane = THREADS // 32, -(-P // THREADS)
     return warps, per_lane, 32 * warps * per_lane
 
 
 def backtrace_dtype(P: int) -> torch.dtype:
-    """uint8 backtraces up to 256 paths, else 16 bits."""
-    return torch.uint8 if P <= 256 else torch.int16
+    """uint8 backtraces up to 256 paths, 16 bits (uint16 in int16) up to
+    65,536, else int32."""
+    return torch.uint8 if P <= 256 else torch.int16 if P <= 65536 else torch.int32
+
+
+def scores_in_shared(P: int) -> bool:
+    """Whether the sweep above REGISTER_PATHS keeps its P scores in shared
+    memory beside the partials (else in a scratch row a chromosome)."""
+    return 4 * (PART_WORDS + P) <= SMEM_BYTES
 
 
 def chase_segment(N: int) -> int:
@@ -162,15 +186,20 @@ def _sat_add(a, b):
     return torch.clamp_max(a + b, UINT_MAX)
 
 
-def viterbi_iteration_plain(path_cost, mask, switch):
-    """Plain version of kernel S1, batched over C chromosomes.
+def sweep_plain(path_cost, mask, switch, carry_in=None):
+    """Plain version of S1's sweep, batched over C chromosomes.
 
     Args:
       path_cost: [C, N, P] int32 tensor holding uint32 emission costs.
       mask: [C, N, P] bool, True where the path is still available.
-      switch: [C, N] int32 holding uint32 switch costs (entry 0 unused).
+      switch: [C, N] int32 holding uint32 switch costs (entry 0 unused
+        without ``carry_in``).
+      carry_in: None, or [C, P] uint32 scores (int32 bits or int64) of
+        the column before column 0, UMAX where masked, as ``last``
+        returns them: column 0 is then an inner column of the scan.
 
-    Returns (paths [C, N] int32, best_scores [C] int64 uint32 values).
+    Returns (backtraces [C, N, P] int32, last [C, P] int64: the last
+    column's uint32 scores, UMAX where masked).
     """
     C, N, P = path_cost.shape
     dev = path_cost.device
@@ -178,8 +207,13 @@ def viterbi_iteration_plain(path_cost, mask, switch):
     sw = switch.to(torch.int64) & UINT_MAX
     idx = torch.arange(P, device=dev)
     umax = torch.full((C, P), UINT_MAX, dtype=torch.int64, device=dev)
-    prev = torch.zeros((C, P), dtype=torch.int64, device=dev)
-    prev_mask = torch.zeros((C, P), dtype=torch.bool, device=dev)
+    if carry_in is None:
+        prev = torch.zeros((C, P), dtype=torch.int64, device=dev)
+        prev_mask = torch.zeros((C, P), dtype=torch.bool, device=dev)
+    else:
+        # masked paths carry UMAX, which never stays nor wins below UMAX
+        prev = carry_in.to(device=dev, dtype=torch.int64) & UINT_MAX
+        prev_mask = torch.ones((C, P), dtype=torch.bool, device=dev)
     bts = torch.empty((C, N, P), dtype=torch.int32, device=dev)
     for n in range(N):
         masked_prev = torch.where(prev_mask, prev, umax)
@@ -193,28 +227,39 @@ def viterbi_iteration_plain(path_cost, mask, switch):
         take_stay = prev_mask & (prev < prev_cell)
         prev_cell = torch.where(take_stay, prev, prev_cell)
         back = torch.where(take_stay, idx, helper_id)
-        if n == 0:
+        if n == 0 and carry_in is None:
             prev_cell = torch.zeros_like(prev_cell)
             back = torch.zeros_like(back)
         m = mask[:, n]
         prev = torch.where(m, _sat_add(prev_cell, cost[:, n]), umax)
         prev_mask = m
         bts[:, n] = back.to(torch.int32)
-    best_score, state = _first_min(prev, idx)
-    return chase_plain(bts, state), best_score
+    return bts, prev
+
+
+def viterbi_iteration_plain(path_cost, mask, switch, carry_in=None):
+    """Plain version of kernel S1 (:func:`sweep_plain`, then the chase
+    from the last column's first minimum). Returns (paths [C, N] int32,
+    best_scores [C] int64 uint32 values)."""
+    bts, last = sweep_plain(path_cost, mask, switch, carry_in)
+    best_score, state = _first_min(last, torch.arange(last.shape[1], device=last.device))
+    return chase_plain(bts, state)[0], best_score
 
 
 def chase_plain(bt, ends):
     """Plain version of S1's chase: the path [C, N] int32 back from the
     states ``ends`` [C] at the last column through backtraces ``bt``
-    [C, N, >= P] (entry p of a row is path p's predecessor)."""
+    [C, N, >= P] (entry p of a row is path p's predecessor; 16-bit rows
+    hold uint16), and state_out [C] int64: the backtrace at column 0 of
+    the path's state there."""
     C, N = bt.shape[:2]
+    bits = 0xFFFF if bt.dtype == torch.int16 else UINT_MAX
     state = ends.to(torch.int64)
     paths = torch.empty((C, N), dtype=torch.int32, device=bt.device)
     for n in range(N - 1, -1, -1):
         paths[:, n] = state
-        state = bt[:, n].gather(1, state[:, None])[:, 0].to(torch.int64)
-    return paths
+        state = bt[:, n].gather(1, state[:, None])[:, 0].to(torch.int64) & bits
+    return paths, state
 
 
 def _stream(t, stream):
@@ -222,44 +267,64 @@ def _stream(t, stream):
     return launch_stream(t.device) if stream is None and t.is_cuda else stream
 
 
-def s1_sweep(path_cost, mask, switch, sweep=S1, stream=None):
-    """S1's sweep: (backtraces [C, N, row], best [C] int32 holding uint32
-    bits, ends [C] int32 — the last column's first minimum). ``sweep``
-    is the C entry point (the emulated test passes its own); ``stream``
-    defaults to the device's current one."""
+class Sweep(NamedTuple):
+    bt: Optional[torch.Tensor]          # [C, N, row], or None
+    best: torch.Tensor                  # [C] int32 holding uint32 bits
+    ends: torch.Tensor                  # [C] int32: the last column's first minimum
+    carry_out: Optional[torch.Tensor]   # [C, P] int32 holding uint32 scores, or None
+
+
+def s1_sweep(path_cost, mask, switch, carry_in=None, carry_out=False, backtraces=True,
+             sweep=S1, stream=None) -> Sweep:
+    """S1's sweep, from the scores ``carry_in`` ([C, P] int32 holding
+    uint32, as ``carry_out`` returns them) where given; ``backtraces``
+    False keeps none. ``sweep`` is the C entry point (the emulated test
+    passes its own); ``stream`` defaults to the device's current one."""
     C, N, P = path_cost.shape
     _warps, _per_lane, row = sweep_layout(P)
     dev = path_cost.device
-    bt = torch.empty((C, N, row), dtype=backtrace_dtype(P), device=dev)
-    best = torch.empty((C,), dtype=torch.int32, device=dev)
-    ends = torch.empty((C,), dtype=torch.int32, device=dev)
-    sweep(path_cost.data_ptr(), mask.data_ptr(), switch.data_ptr(), bt.data_ptr(),
-          best.data_ptr(), ends.data_ptr(), C, N, P, row, _stream(bt, stream))
-    return bt, best, ends
+
+    def empty(shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    bt = empty((C, N, row), backtrace_dtype(P)) if backtraces else None
+    best, ends = empty((C,)), empty((C,))
+    out = empty((C, P)) if carry_out else None
+    scratch = None if P <= REGISTER_PATHS or scores_in_shared(P) else empty((C, P))
+    if carry_in is not None:
+        carry_in = carry_in.to(device=dev, dtype=torch.int32).contiguous()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    sweep(path_cost.data_ptr(), mask.data_ptr(), switch.data_ptr(), ptr(carry_in), ptr(out),
+          ptr(bt), best.data_ptr(), ends.data_ptr(), ptr(scratch), C, N, P, row,
+          _stream(path_cost, stream))
+    return Sweep(bt, best, ends, out)
 
 
 def s1_chase(bt, ends, P: int, chase=S1_CHASE, stream=None):
-    """S1's chase: the path [C, N] int32 from the sweep's outputs, in
-    segments of :func:`chase_segment` columns."""
+    """S1's chase from the states ``ends`` [C] at the last column:
+    (path [C, N] int32, state_out [C] int32: the backtrace at column 0 of
+    the path's state there), in segments of :func:`chase_segment`
+    columns."""
     C, N, row = bt.shape
     L = chase_segment(N)
-    maps = torch.empty((C, -(-N // L), P), dtype=torch.int32, device=bt.device)
-    paths = torch.empty((C, N), dtype=torch.int32, device=bt.device)
-    chase(bt.data_ptr(), ends.data_ptr(), maps.data_ptr(), paths.data_ptr(), C, N, P,
-          row, L, _stream(bt, stream))
-    return paths
+    dev = bt.device
+    maps = torch.empty((C, -(-N // L), P), dtype=torch.int32, device=dev)
+    paths = torch.empty((C, N), dtype=torch.int32, device=dev)
+    state_out = torch.empty((C,), dtype=torch.int32, device=dev)
+    ends = ends.to(dtype=torch.int32).contiguous()
+    chase(bt.data_ptr(), ends.data_ptr(), maps.data_ptr(), paths.data_ptr(),
+          state_out.data_ptr(), C, N, P, row, L, _stream(bt, stream))
+    return paths, state_out
 
 
-def viterbi_iteration(path_cost, mask, switch):
-    """One masked min-plus Viterbi per chromosome — kernel S1 (sweep and
-    chase) on CUDA tensors, :func:`viterbi_iteration_plain` on CPU
-    tensors. Returns (paths [C, N] int32, best [C] int64 uint32 values)."""
-    if path_cost.device.type == "cpu":
-        return viterbi_iteration_plain(path_cost, mask, switch)
+def _check_inputs(path_cost, mask, switch):
+    """Raises ValueError unless the inputs are S1's: int32 costs, bool
+    mask [C, N, P], int32 switch [C, N], contiguous, on one device."""
     C, N, P = path_cost.shape
     dev = path_cost.device
-    if P > MAX_PATHS:
-        raise ValueError(f"{P} paths exceed kernel S1's limit of {MAX_PATHS}")
     for name, t, dtype, shape in (
         ("path_cost", path_cost, torch.int32, (C, N, P)),
         ("mask", mask, torch.bool, (C, N, P)),
@@ -272,11 +337,143 @@ def viterbi_iteration(path_cost, mask, switch):
             )
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
+
+
+def viterbi_iteration(path_cost, mask, switch):
+    """One masked min-plus Viterbi per chromosome — kernel S1 (sweep and
+    chase) on CUDA tensors, :func:`viterbi_iteration_plain` on CPU
+    tensors. Any P. Returns (paths [C, N] int32, best [C] int64 uint32
+    values)."""
+    if path_cost.device.type == "cpu":
+        return viterbi_iteration_plain(path_cost, mask, switch)
+    C, N, P = path_cost.shape
+    _check_inputs(path_cost, mask, switch)
     if not (C and N):  # as the plain version: no columns score 0
-        return (torch.empty((C, N), dtype=torch.int32, device=dev),
-                torch.zeros((C,), dtype=torch.int64, device=dev))
-    bt, best, ends = s1_sweep(path_cost, mask, switch)
-    return s1_chase(bt, ends, P), best.to(torch.int64) & UINT_MAX
+        return (torch.empty((C, N), dtype=torch.int32, device=path_cost.device),
+                torch.zeros((C,), dtype=torch.int64, device=path_cost.device))
+    bt, best, ends, _ = s1_sweep(path_cost, mask, switch)
+    return s1_chase(bt, ends, P)[0], best.to(torch.int64) & UINT_MAX
+
+
+# ---------------------------------------------------------------------------
+# S1-seg: the checkpointed scan, for chromosomes beyond one device
+# ---------------------------------------------------------------------------
+
+
+def _segment_sweep(path_cost, mask, switch, carry_in, backtraces: bool, plain: bool) -> Sweep:
+    """One segment's sweep from ``carry_in``: kernel S1 on CUDA tensors
+    (with the exit row where no backtraces are kept: the forward pass),
+    :func:`sweep_plain` on CPU tensors or where ``plain`` asks for it.
+    ``best`` as int64 uint32 values."""
+    if plain or path_cost.device.type == "cpu":
+        bts, last = sweep_plain(path_cost, mask, switch, carry_in)
+        best, ends = _first_min(last, torch.arange(last.shape[1], device=last.device))
+        return Sweep(bts, best, ends, last)
+    _check_inputs(path_cost, mask, switch)
+    out = s1_sweep(path_cost, mask, switch, carry_in, carry_out=not backtraces,
+                   backtraces=backtraces)
+    return out._replace(best=out.best.to(torch.int64) & UINT_MAX)
+
+
+def viterbi_iteration_segmented(source, C: int, N: int, P: int, segment: int, device,
+                                plain: bool = False):
+    """One masked min-plus Viterbi per chromosome over segments of
+    ``segment`` columns: the checkpointed scan of the reference package
+    (``_viterbi_iteration_segmented``), with the paths and scores of
+    :func:`viterbi_iteration`.
+
+    ``source(lo, hi)`` returns columns lo..hi-1 of the C chromosomes as
+    (path_cost [C, hi-lo, P] int32, mask bool, switch [C, hi-lo] int32)
+    on ``device``; a source with a ``prefetch(lo, hi)`` method is told the
+    segment it will be asked for next, right after each call. A forward
+    pass over every segment but the last keeps only each segment's exit
+    scores (S1's sweep without backtraces); the reverse pass sweeps each
+    segment again from its entry scores with backtraces and chases it
+    from the state the later segment handed back. Only one segment's
+    inputs and backtraces are held at a time. Kernel S1 on a card, the
+    plain versions on the CPU or where ``plain`` asks for them
+    (chip_smoke.py holds the kernels against them on the card).
+
+    Returns (paths [C, N] int32, best [C] int64 uint32 values).
+    """
+    device = torch.device(device)
+    plain = plain or device.type == "cpu"
+    bounds = [(lo, min(N, lo + segment)) for lo in range(0, N, segment)]
+    order = bounds[:-1] + bounds[::-1]
+    prefetch = getattr(source, "prefetch", None)
+    fetched = iter(range(len(order)))
+
+    def fetch():
+        k = next(fetched)
+        inputs = source(*order[k])
+        if prefetch is not None and k + 1 < len(order):
+            prefetch(*order[k + 1])
+        return inputs
+
+    carries = [None]
+    for _ in bounds[:-1]:
+        carries.append(_segment_sweep(*fetch(), carries[-1], False, plain).carry_out)
+    paths = torch.empty((C, N), dtype=torch.int32, device=device)
+    state = best = None
+    for (lo, hi), carry in zip(bounds[::-1], carries[::-1]):
+        bt, seg_best, ends, _ = _segment_sweep(*fetch(), carry, True, plain)
+        if state is None:  # the last segment: the last column's first minimum
+            state, best = ends, seg_best
+        if plain:
+            paths[:, lo:hi], state = chase_plain(bt, state)
+        else:
+            paths[:, lo:hi], state = s1_chase(bt, state, P)
+        del bt
+    return paths, best
+
+
+def segment_columns(budget: int, C: int, N: int, P: int, column_bytes: int) -> int:
+    """The most columns a segment of :func:`viterbi_iteration_segmented`
+    may have within ``budget`` bytes: the source's ``column_bytes`` a
+    column (of the C chromosomes), S1's backtraces, the segment's path,
+    the chase maps, the whole path and every entry row, with a sixteenth
+    of the budget left for the allocator's rounding. Raises RuntimeError
+    where not one column fits."""
+    budget -= budget // 16
+    _warps, _per_lane, row = sweep_layout(P)
+    bt = torch.empty((), dtype=backtrace_dtype(P)).element_size()
+    per_column = column_bytes + C * (row * bt + 8)
+    # path [C, N], chase maps (at most isqrt(N) + 2 rows of [C, P]), the
+    # sweep's rows and scratch
+    fixed = 4 * C * N + 4 * C * P * (math.isqrt(N) + 6)
+    L = min(N, (budget - fixed) // per_column)
+    if L >= 1:  # the entry rows of ceil(N / L) segments
+        L = min(N, (budget - fixed - 4 * C * P * -(-N // L)) // per_column)
+    if L < 1:
+        raise RuntimeError(
+            f"sampling: one column of {C} x {P} paths ({per_column} bytes) does not "
+            f"fit the {budget} bytes left after {fixed} fixed")
+    return int(L)
+
+
+# cells of one chunk of _gather_costs' int32 index
+GATHER_CELLS = 1 << 24
+
+
+def _gather_costs(costs, alleles):
+    """costs [C, N, A] int32 through alleles [C, N, P] (int32, or uint8
+    as the checkpointed route uploads them): [C, N, P]
+    int32 path costs, a chromosome and a chunk of columns at a time (at
+    most GATHER_CELLS cells, or one column): the chunk's int32 index into
+    its flattened costs is the one temporary."""
+    C, N, P = alleles.shape
+    A = costs.shape[2]
+    dev = alleles.device
+    out = torch.empty((C, N, P), dtype=torch.int32, device=dev)
+    step = max(1, min(GATHER_CELLS // max(1, P), (2**31 - 1) // max(1, A)))
+    for c in range(C):
+        for lo in range(0, N, step):
+            hi = min(N, lo + step)
+            at = torch.arange(0, (hi - lo) * A, A, dtype=torch.int32, device=dev)
+            index = alleles[c, lo:hi] + at[:, None]
+            torch.index_select(costs[c, lo:hi].reshape(-1), 0, index.view(-1),
+                               out=out[c, lo:hi].view(-1))
+    return out
 
 
 def sample_group(costs, alleles, switch, valid, size: int, allele_penalty: int,
@@ -286,35 +483,47 @@ def sample_group(costs, alleles, switch, valid, size: int, allele_penalty: int,
     Port of the reference package's ``_sample_group``.
 
     Args:
-      costs: [C, N, A] int32 initial per-allele emission costs.
-      alleles: [C, N, P] int64 path->allele.
+      costs: [C, N, A] int32 initial per-allele emission costs (not
+        changed: the loop updates a copy).
+      alleles: [C, N, P] int32 path->allele.
       switch: [C, N] int32 per-column switch costs (1 in padding).
       valid: [C, N] bool — False on padding columns (their mask and
         penalty updates are suppressed so they stay neutral).
       viterbi: the per-iteration DP; chip_smoke.py passes the plain
         version to hold kernel S1 against it on the card.
 
+    Each iteration masks the chosen paths and raises the chosen allele's
+    cost to min(cost + penalty, 25) (uint32 arithmetic) on every path
+    carrying it: the allele's new cost is computed once a column and
+    written where the path's allele is the chosen one, in place, so
+    that a [C, N, P] cell holds its int32 allele and cost and the used
+    flag between iterations, and a selection byte in one.
+
     Returns [size, C, N] int32 sampled path per iteration.
     """
     C, N, P = alleles.shape
-    p_iota = torch.arange(P, device=alleles.device)
     penalty = int(allele_penalty) & UINT_MAX
-    path_cost = torch.gather(costs, 2, alleles).contiguous()
+    costs = costs.clone()
+    path_cost = _gather_costs(costs, alleles)
     used = torch.zeros((C, N, P), dtype=torch.bool, device=alleles.device)
     valid3 = valid[:, :, None]
-    out = []
-    for _ in range(size):
+    out = torch.empty((size, C, N), dtype=torch.int32, device=alleles.device)
+    for it in range(size):
         paths, _scores = viterbi(path_cost, ~used, switch)
-        paths = paths.to(torch.int64)
-        used |= (p_iota == paths[:, :, None]) & valid3
-        # penalize the chosen allele on every path carrying it (uint32
-        # arithmetic, as the reference package's broadcast update)
-        chosen = torch.gather(alleles, 2, paths[:, :, None])
-        sel = (alleles == chosen) & valid3
-        pen = torch.clamp_max(((path_cost.to(torch.int64) & UINT_MAX) + penalty) & UINT_MAX, 25)
-        path_cost = torch.where(sel, pen.to(torch.int32), path_cost)
-        out.append(paths.to(torch.int32))
-    return torch.stack(out)
+        out[it] = paths
+        at = paths.to(torch.int64)[:, :, None]
+        used.scatter_(2, at, valid3)  # padding columns' used stays all False
+        chosen = torch.gather(alleles, 2, at)
+        old = torch.gather(costs, 2, chosen.long())
+        pen = torch.clamp_max(((old.to(torch.int64) & UINT_MAX) + penalty) & UINT_MAX, 25)
+        new = torch.where(valid3, pen.to(torch.int32), old)
+        costs.scatter_(2, chosen.long(), new)
+        sel = alleles == chosen
+        sel &= valid3
+        torch.where(sel, new, path_cost, out=path_cost)
+        # none of this iteration's temporaries lives through the next DP
+        del paths, at, chosen, old, pen, new, sel
+    return out
 
 
 def group_peak_bytes(C: int, N: int, P: int, A: int, size: int) -> int:
@@ -322,23 +531,23 @@ def group_peak_bytes(C: int, N: int, P: int, A: int, size: int) -> int:
     :func:`sample_panels_batched`: the tensors it passes to
     :func:`sample_group` and those of ``size`` iterations there.
 
-    Held throughout: costs (int32, A a column), alleles (int64 a cell),
-    switch, valid, path_cost (int32 a cell), used (a byte a cell) and the
-    sampled paths. On top, the larger of: S1's mask, backtraces, chase
-    maps and path; the penalty update's int64 temporaries (two 8-byte
-    cells at a time), beside its 1-byte selection, the int64 path and
-    chosen alleles and, from the second iteration on, the previous
-    iteration's 8-byte penalty (a loop variable until reassigned); the
-    stacked result. (Measured on an H100 at N=2,300,000, P=123, 2
-    iterations: 38.3 bytes a cell, chip_smoke.py.)
+    Held throughout: costs and their copy (int32, A a column), alleles
+    (int32 a cell), switch, valid, the sampled paths, path_cost (int32 a
+    cell) and used (a byte a cell). On top, the largest of: S1's mask,
+    backtraces, chase maps, path and its int64 copy; the update's
+    selection byte a cell and its column temporaries; the first gather's
+    int32 index (:data:`GATHER_CELLS` cells at most). (Measured on an H100
+    at N=2,300,000, P=123, 2 iterations: 11.42 bytes a cell against this
+    model's 11.54, chip_smoke.py.)
     """
     cols, cells = C * N, C * N * P
     _warps, _per_lane, row = sweep_layout(P)
     bt = cols * row * torch.empty((), dtype=backtrace_dtype(P)).element_size()
-    held = cols * (4 * A + 4 + 1 + 4 * size) + cells * (8 + 4 + 1)
-    s1 = cells + bt + 4 * C * -(-N // chase_segment(N)) * P + 4 * cols
-    penalty = (17 + (8 if size > 1 else 0)) * cells + 16 * cols
-    return held + max(s1, penalty, 4 * size * cols)
+    held = cols * (8 * A + 4 + 1 + 4 * size) + cells * (4 + 4 + 1)
+    s1 = cells + bt + 4 * C * -(-N // chase_segment(N)) * P + 16 * cols
+    update = cells + 64 * cols
+    gather = 4 * min(N * P, max(GATHER_CELLS, P))
+    return held + max(s1, update, gather)
 
 
 def memory_budget(device) -> int:
@@ -362,10 +571,6 @@ class _ChromState:
         self.N = len(records)
         self.P = records[0].get_nr_paths()
         self.costs = bulk_emission_costs(records)  # [N, A]
-        alleles = np.empty((self.N, self.P), dtype=np.int32)
-        for n, r in enumerate(records):
-            alleles[n] = r.path_to_allele
-        self.alleles = alleles
         positions = np.fromiter(
             (r.variant_position for r in records), dtype=np.int64,
             count=self.N,
@@ -384,6 +589,100 @@ class _ChromState:
                 -10.0 * np.log10(recomb_prob)
             ).astype(np.uint32)
         self.sampled_paths: List[List[int]] = []
+
+    def fill_alleles(self, out: np.ndarray) -> np.ndarray:
+        """Each record's path -> allele into ``out`` [N, P] (an integer
+        dtype that holds every allele id), which it returns."""
+        for n, r in enumerate(self.records):
+            out[n] = r.path_to_allele
+        return out
+
+
+class _PanelSegments:
+    """The source of :func:`viterbi_iteration_segmented` for one long
+    chromosome of the batched driver, and its greedy update.
+
+    Alleles (a byte a cell where the ids fit, else int32) and the used
+    flags stay on the host, filled straight from the records into one
+    pinned array each where the device is a card; the per-allele costs
+    too. A segment's alleles, used
+    flags, costs and switch are uploaded when the driver asks for it (on
+    a card, the segment named by ``prefetch`` is copied on a side stream
+    while the current one sweeps) and its path costs gathered on the
+    device. The update between iterations runs on the host, as the
+    reference package's does: the path's cells become used and the chosen
+    allele's cost min(cost + penalty, 25) (uint32 arithmetic)."""
+
+    def __init__(self, st: _ChromState, device):
+        self.device = torch.device(device)
+        pin = self.device.type == "cuda"
+        self.N, self.P, self.A = st.N, st.P, st.costs.shape[1]
+        dtype = torch.uint8 if self.A <= 256 else torch.int32
+        self.alleles = torch.empty((st.N, st.P), dtype=dtype, pin_memory=pin)
+        st.fill_alleles(self.alleles.numpy())
+        self.used = torch.zeros((st.N, st.P), dtype=torch.bool, pin_memory=pin)
+        self.costs = st.costs.copy()
+        self.switch = st.switch
+        self.stream = torch.cuda.Stream(self.device) if pin else None
+        self.next = None
+
+    # per column: two segments' uploads (the current and the prefetched
+    # one), the path costs, the mask and the gather's int32 index
+    def column_bytes(self) -> int:
+        allele = self.alleles.element_size()
+        return 2 * ((allele + 1) * self.P + 4 * self.A + 4) + 9 * self.P
+
+    def _upload(self, lo, hi):
+        dev = self.device
+        alleles = torch.empty((hi - lo, self.P), dtype=self.alleles.dtype, device=dev)
+        used = torch.empty((hi - lo, self.P), dtype=torch.bool, device=dev)
+        alleles.copy_(self.alleles[lo:hi], non_blocking=True)
+        used.copy_(self.used[lo:hi], non_blocking=True)
+        costs = torch.from_numpy(self.costs[lo:hi].view(np.int32)).to(dev)
+        switch = torch.from_numpy(self.switch[lo:hi].view(np.int32)).to(dev)
+        return alleles, used, costs, switch
+
+    def prefetch(self, lo: int, hi: int) -> None:
+        if self.stream is None:
+            return
+        current = torch.cuda.current_stream(self.device)
+        # the destinations belong to the current stream, which waits for
+        # the copies before it reads them
+        with torch.cuda.stream(self.stream):
+            self.stream.wait_stream(current)
+            self.next = (lo, hi), self._upload(lo, hi), torch.cuda.Event()
+            self.next[2].record(self.stream)
+
+    def __call__(self, lo: int, hi: int):
+        if self.next is not None and self.next[0] == (lo, hi):
+            _bounds, (alleles, used, costs, switch), done = self.next
+            torch.cuda.current_stream(self.device).wait_event(done)
+        else:
+            alleles, used, costs, switch = self._upload(lo, hi)
+        self.next = None
+        path_cost = _gather_costs(costs[None], alleles[None])
+        return path_cost, ~used[None], switch[None].contiguous()
+
+    def update(self, path: np.ndarray, penalty: int) -> None:
+        cols = np.arange(self.N)
+        self.used.numpy()[cols, path] = True
+        chosen = self.alleles.numpy()[cols, path]
+        old = self.costs[cols, chosen].astype(np.int64)
+        self.costs[cols, chosen] = np.minimum((old + (penalty & UINT_MAX)) & UINT_MAX, 25)
+
+
+def _sample_long(st: _ChromState, size: int, allele_penalty: int, budget: int,
+                 device) -> None:
+    """``size`` greedy iterations of one chromosome through
+    :func:`viterbi_iteration_segmented`, in the longest segments that fit
+    ``budget``."""
+    source = _PanelSegments(st, device)
+    segment = segment_columns(budget, 1, st.N, st.P, source.column_bytes())
+    for _ in range(size):
+        paths, _best = viterbi_iteration_segmented(source, 1, st.N, st.P, segment, device)
+        path = paths[0].cpu().numpy()
+        st.sampled_paths.append(path.tolist())
+        source.update(path, int(allele_penalty))
 
 
 def _write_paths(records, sampled_paths, path_output: str, chromosome: str) -> None:
@@ -421,25 +720,18 @@ def _group_peak(group, size: int) -> int:
                             max(s.costs.shape[1] for s in group), size)
 
 
-def plan_groups(states, size: int, max_group_bytes: int, budget: int,
-                device="cpu") -> "List[List[_ChromState]]":
-    """Chromosomes of similar length (padded N within 2x; ``states`` in
-    order of N) in groups under ``max_group_bytes`` of [C, N, P] int32
-    costs and whose peak (:func:`group_peak_bytes`) fits ``budget``
-    bytes. Raises
-    NotImplementedError, before any device work, for a chromosome whose
-    peak alone exceeds the budget: the reference package's checkpointed
-    scan is not ported (ROADMAP queue 1, item 4)."""
-    for st in states:
-        peak = _group_peak([st], size)
-        if peak > budget:
-            raise NotImplementedError(
-                f"sampling {st.chromosome}: {st.N} columns x {st.P} paths need "
-                f"{peak} bytes at their peak, over the {budget} bytes free on "
-                f"{device}; chromosomes beyond one device's memory need the "
-                "checkpointed sampling scan (ROADMAP queue 1, item 4)")
+def plan_groups(states, size: int, max_group_bytes: int, budget: int):
+    """(groups, long states): chromosomes of similar length (padded N
+    within 2x; ``states`` in order of N) in groups under
+    ``max_group_bytes`` of [C, N, P] int32 costs and whose peak
+    (:func:`group_peak_bytes`) fits ``budget`` bytes; and, apart, the
+    chromosomes whose peak alone exceeds the budget, for the checkpointed
+    scan."""
+    long_states = [st for st in states if _group_peak([st], size) > budget]
     groups: List[List[_ChromState]] = []
     for st in states:
+        if st in long_states:
+            continue
         Npad = 1 << max(0, (st.N - 1).bit_length())
         if groups:
             cur = groups[-1]
@@ -454,7 +746,7 @@ def plan_groups(states, size: int, max_group_bytes: int, budget: int,
                 cur.append(st)
                 continue
         groups.append([st])
-    return groups
+    return groups, long_states
 
 
 def sample_panels_batched(
@@ -467,16 +759,20 @@ def sample_panels_batched(
     allele_penalty: int = 10,
     max_group_bytes: int = 2 << 30,
     device: "torch.device | str" = "cpu",
+    budget: Optional[int] = None,
 ) -> "dict[str, List[List[int]]]":
     """Greedy panel reduction over several chromosomes, batched.
 
     Chromosomes of similar length (padded N within 2x, under
-    ``max_group_bytes`` of [C, N, P] costs and within the device's free
-    memory, :func:`plan_groups`) run together: each greedy iteration is
-    ONE sweep and one chase over the group. Padding columns
-    (emission cost 0 on every path, all paths live, switch cost 1)
-    keep the real final column's first-minimum state, so paths are
-    bit-identical to per-chromosome runs.
+    ``max_group_bytes`` of [C, N, P] costs and within ``budget`` bytes,
+    by default the device's free memory, :func:`plan_groups`) run
+    together: each greedy iteration is ONE sweep and one chase over the
+    group. Padding columns (emission cost 0 on every path, all paths
+    live, switch cost 1) keep the real final column's first-minimum
+    state, so paths are bit-identical to per-chromosome runs. A
+    chromosome whose peak alone exceeds the budget runs on its own
+    through the checkpointed scan (:func:`viterbi_iteration_segmented`,
+    segments from :func:`segment_columns`), with the same paths.
 
     Updates every record's path set in place and returns
     {chromosome: sampled paths}.
@@ -494,18 +790,21 @@ def sample_panels_batched(
         states.append(_ChromState(chromosome, records, recombrate, effective_N))
 
     states.sort(key=lambda s: s.N)
-    for group in plan_groups(states, size, max_group_bytes, memory_budget(device), device):
+    if budget is None:
+        budget = memory_budget(device)
+    groups, long_states = plan_groups(states, size, max_group_bytes, budget)
+    for group in groups:
         C = len(group)
         N_max = max(s.N for s in group)
         P = group[0].P
         A = max(s.costs.shape[1] for s in group)
         switch = np.ones((C, N_max), dtype=np.uint32)
-        alleles = np.zeros((C, N_max, P), dtype=np.int64)
+        alleles = np.zeros((C, N_max, P), dtype=np.int32)
         valid = np.zeros((C, N_max), dtype=bool)
         costs0 = np.zeros((C, N_max, A), dtype=np.uint32)
         for c, st in enumerate(group):
             switch[c, : st.N] = st.switch
-            alleles[c, : st.N] = st.alleles
+            st.fill_alleles(alleles[c, : st.N])
             valid[c, : st.N] = True
             costs0[c, : st.N, : st.costs.shape[1]] = st.costs
         all_paths = sample_group(
@@ -518,8 +817,10 @@ def sample_panels_batched(
         for c, st in enumerate(group):
             for it in range(size):
                 st.sampled_paths.append(all_paths[it, c, : st.N].tolist())
+    for st in long_states:
+        _sample_long(st, size, allele_penalty, budget, device)
 
-    for st in states:
+    for st in [st for group in groups for st in group] + long_states:
         if add_reference:
             st.sampled_paths.append([0] * st.N)
         output = path_outputs.get(st.chromosome, "")

@@ -74,6 +74,14 @@ void emu_syncthreads() {
 
 int emu_lane() { return (int)(current->tid % 32); }
 
+// a cache hint: nothing to emulate, but the address must be one
+void emu_prefetch(const void* p) {
+    if (p == nullptr) {
+        fprintf(stderr, "emulated prefetch of a null address\n");
+        abort();
+    }
+}
+
 uint64_t emu_exchange(unsigned mask, uint64_t bits, int src) {
     const unsigned lane = current->tid % 32, warp = current->tid / 32;
     if (!((mask >> lane) & 1u) || (src >= 0 && !((mask >> src) & 1u))) {

@@ -64,10 +64,12 @@ def test_fb_kernels_reject_float64(cuda):
 
 @pytest.mark.parametrize("C,N,P,masked", [
     (1, 50, 5, 0.0), (3, 200, 123, 0.3), (2, 64, 1, 0.2), (2, 40, 33, 0.97),
-    # every sweep layout: one warp of 1-4 paths a lane, 2-8 warps, uint8
-    # and uint16 backtraces; N = 1 and N off the chase's segment length
+    # every sweep layout: one warp of 1-4 paths a lane, 2-32 warps, 1024
+    # threads of several paths, uint8 and uint16 backtraces; N = 1 and N
+    # off the chase's segment length
     (2, 37, 31, 0.3), (2, 37, 32, 0.3), (2, 37, 128, 0.3), (2, 37, 129, 0.3),
     (2, 37, 300, 0.3), (1, 90, 1024, 0.3), (3, 1, 123, 0.3), (2, 1, 300, 0.0),
+    (2, 37, 2048, 0.3), (1, 37, 4096, 0.3), (2, 1, 6405, 0.3),
 ])
 def test_s1_matches_plain(cuda, C, N, P, masked):
     rng = np.random.default_rng(P)
@@ -97,13 +99,88 @@ def test_s1_saturates(cuda):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-def test_s1_rejects_more_than_1024_paths(cuda):
-    P = sampling.MAX_PATHS + 1
-    with pytest.raises(ValueError, match="paths exceed"):
-        sampling.viterbi_iteration(
-            torch.zeros((1, 4, P), dtype=torch.int32, device=cuda),
-            torch.ones((1, 4, P), dtype=torch.bool, device=cuda),
-            torch.zeros((1, 4), dtype=torch.int32, device=cuda))
+@pytest.mark.parametrize("C,N,P", [(2, 300, 1025), (1, 70, 4097), (2, 120, 6405)])
+def test_s1_takes_more_than_1024_paths(cuda, C, N, P):
+    """Past 1024 paths (up to 32 warps, then 1024 threads of several
+    paths with scores in shared memory, 16-bit backtraces) S1 gives the
+    plain DP's paths and scores."""
+    rng = np.random.default_rng(P)
+    cost = torch.from_numpy(rng.integers(0, 4, (C, N, P)).astype(np.int32)).to(cuda)
+    mask = torch.from_numpy(rng.random((C, N, P)) >= 0.3).to(cuda)
+    switch = torch.from_numpy(rng.integers(0, 6, (C, N)).astype(np.int32)).to(cuda)
+    got = sampling.viterbi_iteration(cost, mask, switch)
+    want = sampling.viterbi_iteration_plain(cost, mask, switch)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_s1_scores_in_a_scratch_row(cuda):
+    """P = 65,537: scores in a scratch row, 32-bit backtraces."""
+    C, N, P = 1, 6, 65_537
+    rng = np.random.default_rng(0)
+    cost = torch.from_numpy(rng.integers(0, 4, (C, N, P)).astype(np.int32)).to(cuda)
+    mask = torch.from_numpy(rng.random((C, N, P)) >= 0.3).to(cuda)
+    switch = torch.from_numpy(rng.integers(0, 6, (C, N)).astype(np.int32)).to(cuda)
+    got = sampling.viterbi_iteration(cost, mask, switch)
+    want = sampling.viterbi_iteration_plain(cost, mask, switch)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("C,N,P,segment", [(2, 200, 123, 23), (1, 90, 2049, 16),
+                                           (2, 50, 6405, 9), (1, 40, 300, 40)])
+def test_s1_checkpointed_scan_matches_the_full_sweep(cuda, C, N, P, segment):
+    """The checkpointed scan through the kernels (exit rows, entry rows,
+    chases from handed-back states) gives S1's paths and best."""
+    rng = np.random.default_rng(N + P)
+    cost = torch.from_numpy(rng.integers(0, 4, (C, N, P)).astype(np.int32)).to(cuda)
+    mask = torch.from_numpy(rng.random((C, N, P)) >= 0.3).to(cuda)
+    switch = torch.from_numpy(rng.integers(0, 6, (C, N)).astype(np.int32)).to(cuda)
+
+    def source(lo, hi):
+        return (cost[:, lo:hi].contiguous(), mask[:, lo:hi].contiguous(),
+                switch[:, lo:hi].contiguous())
+
+    launches = sampling.S1.launches, sampling.S1_CHASE.launches
+    got = sampling.viterbi_iteration_segmented(source, C, N, P, segment, cuda)
+    torch.cuda.synchronize()
+    S = -(-N // segment)
+    assert (sampling.S1.launches - launches[0], sampling.S1_CHASE.launches - launches[1]) == (
+        2 * S - 1, S)
+    want = sampling.viterbi_iteration(cost, mask, switch)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _records(n, P, seed):
+    from pangenie_tpu_torch.kmers.unique import UniqueKmersRecord
+
+    rng = np.random.default_rng(seed)
+    records = []
+    for i in range(n):
+        record = UniqueKmersRecord(1000 + 137 * i, rng.integers(0, 3, P).tolist())
+        for _ in range(int(rng.integers(0, 5))):
+            record.insert_kmer(int(rng.integers(0, 8)), [int(rng.integers(0, 3))])
+        records.append(record)
+    return records
+
+
+@pytest.mark.parametrize("P", [40, 1100])
+def test_sampling_beyond_the_budget_on_the_card(cuda, P):
+    """sample_panels_batched on the card with a budget under every
+    chromosome's group peak (the checkpointed scan, its inputs uploaded
+    from pinned host memory on a side stream a segment ahead) samples the
+    CPU's paths."""
+    chroms = {"chrA": 300, "chrB": 170}
+    states = [sampling._ChromState(c, _records(n, P, n), 1.26, 0.01) for c, n in chroms.items()]
+    budget = min(sampling._group_peak([st], 4) for st in states) // 2
+    assert sampling.plan_groups(states, 4, 2 << 30, budget)[0] == []
+    launches = sampling.S1.launches
+    on_card = sampling.sample_panels_batched(
+        {c: _records(n, P, n) for c, n in chroms.items()}, 4, 1.26, 0.01, True, {}, 5,
+        device=cuda, budget=budget)
+    torch.cuda.synchronize()
+    assert sampling.S1.launches - launches > 2 * 4 * len(chroms)  # several segments
+    on_cpu = sampling.sample_panels_batched(
+        {c: _records(n, P, n) for c, n in chroms.items()}, 4, 1.26, 0.01, True, {}, 5)
+    assert on_card == on_cpu
 
 
 def _generic_columns(B, N, P, device):

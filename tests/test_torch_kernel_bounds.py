@@ -100,17 +100,38 @@ def test_generic_launch_fits_every_path_count():
 
 
 # (warps, paths a lane, backtrace row) and backtrace bytes: one warp up
-# to 128 paths, then warps of 4 paths a lane; uint8 up to 256 paths
+# to 128 paths, then warps of 4 paths a lane up to 4096, then 32 warps of
+# ceil(P/1024); uint8 up to 256 paths, 16 bits up to 65,536, then 32
 @pytest.mark.parametrize("P,layout,bt_bytes", [
     (1, (1, 1, 32), 1), (32, (1, 1, 32), 1), (33, (1, 2, 64), 1), (65, (1, 3, 96), 1),
     (123, (1, 4, 128), 1), (128, (1, 4, 128), 1), (129, (2, 4, 256), 1),
     (256, (2, 4, 256), 1), (257, (3, 4, 384), 2), (1024, (8, 4, 1024), 2),
+    (1025, (9, 4, 1152), 2), (2049, (17, 4, 2176), 2), (4096, (32, 4, 4096), 2),
+    (4097, (32, 5, 5120), 2), (6405, (32, 7, 7168), 2), (65536, (32, 64, 65536), 2),
+    (65537, (32, 65, 66560), 4),
 ])
 def test_s1_sweep_layout(P, layout, bt_bytes):
     assert sampling.sweep_layout(P) == layout
     assert torch.empty((), dtype=sampling.backtrace_dtype(P)).element_size() == bt_bytes
-    warps, per_lane, row = layout
-    assert row >= P and warps <= 8 and (per_lane == 4 or warps == 1)
+
+
+def test_s1_sweep_layout_for_every_path_count():
+    """For P = 1..8192: a row holds every path and at most one lane's
+    worth (or one pass of 1024 threads) more; at most 32 warps; 4 paths a
+    lane from 129 to 4096 paths; scores in shared memory past 4096 up to
+    57,856 paths."""
+    for P in range(1, 8193):
+        warps, per_lane, row = sampling.sweep_layout(P)
+        assert row == 32 * warps * per_lane and P <= row
+        assert 1 <= warps <= 32
+        if P <= 128:
+            assert warps == 1 and row - P < 32
+        elif P <= sampling.REGISTER_PATHS:
+            assert per_lane == 4 and row - P < 128
+        else:
+            assert warps == 32 and row - P < 1024 and sampling.scores_in_shared(P)
+        assert sampling.backtrace_dtype(P) == (torch.uint8 if P <= 256 else torch.int16)
+    assert sampling.scores_in_shared(57_856) and not sampling.scores_in_shared(57_857)
 
 
 def test_s1_chase_segments():
@@ -120,15 +141,48 @@ def test_s1_chase_segments():
 
 def test_sampling_group_peak_bytes():
     """C=2, N=100, P=9, A=3, 4 iterations: 200 columns, 1,800 cells.
-    Held: 200 x (costs 12 + switch 4 + valid 1 + paths 16) + 1,800 x
-    (alleles 8 + path_cost 4 + used 1) = 30,000. On top the penalty
-    update's 25 bytes a cell (two int64 temporaries, the selection and
-    the previous iteration's int64 penalty) and 16 a column (48,200)
-    exceed S1's mask 1,800 + backtraces 200 x 32 + maps 2 x 10 x 9 x 4 +
-    path 800 (9,720) and the stacked paths (3,200). With one iteration
-    there is no previous penalty: 27,600 + 33,800. The long chromosome
-    of chip_smoke.py (N=2,300,000, P=123, A=4, 2 iterations): 10.85 GB,
-    38.4 bytes a cell, where the card measured 38.3."""
-    assert sampling.group_peak_bytes(2, 100, 9, 3, 4) == 78_200
-    assert sampling.group_peak_bytes(2, 100, 9, 3, 1) == 61_400
-    assert sampling.group_peak_bytes(1, 2_300_000, 123, 4, 2) == 10_853_700_000
+    Held: 200 x (costs and their copy 24 + switch 4 + valid 1 + paths 16)
+    + 1,800 x (alleles 4 + path_cost 4 + used 1) = 25,200. On top the
+    update's selection 1,800 + 200 x 64 (14,600) exceeds S1's mask 1,800
+    + backtraces 200 x 32 + maps 2 x 10 x 9 x 4 + paths 200 x 16
+    (12,120) and the first gather's int32 index of one chromosome
+    (3,600). With one iteration 12 bytes of paths less a column. The long
+    chromosome of chip_smoke.py (N=2,300,000, P=123, A=4, 2 iterations):
+    held 2.65 GB, S1's 0.61 GB on top: 3.26 GB, 11.54 bytes a cell (38.37
+    with int64 alleles and penalty temporaries)."""
+    assert sampling.group_peak_bytes(2, 100, 9, 3, 4) == 39_800
+    assert sampling.group_peak_bytes(2, 100, 9, 3, 1) == 37_400
+    assert sampling.group_peak_bytes(1, 2_300_000, 123, 4, 2) == 3_264_446_364
+
+
+def test_s1_seg_bound():
+    """The checkpointed scan moves S1's bytes (the same function) and
+    does the forward pass's operations over every segment but the last
+    on top: N=2,300,000 P=6405 in segments of 500,000 sweeps 2,000,000
+    columns forward."""
+    C, N, P = 1, 2_300_000, 6405
+    work = bounds.s1_seg(C, N, P, 500_000)
+    assert work.nbytes == bounds.s1(C, N, P).nbytes == 5 * N * P + 8 * N + 4
+    assert work.ops == bounds.S1_OPS * P * (N + 2_000_000)
+    assert bounds.s1_seg(C, N, P, N).ops == bounds.s1(C, N, P).ops
+    ms, by = work.bound()
+    assert by == "bytes" and ms == pytest.approx(work.nbytes / 3.35e12 * 1e3)
+
+
+def test_segment_columns_fit_the_budget():
+    """The longest segment whose backtraces, the source's bytes, the
+    path, the chase maps and the entry rows fit 15/16 of the budget;
+    raises where not one column does."""
+    C, N, P, per = 1, 100_000, 2049, 10 * 2049
+    budget = 200 << 20
+    L = sampling.segment_columns(budget, C, N, P, per)
+    _w, _r, row = sampling.sweep_layout(P)
+
+    def need(L):
+        return (L * (per + C * (row * 2 + 8)) + 4 * C * N
+                + 4 * C * P * (316 + 6 + -(-N // L)))
+
+    assert need(L) <= budget - budget // 16 < need(L + 2)
+    assert sampling.segment_columns(1 << 40, C, N, P, per) == N
+    with pytest.raises(RuntimeError, match="does not fit"):
+        sampling.segment_columns(1000, C, N, P, per)

@@ -1,5 +1,6 @@
-"""Kernel S1 of ``pangenie_tpu_torch/csrc/sampling_dp.cu`` (the sweep and
-the segmented chase) run on the CPU by an emulator of the CUDA threads,
+"""Kernel S1 of ``pangenie_tpu_torch/csrc/sampling_dp.cu`` (the sweep, with
+its entry and exit rows and without backtraces, and the segmented chase
+from given ends) run on the CPU by an emulator of the CUDA threads,
 against its plain version, bit for bit.
 
 The kernel source is compiled with g++ against the headers of
@@ -8,10 +9,13 @@ barriers between fibers, the dynamic shared memory one array), and the
 one textual substitution makes a launch run every thread of every block
 as a fiber. The wrappers ``sampling.s1_sweep`` / ``s1_chase`` allocate
 and lay out the backtraces as on the card. So the kernels' own
-reductions, tie rules, register ring, packed stores, partials and chase
-run as written, one block at a time; their timing is not modelled.
-``tests/test_torch_cuda_kernels.py`` holds the real kernels against the
-plain version on the card.
+reductions, tie rules, register ring, packed stores, partials, lane
+merges, shared or scratch scores and chase run as written, one block at
+a time; their timing is not modelled. Every tier is covered: one warp,
+up to 8 warps, up to 32 (P <= 4096), and 1024 threads of several paths
+(P = 4097 and 6405, and P = 65,537 with its scores in a scratch row and
+32-bit backtraces). ``tests/test_torch_cuda_kernels.py`` holds the real
+kernels against the plain version on the card.
 """
 
 import ctypes
@@ -65,10 +69,19 @@ def _checked(fn):
     return call
 
 
+def _sweep(lib, cost, mask, switch, **kw):
+    return sampling.s1_sweep(cost, mask, switch, sweep=_checked(lib.pg_s1_sweep), **kw)
+
+
+def _chase(lib, bt, ends, P):
+    return sampling.s1_chase(bt, ends, P, chase=_checked(lib.pg_s1_chase))
+
+
 def _emulated_iteration(lib, cost, mask, switch):
-    bt, best, ends = sampling.s1_sweep(cost, mask, switch, _checked(lib.pg_s1_sweep))
-    paths = sampling.s1_chase(bt, ends, cost.shape[2], _checked(lib.pg_s1_chase))
-    assert torch.equal(sampling.chase_plain(bt, ends), paths)
+    bt, best, ends, _ = _sweep(lib, cost, mask, switch)
+    paths, state_out = _chase(lib, bt, ends, cost.shape[2])
+    plain_paths, plain_out = sampling.chase_plain(bt, ends)
+    assert torch.equal(plain_paths, paths) and torch.equal(plain_out, state_out.long())
     return paths, best.to(torch.int64) & UMAX
 
 
@@ -107,15 +120,26 @@ def test_emulated_s1_matches_plain(emulated, P):
     assert int(best[0]) < UMAX and int(best[1]) == UMAX
 
 
-@pytest.mark.parametrize("P", [200, 300])
+def _last_warp_paths(P):
+    """The paths the sweep's last warp holds: the last up to 4096 paths
+    (lanes hold consecutive paths), else those at 992..1023 modulo 1024."""
+    warps, per_lane, _row = sampling.sweep_layout(P)
+    p = np.arange(P)
+    if P <= sampling.REGISTER_PATHS:
+        return p[p // (32 * per_lane) == warps - 1]
+    return p[p % sampling.THREADS >= sampling.THREADS - 32]
+
+
+@pytest.mark.parametrize("P", [200, 300, 2048, 4096, 6405])
 def test_emulated_s1_minimum_in_a_later_warp(emulated, P):
     """The multi-warp merge where the cheapest paths sit in the last warp
     (costs 0..1 there, 2..3 elsewhere) and switches often cost 0, so
     first and second minima tie across warps."""
     rng = np.random.default_rng(P)
-    C, N = 2, 40
+    C, N = 2, 40 if P <= 1024 else 12
     cost = rng.integers(2, 4, (C, N, P)).astype(np.uint32)
-    cost[:, :, P - 40:] = rng.integers(0, 2, (C, N, 40))
+    last = _last_warp_paths(P)
+    cost[:, :, last] = rng.integers(0, 2, (C, N, len(last)))
     cost[1, ::3, 7] = 0
     mask = rng.random((C, N, P)) >= 0.2
     switch = rng.integers(0, 2, (C, N)).astype(np.uint32)
@@ -195,16 +219,116 @@ def test_emulated_s1_long_enough_for_the_ring_and_segments(emulated):
 
 def test_emulated_s1_rejects_another_layout(emulated):
     """The sweep and the chase refuse a backtrace row other than
-    sweep_layout's, and path counts past MAX_PATHS."""
+    sweep_layout's."""
     cost, mask, switch = _inputs(0, 1, 4, 33)
     _w, _r, row = sampling.sweep_layout(33)
     bt = torch.empty((1, 4, row + 32), dtype=torch.uint8)
     out = torch.empty((1,), dtype=torch.int32)
-    args = (cost.data_ptr(), mask.data_ptr(), switch.data_ptr(), bt.data_ptr(),
-            out.data_ptr(), out.data_ptr(), 1, 4)
+    args = (cost.data_ptr(), mask.data_ptr(), switch.data_ptr(), None, None, bt.data_ptr(),
+            out.data_ptr(), out.data_ptr(), None, 1, 4)
     assert emulated.pg_s1_sweep(*args, 33, row + 32, None) != 0
-    assert emulated.pg_s1_sweep(*args, sampling.MAX_PATHS + 1, row, None) != 0
+    assert emulated.pg_s1_sweep(*args, 33, row, None) == 0
     maps = torch.empty((1, 2, 33), dtype=torch.int32)
     paths = torch.empty((1, 4), dtype=torch.int32)
     assert emulated.pg_s1_chase(bt.data_ptr(), out.data_ptr(), maps.data_ptr(),
-                                paths.data_ptr(), 1, 4, 33, row + 32, 2, None) != 0
+                                paths.data_ptr(), None, 1, 4, 33, row + 32, 2, None) != 0
+
+
+# past 1024 paths: 9-32 warps of 4 paths a lane up to 4096, then 1024
+# threads of ceil(P/1024) paths with their scores in shared memory;
+# N = 11: chase segments of 4, the last one short
+@pytest.mark.parametrize("P", [1025, 2048, 4096, 4097, 6405])
+def test_emulated_s1_wide_matches_plain(emulated, P):
+    assert sampling.sweep_layout(P)[0] == min(32, -(-P // 128))
+    _paths, best = _assert_matches_plain(emulated, *_inputs(P, 2, 11, P, masked=0.3))
+    assert int(best[0]) < UMAX and int(best[1]) == UMAX
+
+
+def test_emulated_s1_scratch_row_matches_plain(emulated):
+    """P = 65,537: the scores do not fit the block's shared memory and
+    live in a scratch row; backtraces are 32-bit."""
+    P = 65_537
+    assert not sampling.scores_in_shared(P)
+    assert sampling.backtrace_dtype(P) == torch.int32
+    _assert_matches_plain(emulated, *_inputs(P, 1, 3, P, masked=0.3))
+
+
+def _carry(seed, C, P):
+    """Entry scores as an exit row holds them: uint32 sums, UMAX on masked
+    paths, ties at the minimum."""
+    rng = np.random.default_rng(seed)
+    carry = rng.integers(100, 104, (C, P)).astype(np.uint32)
+    carry[rng.random((C, P)) < 0.3] = UMAX
+    return torch.from_numpy(carry.view(np.int32))
+
+
+# every tier: one warp, 3 warps, 16 warps of 4 paths, 1024 threads
+@pytest.mark.parametrize("P", [45, 300, 2048, 6405])
+def test_emulated_s1_carries_and_sweep_only(emulated, P):
+    """The sweep from an entry row writes the plain sweep's backtraces
+    (column 0 an inner column), last column's scores as its exit row,
+    best and first minimum; without backtraces the same rows, best and
+    ends."""
+    C, N = 2, 9
+    cost, mask, switch = _inputs(P + 7, C, N, P, masked=0.3)
+    carry = _carry(P, C, P)
+    got = _sweep(emulated, cost, mask, switch, carry_in=carry, carry_out=True)
+    bts, last = sampling.sweep_plain(cost, mask, switch, carry)
+    assert torch.equal(got.bt[:, :, :P].to(torch.int64) & 0xFFFF, bts.to(torch.int64))
+    assert torch.equal(got.carry_out.to(torch.int64) & UMAX, last)
+    best, ends = sampling._first_min(last, torch.arange(P))
+    assert torch.equal(got.best.to(torch.int64) & UMAX, best)
+    assert torch.equal(got.ends.long(), ends)
+    only = _sweep(emulated, cost, mask, switch, carry_in=carry, carry_out=True,
+                  backtraces=False)
+    assert only.bt is None
+    assert torch.equal(only.carry_out, got.carry_out)
+    assert torch.equal(only.best, got.best) and torch.equal(only.ends, got.ends)
+    # and without an entry row: the exit row of the plain sweep
+    plain_out = _sweep(emulated, cost, mask, switch, carry_out=True, backtraces=False)
+    assert torch.equal(plain_out.carry_out.to(torch.int64) & UMAX,
+                       sampling.sweep_plain(cost, mask, switch)[1])
+
+
+@pytest.mark.parametrize("P", [33, 300, 2048])
+def test_emulated_s1_chase_from_given_ends(emulated, P):
+    """The chase from arbitrary states at the last column (not the
+    sweep's first minimum) and the state it hands back, as the plain
+    chase's."""
+    C, N = 3, 23
+    cost, mask, switch = _inputs(P, C, N, P, masked=0.2)
+    bt = _sweep(emulated, cost, mask, switch, carry_in=_carry(P, C, P)).bt
+    ends = torch.from_numpy(np.random.default_rng(P).integers(0, P, C).astype(np.int32))
+    paths, state_out = _chase(emulated, bt, ends, P)
+    want_paths, want_out = sampling.chase_plain(bt, ends)
+    assert torch.equal(paths, want_paths) and torch.equal(state_out.long(), want_out)
+
+
+@pytest.mark.parametrize("P,segment", [(9, 4), (300, 7), (4097, 3)])
+def test_emulated_s1_checkpointed_scan(emulated, P, segment):
+    """The checkpointed scan composed of the emulated kernels (forward
+    sweeps keeping only their exit rows, then each segment swept again
+    from its entry row and chased from the state the later segment
+    handed back) gives the plain DP's paths and best."""
+    C, N = 2, 13
+    cost, mask, switch = _inputs(P + 1, C, N, P, masked=0.3)
+    bounds = [(lo, min(N, lo + segment)) for lo in range(0, N, segment)]
+
+    def part(lo, hi):
+        return (cost[:, lo:hi].contiguous(), mask[:, lo:hi].contiguous(),
+                switch[:, lo:hi].contiguous())
+
+    carries = [None]
+    for lo, hi in bounds[:-1]:
+        carries.append(_sweep(emulated, *part(lo, hi), carry_in=carries[-1], carry_out=True,
+                              backtraces=False).carry_out)
+    paths = torch.empty((C, N), dtype=torch.int32)
+    state = best = None
+    for (lo, hi), carry in zip(bounds[::-1], carries[::-1]):
+        bt, seg_best, ends, _ = _sweep(emulated, *part(lo, hi), carry_in=carry)
+        if state is None:
+            state, best = ends, seg_best
+        paths[:, lo:hi], state = _chase(emulated, bt, state, P)
+    want = sampling.viterbi_iteration_plain(cost, mask, switch)
+    assert torch.equal(paths, want[0])
+    assert torch.equal(best.to(torch.int64) & UMAX, want[1])

@@ -25,6 +25,9 @@ __device__ __forceinline__ unsigned shfl_min_sync(unsigned mask, unsigned v) {
 #include "../pangenie_tpu_torch/csrc/sampling_dp.cu"
 #undef __reduce_min_sync
 
+// the old kernel's one thread a path
+#define OLD_MAX_PATHS 1024
+
 // ---- 1. the kernel before the redesign -------------------------------
 
 __device__ __forceinline__ u64 key_of(unsigned v, unsigned i) {
@@ -60,7 +63,7 @@ __global__ void old_sweep_kernel(const unsigned* __restrict__ cost,
                                  const unsigned* __restrict__ sw, int* __restrict__ bt,
                                  unsigned* __restrict__ best, int* __restrict__ ends, int N,
                                  int P) {
-    __shared__ u64 s_red[S1_MAX_PATHS / 32];
+    __shared__ u64 s_red[OLD_MAX_PATHS / 32];
     const int c = blockIdx.x, i = threadIdx.x;
     const bool live = i < P;
     const size_t base = (size_t)c * N * P;
@@ -138,7 +141,7 @@ __global__ void old_early_kernel(const unsigned* __restrict__ cost,
                                  const unsigned* __restrict__ sw, int* __restrict__ bt,
                                  unsigned* __restrict__ best, int* __restrict__ ends, int N,
                                  int P) {
-    __shared__ u64 s_red[S1_MAX_PATHS / 32];
+    __shared__ u64 s_red[OLD_MAX_PATHS / 32];
     const int c = blockIdx.x, i = threadIdx.x;
     const bool live = i < P;
     const size_t base = (size_t)c * N * P;
@@ -162,7 +165,7 @@ __global__ void old_prefetch_kernel(const unsigned* __restrict__ cost,
                                     unsigned* __restrict__ best, int* __restrict__ ends,
                                     int N, int P) {
     constexpr int D = S1_DEPTH;
-    __shared__ u64 s_red[S1_MAX_PATHS / 32];
+    __shared__ u64 s_red[OLD_MAX_PATHS / 32];
     const int c = blockIdx.x, i = threadIdx.x;
     const bool live = i < P;
     const size_t base = (size_t)c * N * P;
@@ -209,7 +212,7 @@ __global__ void old_chase_kernel(const int* __restrict__ bt, const int* __restri
 extern "C" int s1_old_sweep(const unsigned* cost, const unsigned char* mask,
                             const unsigned* sw, int* bt, unsigned* best, int* ends, int C,
                             int N, int P, int variant, void* stream) {
-    if (P < 1 || P > S1_MAX_PATHS || N < 1) return (int)cudaErrorInvalidValue;
+    if (P < 1 || P > OLD_MAX_PATHS || N < 1) return (int)cudaErrorInvalidValue;
     const int threads = (P + 31) / 32 * 32;
     if (variant == 0)
         return launch(old_sweep_kernel, C, threads, 0, stream, cost, mask, sw, bt, best,

@@ -1,6 +1,6 @@
 """Times kernel S1 at chip_smoke.py's main sampling shape on one NVIDIA GPU.
 
-    python3 tools/s1_times.py [--root DIR] [--reps 3] [--variants]
+    python3 tools/s1_times.py [--root DIR] [--reps 3] [--variants] [--wide]
 
 Builds the inputs as chip_smoke.check_s1 does (seed 5; C=2, N=55,040,
 P=123, A=4: costs 0..25 gathered through random alleles, 30% of the
@@ -19,8 +19,14 @@ column's start and with them loaded 8 columns ahead, and its one-thread
 chase alone; and the redesigned sweep with a five-round shuffle
 butterfly in place of each ``__reduce_min_sync``. Every variant must
 give the paths and scores of
-``viterbi_iteration``. Prints one JSON line per checkout (and one for
-the variants) with the card's name and power limit. Exits non-zero
+``viterbi_iteration``.
+
+``--wide`` times S1 past 128 paths at the bench chromosomes' N=55,040
+(C=2), inputs drawn on the card (chip_smoke.card_s1_inputs): P=1024
+(8 warps), 2049 and 4096 (17 and 32 warps, the lane merge), 6405 (1024
+threads, scores in shared memory).
+Prints one JSON line per checkout (and one for the variants, one for
+``--wide``) with the card's name and power limit. Exits non-zero
 without a GPU.
 """
 
@@ -116,11 +122,42 @@ def variants(inputs, want, reps: int) -> dict:
         same(paths, best, name)
         times[name] = cuda_ms(lambda: old_sweep(variant), reps)
     times["old_chase_ms"] = cuda_ms(old_chase, reps)
-    s_bt, s_best, s_ends = sampling.s1_sweep(path_cost, mask, switch, shfl_sweep, stream)
-    same(sampling.s1_chase(s_bt, s_ends, P, sampling.S1_CHASE, stream), s_best, "shfl sweep")
+    s_bt, s_best, s_ends, _ = sampling.s1_sweep(path_cost, mask, switch, sweep=shfl_sweep,
+                                                 stream=stream)
+    same(sampling.s1_chase(s_bt, s_ends, P, stream=stream)[0], s_best, "shfl sweep")
     times["shfl_sweep_ms"] = cuda_ms(
-        lambda: sampling.s1_sweep(path_cost, mask, switch, shfl_sweep, stream), reps)
+        lambda: sampling.s1_sweep(path_cost, mask, switch, sweep=shfl_sweep, stream=stream),
+        reps)
     return times
+
+
+def wide(reps: int) -> dict:
+    """S1 at C=2 N=55,040 for P = 1024, 2049, 4096 and 6405 (see the
+    module's docstring)."""
+    import torch
+
+    from pangenie_tpu_torch.hmm import bounds, sampling
+
+    sys.path.insert(0, ROOT)
+    from chip_smoke import card_s1_inputs
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev)
+    g.manual_seed(31)
+    C, N = 2, 55040
+    record = {"shape": {"C": C, "N": N}}
+    for P in (1024, 2049, 4096, 6405):
+        inputs = card_s1_inputs(g, C, N, P, dev)
+        ms = cuda_ms(lambda: sampling.viterbi_iteration(*inputs), reps)
+        bt, _best, ends, _ = sampling.s1_sweep(*inputs)
+        record[f"P={P}"] = {
+            "warps": sampling.sweep_layout(P)[0], "S1_ms": ms,
+            "sweep_ms": cuda_ms(lambda: sampling.s1_sweep(*inputs), reps),
+            "chase_ms": cuda_ms(lambda: sampling.s1_chase(bt, ends, P), reps),
+            "us_per_column": ms * 1e3 / N, "bound_ms": bounds.s1(C, N, P).bound()[0]}
+        del inputs, bt
+        torch.cuda.empty_cache()
+    return record
 
 
 def main() -> int:
@@ -128,6 +165,7 @@ def main() -> int:
     ap.add_argument("--root", default=ROOT)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--wide", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -152,7 +190,8 @@ def main() -> int:
     record = {"root": args.root, "shape": {"C": C, "N": N, "P": P},
               "S1_ms": cuda_ms(lambda: sampling.viterbi_iteration(*inputs), args.reps)}
     if hasattr(sampling, "s1_sweep"):
-        bt, _best, ends = sampling.s1_sweep(*inputs)
+        swept = sampling.s1_sweep(*inputs)  # (bt, best, ends[, carry_out])
+        bt, ends = swept[0], swept[2]
         record["sweep_ms"] = cuda_ms(lambda: sampling.s1_sweep(*inputs), args.reps)
         record["chase_ms"] = cuda_ms(lambda: sampling.s1_chase(bt, ends, P), args.reps)
         del bt
@@ -161,6 +200,8 @@ def main() -> int:
         record.update(variants(inputs, want, args.reps))
     record["gpu"] = gpu
     print(json.dumps(record), flush=True)
+    if args.wide:
+        print(json.dumps(dict(wide(args.reps), gpu=gpu)), flush=True)
     return 0
 
 
