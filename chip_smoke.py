@@ -12,8 +12,9 @@ Phases, each printed as it runs; any failure exits non-zero:
    four worker processes, once each into build/smoke_inputs/;
 3. kernel vs plain on the card, with the times of both (float32,
    rtol=2e-4, atol=1e-7 unless bit-identical): K1/K2 against the plain
-   forward-backward at the bench path's shape B=2, N=65,536, P=16 and at
-   B=128, N=4096, P=32, K=16 and B=2, N=4096, P=16; S1 against the plain
+   forward-backward at the bench path's B=2, N=65,536, P=16 with A=2, at
+   B=128, N=4096, P=32, K=16 and B=2, N=4096, P=16, and at B=2,
+   N=8192, P=89, A=8 (K2's 256-thread tier); S1 against the plain
    sampling DP, bit for bit, for one masked iteration at the bench
    path's shape C=2, N=55,040, P=123 (its chase alone against the plain
    chase too), for 15 greedy iterations at C=2, N=4096, P=123 and for
@@ -22,8 +23,8 @@ Phases, each printed as it runs; any failure exits non-zero:
    P=1024/2049/4096/6405; K3/K4 against their plain versions at the SV
    path's shape B=1, N=131,072, P=89, K=32, A=16, at B=2, N=8192, P=89
    with 97/2/1% of the columns at A=2/4/16 (where the whole chunked
-   route in chunks of 2048 and the fused route through K1/K2 on the
-   same columns are timed too) and at B=32, N=4096, P=32, K=32, A=16.
+   route in chunks of 2048 is held against the same route with the
+   plain versions) and at B=32, N=4096, P=32, K=32, A=16.
    Their columns carry k-mers only on alleles they have and read
    counts from a true path pair (utils/multiallelic.py), so raw
    posteriors stay far from float32's underflow: every column's sum
@@ -31,7 +32,12 @@ Phases, each printed as it runs; any failure exits non-zero:
    compared at the tolerance above. At every K3/K4 shape two launches
    must give the same bits, and a batch of B=3 chains at P=89 with
    padding (all-zero E after one chain's is_last, and one chain all
-   padding) goes through K3/K4 against the plain versions too. Each
+   padding) goes through K3/K4 against the plain versions too. K3/K4's
+   wide tier (P > 128) is held against the plain versions at B=2,
+   N=512, P=465 (mixed A, entry carries drawn positive), two launches
+   bit-identical, and timed. K2 runs its one-warp tier at P <= 32 (the
+   bench shape at A=2 printed beside the time of the kernel it
+   replaced) and its 256-thread tier at 32 < P <= 128. Each
    kernel's bound (hmm/bounds.py: bytes over 3.35 TB/s or operations
    over 67 TFLOP/s, the larger) is printed beside its time, with the
    bytes/s achieved;
@@ -47,6 +53,11 @@ Phases, each printed as it runs; any failure exits non-zero:
    free memory allows, inputs drawn on the card a segment at a time,
    path and host score checked as above, the scan's kernels timed by
    torch.profiler;
+   then the two forward-backward routes on the same columns, with no
+   forced chunk: the fused one (emissions, K1, K2) and the generic one
+   (bucketed emissions, K3/K4, collapse), at the bench path's B=2,
+   N=65,536, P=16, A=2 and at B=2, N=8192, P=89 with the 97/2/1% mix of
+   A=2/4/16, in turns; their posteriors must agree;
 4. end to end: the bench workload (20 Mb, 2 chromosomes, 61 samples =
    123 paths, 12x 150 bp reads, seed 11) genotyped with the port's
    single command on CUDA; the run must dispatch to the fused kernels,
@@ -54,7 +65,10 @@ Phases, each printed as it runs; any failure exits non-zero:
    and reach genotype concordance >= 0.99 against the truth;
 5. profile: the same command once more under torch.profiler; its VCF
    body must equal the first run's, and the device's busy time and idle
-   share over the run are printed;
+   share over the run are printed; then the batch the run handed to the
+   fused route (its own columns and padded A, so the K2 instance it
+   took): K1/K2 against the plain versions and timed, and the two routes
+   on it, in turns;
 6. SV panel: one 20 Mb chromosome (about 150,000 variants, so more than
    2^17 HMM columns), 44 samples = 89 paths (no auto-sampling), 1% SV
    sites each rewritten into 8-15 distinct 100-400 bp insertion ALTs,
@@ -70,7 +84,12 @@ Phases, each printed as it runs; any failure exits non-zero:
    first greedy path equal to the plain DP's, S1 timed on its inputs)
    and ``sampling -x 15`` (a panel VCF of 15 + 1 haplotypes, a paths
    TSV, and the same paths through the checkpointed scan under a forced
-   budget);
+   budget); then ``genotype -f -a 200`` (11 path subsets of 200 paths:
+   dispatch cuda_generic, K3/K4's wide tier, concordance >= 0.98), its
+   launches counted alone, then once more under torch.profiler (same
+   VCF body; the wide tier's device time); then the wide tier held
+   against the plain versions and timed at the chunk shape (B, chunk,
+   P=200) that run took, with drawn columns;
 8. widest panel: one 1 Mb chromosome, 3202 samples (the 1000 Genomes
    high-coverage callset's) = 6405 paths, 12x 150 bp reads, seed 19;
    ``index`` and ``sampling -x 15`` (S1's shared-memory sweep; the first
@@ -102,8 +121,13 @@ RTOL, ATOL = 2e-4, 1e-7
 # a column of raw posteriors summing to less has underflowed (float32's
 # smallest normal is 1.2e-38; the test columns' sums stay above 1e-12)
 POST_FLOOR = 1e-20
-# (B, N, P, K); the first is the bench path's shape
-FB_SHAPES = [(2, 65536, 16, 16), (128, 4096, 32, 16), (2, 4096, 16, 16)]
+# (B, N, P, K, A) of K1/K2's synthetic checks: the bench path's B, N
+# and P at A=2 (its time beside K2_BEFORE_MS), bench.py's kernel cell, a
+# short chain, and K2's 256-thread tier (32 < P <= 128) at A=8. The bench
+# run's own batch (its columns, padded to A=4) is checked after that run
+# (check_bench_columns).
+FB_SHAPES = [(2, 65536, 16, 16, 2), (128, 4096, 32, 16, 2), (2, 4096, 16, 16, 2),
+             (2, 8192, 89, 16, 8)]
 MAIN_S1_SHAPE = (2, 55040, 123, 4)                     # (C, N, P, A)
 S1_GREEDY_SHAPE = (2, 4096, 123, 4, 15)                # (C, N, P, A, iterations)
 # over the old 1 GiB rule for int32 [N, P] backtraces (2^28 cells)
@@ -125,6 +149,20 @@ GENERIC_SHAPES = [(1, 1 << 17, 89, 32, True, 0), (2, 8192, 89, 32, True, 2048),
                   (32, 4096, 32, 32, False, 0)]
 # (B, N, P, padded chain, padding from) of the padding check
 PADDED_SHAPE = (3, 2048, 89, 2, 1500)
+# K3/K4's wide tier (P > 128), with the 97/2/1% mix at A=16: (B, N, P,
+# K). The large panel's `genotype -f -a 200` chunk shape is checked after
+# that run (check_wide with the shape its walk recorded).
+WIDE_SHAPES = [(2, 512, 465, 32)]
+# path subsets of `genotype -f -a` on the large panel
+LARGE_SUBSET = 200
+# the two routes timed on the same columns with no forced chunk: the
+# bench path's shape (B, N, P, K, A) at A=2 and the mixed-A shape at P=89
+# of benchmarks/bench_sv_sampling.py (the bench run's own batch after
+# that run)
+ROUTE_SHAPES = [(2, 65536, 16, 16, 2), (2, 8192, 89, 32, 16)]
+# K2 at the bench path's shape before its one-warp tier, on an NVIDIA H100
+# 80GB HBM3 at 700 W (PERF.md; tools/k2_times.py times both in one run)
+K2_BEFORE_MS = 207.029
 # K3/K4 at the SV path's shape, as the redesign's acceptance set them (ms)
 GENERIC_TARGETS = {"K3": 550.0, "K4": 730.0}
 # the bench workload (bench.py:191-192, not cut) and the SV panel
@@ -192,55 +230,81 @@ def against_bound(t: dict, key: str) -> str:
             f"{t[key] * 1e3 / t[key + '_cols']:.3f} us per column")
 
 
-def check_fb(device, gpu):
-    """K1/K2 against the plain forward-backward at every FB_SHAPES entry.
-    Returns the largest absolute errors and the times at the main
-    path's shape."""
+def hold_fb(cols, what: str, gpu: str, parent_ms=None):
+    """K1 and K2 against the plain forward-backward on the columns
+    ``cols``, timed beside their bounds. Returns the times, with K1's and
+    K2's largest absolute errors."""
     import torch
 
     from pangenie_tpu_torch.hmm import bounds, fb_kernels
     from pangenie_tpu_torch.hmm.forward_backward import (
-        allele_emissions, backward_plain, columns_from_numpy, forward_plain,
+        allele_emissions, backward_plain, forward_plain,
     )
+
+    ea = allele_emissions(cols)
+    al, tr, last = cols.allele_local, cols.trans, cols.is_last
+    B, N, P = al.shape
+    A = ea.shape[-1]
+    (a_k, c_k), _ = timed(lambda: fb_kernels.forward(ea, al, tr))
+    (a_p, c_p), k1_plain = timed(lambda: forward_plain(ea, al, tr))
+    torch.testing.assert_close(a_k, a_p, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(c_k, c_p, rtol=RTOL, atol=ATOL)
+    p_k, _ = timed(lambda: fb_kernels.backward(a_k, c_k, ea, al, tr, last))
+    p_p, k2_plain = timed(lambda: backward_plain(a_p, c_p, ea, al, tr, last))
+    torch.testing.assert_close(p_k, p_p, rtol=RTOL, atol=ATOL)
+    e1 = max(float((a_k - a_p).abs().max()), float((c_k - c_p).abs().max()))
+    e2 = float((p_k - p_p).abs().max())
+    t = {
+        "K1": cuda_ms(lambda: fb_kernels.forward(ea, al, tr), 3),
+        "K1_plain": k1_plain,
+        "K2": cuda_ms(lambda: fb_kernels.backward(a_k, c_k, ea, al, tr, last), 3),
+        "K2_plain": k2_plain,
+        "K1_work": bounds.k1(B, N, P, A), "K1_cols": N,
+        "K2_work": bounds.k2(B, N, P, A), "K2_cols": N,
+        "shape": f"B={B} N={N} P={P} A={A}", "K1_err": e1, "K2_err": e2,
+    }
+    print(f"  fb {what}: ok (K1 max_abs_err {e1:.3e}, K2 max_abs_err {e2:.3e})")
+    tier = ("one warp a chain" if fb_kernels.K2.lib().pg_fb_backward_threads(P, A) == 32
+            else "256 threads a chain")
+    parent = f" (the 256-thread kernel before: {parent_ms} ms)" if parent_ms else ""
+    print(f"  times {what} [{gpu}]: K1 {t['K1']:.3f} ms, plain "
+          f"{t['K1_plain']:.3f} ms; K2 ({tier}) {t['K2']:.3f} ms{parent}, plain "
+          f"{t['K2_plain']:.3f} ms; {against_bound(t, 'K1')}; "
+          f"{against_bound(t, 'K2')}", flush=True)
+    return t
+
+
+def check_fb(device, gpu) -> None:
+    """K1/K2 against the plain forward-backward at every FB_SHAPES entry."""
+    import torch
+
+    from pangenie_tpu_torch.hmm.forward_backward import columns_from_numpy
     from pangenie_tpu_torch.utils.synthetic import synthetic_columns
 
-    err = {"K1": 0.0, "K2": 0.0}
-    times = {}
-    for B, N, P, K in FB_SHAPES:
+    for B, N, P, K, A in FB_SHAPES:
         cols = columns_from_numpy(
-            synthetic_columns(n_columns=N, n_paths=P, n_kmers=K, batch_dims=(B,),
-                              seed=7, dtype="float32"),
+            synthetic_columns(n_columns=N, n_paths=P, n_kmers=K, n_alleles=A,
+                              batch_dims=(B,), seed=7, dtype="float32"),
             device, torch.float32,
         )
-        ea = allele_emissions(cols)
-        al, tr, last = cols.allele_local, cols.trans, cols.is_last
-        (a_k, c_k), _ = timed(lambda: fb_kernels.forward(ea, al, tr))
-        (a_p, c_p), k1_plain = timed(lambda: forward_plain(ea, al, tr))
-        torch.testing.assert_close(a_k, a_p, rtol=RTOL, atol=ATOL)
-        torch.testing.assert_close(c_k, c_p, rtol=RTOL, atol=ATOL)
-        p_k, _ = timed(lambda: fb_kernels.backward(a_k, c_k, ea, al, tr, last))
-        p_p, k2_plain = timed(lambda: backward_plain(a_p, c_p, ea, al, tr, last))
-        torch.testing.assert_close(p_k, p_p, rtol=RTOL, atol=ATOL)
-        e1 = max(float((a_k - a_p).abs().max()), float((c_k - c_p).abs().max()))
-        e2 = float((p_k - p_p).abs().max())
-        err["K1"], err["K2"] = max(err["K1"], e1), max(err["K2"], e2)
-        t = {
-            "K1": cuda_ms(lambda: fb_kernels.forward(ea, al, tr), 3),
-            "K1_plain": k1_plain,
-            "K2": cuda_ms(lambda: fb_kernels.backward(a_k, c_k, ea, al, tr, last), 3),
-            "K2_plain": k2_plain,
-            "K1_work": bounds.k1(B, N, P, ea.shape[-1]), "K1_cols": N,
-            "K2_work": bounds.k2(B, N, P, ea.shape[-1]), "K2_cols": N,
-        }
-        times[(B, N, P, K)] = t
-        shape = f"B={B} N={N} P={P} K={K}"
-        print(f"  fb {shape}: ok (K1 max_abs_err {e1:.3e}, K2 max_abs_err {e2:.3e})")
-        print(f"  times {shape} [{gpu}]: K1 {t['K1']:.3f} ms, plain "
-              f"{t['K1_plain']:.3f} ms; K2 {t['K2']:.3f} ms, plain "
-              f"{t['K2_plain']:.3f} ms; {against_bound(t, 'K1')}; "
-              f"{against_bound(t, 'K2')}", flush=True)
-        del cols, ea, a_k, c_k, a_p, c_p, p_k, p_p
-    return err, times[FB_SHAPES[0]]
+        first = (B, N, P, K, A) == FB_SHAPES[0]
+        hold_fb(cols, f"B={B} N={N} P={P} K={K} A={A}", gpu,
+                K2_BEFORE_MS if first else None)
+        del cols
+        torch.cuda.empty_cache()
+
+
+def check_bench_columns(cols, gpu):
+    """K1/K2 on the bench run's own fused batch (the padded A it had, so
+    the K2 instance it took) against the plain versions, timed; then the
+    two routes on those columns (:func:`time_routes`). Returns the
+    errors and times."""
+    B, N, P = cols.allele_local.shape
+    A = cols.incidence.shape[-1]
+    what = f"the bench run's batch B={B} N={N} P={P} A={A}"
+    t = hold_fb(cols, what, gpu)
+    time_routes(cols, what, gpu)
+    return t
 
 
 def s1_iteration_inputs(rng, C, N, P, A, device):
@@ -621,7 +685,7 @@ def generic_columns(B, N, P, K, mixed, seed, device):
 
 
 def posterior_error(got, want, what: str):
-    """Holds raw posteriors [B, N, X, X] column by column: no column's
+    """Holds raw posteriors [..., X, X] column by column: no column's
     sum may fall to POST_FLOOR, the sums agree at RTOL, and the columns
     divided by their sums agree at RTOL/ATOL. Returns the largest
     absolute error of the divided columns and the smallest sum."""
@@ -658,14 +722,12 @@ def check_generic(device, gpu):
     on the same inputs (K4 takes the kernel's alphas); K4's raw
     posteriors through :func:`posterior_error`. Where a chunk is forced,
     also the chunked route with the kernels against the same route with
-    the plain versions, and the fused route (emissions, K1, K2) on the
-    same columns. Returns the largest absolute errors (K4's: of the
+    the plain versions (both timed). Returns the largest absolute errors (K4's: of the
     divided posteriors and of the outgoing beta) and the times at the SV
     path's shape."""
     import torch
 
     from pangenie_tpu_torch.hmm import bounds, fb_generic, fb_kernels
-    from pangenie_tpu_torch.hmm.forward_backward import allele_emissions
 
     err = {"K3": 0.0, "K4": 0.0}
     times = {}
@@ -725,30 +787,11 @@ def check_generic(device, gpu):
                 (g_p, _), gen_plain = timed(
                     lambda: fb_generic.forward_backward_chunked(cols, chunk=chunk))
             e_route, low_route = posterior_error(g_k, g_p, f"chunked route {shape}")
-
-            def fused():
-                ea = allele_emissions(cols)
-                a, c = fb_kernels.forward(ea, cols.allele_local, cols.trans)
-                return fb_kernels.backward(a, c, ea, cols.allele_local, cols.trans,
-                                           cols.is_last)
-
-            f_k, fused_ms = timed(fused)
-            e_fused, _ = posterior_error(f_k, g_k, f"fused vs generic route {shape}")
-            ea = allele_emissions(cols)
-            a1, c1 = fb_kernels.forward(ea, cols.allele_local, cols.trans)
-            k1 = cuda_ms(lambda: fb_kernels.forward(ea, cols.allele_local, cols.trans), 3)
-            k2 = cuda_ms(lambda: fb_kernels.backward(a1, c1, ea, cols.allele_local,
-                                                     cols.trans, cols.is_last), 3)
             print(f"  chunked route {shape}, {walk[2]} chunks of {chunk}: kernels vs "
                   f"plain ok (posteriors divided by their column sums max_abs_err "
-                  f"{e_route:.3e}, smallest column sum {low_route:.3e}); fused route "
-                  f"vs generic route max_abs_err {e_fused:.3e} (divided likewise)")
-            print(f"  A>8 rule on the card {shape} [{gpu}]: generic route "
-                  f"(bucketed emissions, K3/K4 in chunks, collapse) {gen_ms:.3f} ms, "
-                  f"plain {gen_plain:.3f} ms; fused route (emissions, K1, K2) "
-                  f"{fused_ms:.3f} ms; whole-N kernels only: K1 {k1:.3f} + K2 "
-                  f"{k2:.3f} ms vs K3 {t['K3']:.3f} + K4 {t['K4']:.3f} ms", flush=True)
-            del g_k, g_p, f_k, ea, a1, c1
+                  f"{e_route:.3e}, smallest column sum {low_route:.3e}); [{gpu}] "
+                  f"{gen_ms:.3f} ms, plain {gen_plain:.3f} ms", flush=True)
+            del g_k, g_p
         del cols
         torch.cuda.empty_cache()
     main = times[GENERIC_SHAPES[0][:4]]
@@ -811,6 +854,139 @@ def check_padding(device):
           f"divided by their sums max_abs_err {e4:.3e}, smallest column sum "
           f"{low:.3e}; padding posteriors 0 in both)", flush=True)
     return e3, e4
+
+
+def check_wide(device, gpu, shapes):
+    """K3/K4's wide tier against their plain versions at every (B, N, P,
+    K) of ``shapes``, on the same inputs (K4 takes the kernel's alphas),
+    with entry carries that are not ones and zeros (each chain's alpha0
+    and beta0 drawn positive), timed beside their bounds; compared a
+    chain at a time, so that the comparisons' temporaries stay small
+    beside a chunk that fills the card. Returns the largest absolute
+    errors and the times at shapes[0]."""
+    import torch
+
+    from pangenie_tpu_torch.hmm import bounds, fb_generic, fb_kernels
+
+    err = {"K3": 0.0, "K4": 0.0}
+    main = None
+    g = torch.Generator(device=device)
+    g.manual_seed(43)
+    for B, N, P, K in shapes:
+        cols = generic_columns(B, N, P, K, True, seed=23, device=device)
+        E = fb_generic.bucketed_state_emissions(cols).reshape(B, N, P, P)
+        u = fb_generic.factor_trans(cols.trans).contiguous()
+        alpha0 = torch.rand((B, P, P), generator=g, device=device) + 0.5
+        beta0 = torch.rand((B, P, P), generator=g, device=device) + 0.5
+        beta0 /= beta0.sum(dim=(1, 2), keepdim=True)
+        e_after = torch.rand((B, P, P), generator=g, device=device)
+        u_after = u[:, 1].contiguous()
+        last = cols.is_last.clone()
+        last[:, -1] = False                    # the chunk goes on after its end
+        (a_k, c_k), _ = timed(lambda: fb_kernels.forward_e(E, u, alpha0))
+        (a_p, c_p), k3_plain = timed(lambda: fb_generic.forward_e_plain(E, u, alpha0))
+        e3 = float((c_k - c_p).abs().max())
+        torch.testing.assert_close(c_k, c_p, rtol=RTOL, atol=ATOL)
+        for b in range(B):
+            torch.testing.assert_close(a_k[b], a_p[b], rtol=RTOL, atol=ATOL)
+            e3 = max(e3, float((a_k[b] - a_p[b]).abs().max()))
+        del a_p, c_p
+        args = (a_k, c_k, E, u, e_after, u_after, last, beta0)
+        (p_k, b_k), _ = timed(lambda: fb_kernels.backward_e(*args))
+        (p_p, b_p), k4_plain = timed(lambda: fb_generic.backward_e_plain(*args))
+        e4, low = 0.0, float("inf")
+        for b in range(B):
+            e_b, low_b = posterior_error(p_k[b], p_p[b],
+                                         f"wide K4 at B={B} N={N} P={P}, chain {b}")
+            e4, low = max(e4, e_b), min(low, low_b)
+        torch.testing.assert_close(b_k, b_p, rtol=RTOL, atol=ATOL)
+        e4 = max(e4, float((b_k - b_p).abs().max()))
+        del p_p
+        same_bits(fb_kernels.forward_e(E, u, alpha0), (a_k, c_k), f"wide K3 at P={P}")
+        same_bits(fb_kernels.backward_e(*args), (p_k, b_k), f"wide K4 at P={P}")
+        err["K3"], err["K4"] = max(err["K3"], e3), max(err["K4"], e4)
+        t = {"K3": cuda_ms(lambda: fb_kernels.forward_e(E, u, alpha0), 3),
+             "K3_plain": k3_plain,
+             "K4": cuda_ms(lambda: fb_kernels.backward_e(*args), 3), "K4_plain": k4_plain,
+             "K3_work": bounds.k3(B, N, P), "K3_cols": N,
+             "K4_work": bounds.k4(B, N, P), "K4_cols": N,
+             "shape": f"B={B} N={N} P={P}"}
+        main = main or t
+        shape = f"B={B} N={N} P={P} K={K} A=16 mixed 2/4/16"
+        print(f"  wide tier {shape}, entry carries drawn: ok (K3 max_abs_err {e3:.3e}; "
+              f"K4 posteriors divided by their column sums and beta_out max_abs_err "
+              f"{e4:.3e}, smallest column sum {low:.3e}); two launches bit-identical")
+        print(f"  times {shape} [{gpu}]: K3 {t['K3']:.3f} ms, plain {k3_plain:.3f} ms; "
+              f"K4 {t['K4']:.3f} ms, plain {k4_plain:.3f} ms; {against_bound(t, 'K3')}; "
+              f"{against_bound(t, 'K4')}", flush=True)
+        del cols, E, u, a_k, c_k, p_k, b_k, args
+        torch.cuda.empty_cache()
+    return err, main
+
+
+def time_routes(cols, what: str, gpu: str) -> None:
+    """The fused route (emissions, K1, K2) and the generic route
+    (bucketed emissions, K3/K4 in the chunks pick_chunk chooses,
+    collapse) on the columns ``cols``, each the mean of 3 runs after a
+    warm-up, in turns; their posteriors held against each other (divided
+    by their column sums). batch.MAX_FUSED_ALLELES is not consulted:
+    both routes run whatever the rule says."""
+    import torch
+
+    from pangenie_tpu_torch.hmm import fb_generic, fb_kernels
+    from pangenie_tpu_torch.hmm.forward_backward import allele_emissions
+
+    def fused():
+        ea = allele_emissions(cols)
+        a, c = fb_kernels.forward(ea, cols.allele_local, cols.trans)
+        return fb_kernels.backward(a, c, ea, cols.allele_local, cols.trans,
+                                   cols.is_last)
+
+    def generic():
+        return fb_generic.forward_backward_chunked(cols)[0]
+
+    # the columns up to each chain's last one (a batch's chains are
+    # padded) whose raw posteriors float32 keeps in the fused route (a
+    # real column's may sum to 1e-50); posterior_error fails where the
+    # generic route's do not sum above POST_FLOOR there
+    last = cols.is_last.to(torch.int32)
+    p_f, p_g = fused(), generic()
+    kept = ((last.cumsum(dim=1) - last) == 0) & (p_f.sum(dim=(-2, -1)) > POST_FLOOR)
+    e, low = posterior_error(p_f[kept], p_g[kept], f"fused vs generic route {what}")
+    n_real = int(((last.cumsum(dim=1) - last) == 0).sum())
+    del p_f, p_g
+    chunks = fb_generic.last_walk[2]
+    f1, g1 = cuda_ms(fused, 3), cuda_ms(generic, 3)
+    g2, f2 = cuda_ms(generic, 3), cuda_ms(fused, 3)
+    print(f"  routes {what} [{gpu}]: fused (emissions, K1, K2) {f1:.3f} / {f2:.3f} "
+          f"ms; generic (bucketed emissions, K3/K4 in {chunks} chunk(s), collapse) "
+          f"{g1:.3f} / {g2:.3f} ms (in turns); the routes' posteriors divided by "
+          f"their column sums agree on {int(kept.sum())} of {n_real} columns (the "
+          f"others sum to {POST_FLOOR:.0e} or less in the fused route; max_abs_err {e:.3e}, "
+          f"smallest sum {low:.3e})", flush=True)
+    torch.cuda.empty_cache()
+
+
+def check_routes(device, gpu) -> None:
+    """:func:`time_routes` at every ROUTE_SHAPES entry."""
+    import numpy as np
+    import torch
+
+    from pangenie_tpu_torch.hmm.forward_backward import columns_from_numpy
+    from pangenie_tpu_torch.utils.synthetic import synthetic_columns
+
+    for B, N, P, K, A in ROUTE_SHAPES:
+        if A == 16:
+            cols = generic_columns(B, N, P, K, True, seed=17, device=device)
+            what = f"B={B} N={N} P={P} K={K} A=16 mixed 2/4/16"
+        else:
+            cols = columns_from_numpy(
+                synthetic_columns(n_columns=N, n_paths=P, n_kmers=K, n_alleles=A,
+                                  batch_dims=(B,), seed=7, dtype=np.float32),
+                device, torch.float32)
+            what = f"B={B} N={N} P={P} K={K} A={A}"
+        time_routes(cols, what, gpu)
+        del cols
 
 
 def rewrite_sv_sites(variants, rng, n_alts, lengths=(100, 400)):
@@ -952,12 +1128,17 @@ def run_e2e(casedir: str, gpu: str):
     from pangenie_tpu_torch.utils import timer
 
     outpref = os.path.join(casedir, "out")
+    batches = []
     for k in kernels().values():
         k.launches = 0
-    wall = _run_single(casedir, outpref)
+    with batches_kept(batches):
+        wall = _run_single(casedir, outpref)
     launches = {name: k.launches for name, k in kernels().items()}
     if batch.last_dispatch != "cuda_fused":
         raise AssertionError(f"dispatch was {batch.last_dispatch}, not cuda_fused")
+    fused = [cols for cols, route in batches if route == "cuda_fused"]
+    if len(fused) != launches["K2"]:
+        raise AssertionError(f"{len(fused)} fused batches but {launches['K2']} K2 launches")
     for name in ("K1", "K2", "S1", "S1_CHASE"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the bench path")
@@ -968,13 +1149,14 @@ def run_e2e(casedir: str, gpu: str):
     )
     print(f"  e2e [{gpu}]: wall {wall:.2f} s, {result.total} variants, "
           f"{result.total / wall:.1f} variants/s, concordance "
-          f"{result.concordance:.5f}, launches {launches}")
+          f"{result.concordance:.5f}, launches {launches}, batches (B, N, P, A) and "
+          f"routes {[(batch_shape(c), r) for c, r in batches]}")
     print(f"  phase walls (s): "
           f"{json.dumps({k: round(v, 2) for k, v in timer.last_phases.items()})}",
           flush=True)
     if result.concordance < 0.99:
         raise AssertionError(f"concordance {result.concordance} < 0.99")
-    return launches
+    return launches, fused[0]
 
 
 def _vcf_body(path: str) -> list:
@@ -1140,6 +1322,27 @@ def patched(module, name, value):
 
 
 @contextlib.contextmanager
+def batches_kept(captured: list):
+    """While it is open, every batch the genotyping driver hands to
+    forward_backward_batch goes to ``captured`` as (its columns, the
+    route it took)."""
+    from pangenie_tpu_torch.hmm import batch, genotyping
+
+    def kept(columns):
+        out = batch.forward_backward_batch(columns)
+        captured.append((columns, batch.last_dispatch))
+        return out
+
+    with patched(genotyping, "forward_backward_batch", kept):
+        yield
+
+
+def batch_shape(columns) -> tuple:
+    """(B, N, P, A) of a batch of columns."""
+    return (*columns.allele_local.shape, columns.incidence.shape[-1])
+
+
+@contextlib.contextmanager
 def first_group_kept(captured: dict):
     """While it is open, the first sample_group call's inputs and first
     path go to ``captured["group"]``."""
@@ -1253,11 +1456,18 @@ def run_large_panel(casedir: str, gpu: str, device: str = "cuda"):
     there); ``sampling`` writes its panel VCF and paths TSVs
     (:func:`check_sampled_panel`); the same records sampled through
     sample_panels_batched with a budget that forces the checkpointed scan
-    give the same paths. Returns the launch counts of the three commands,
-    and S1's largest difference from the plain DP and times."""
+    give the same paths. Then ``genotype -f -a LARGE_SUBSET`` (path
+    subsets past the fused kernels: dispatch cuda_generic, K3/K4's wide
+    tier; concordance >= 0.98), with the launch counts set to 0 just
+    before it, then once more under torch.profiler (same VCF body; the
+    wide tier's device time). Returns the launch counts of the three
+    commands, S1's largest difference from the plain DP and times, the
+    launch counts of the subset run and the (B, N, P, K) of its chunks."""
     from pangenie_tpu_torch import commands
     from pangenie_tpu_torch.eval.concordance import genotype_concordance
-    from pangenie_tpu_torch.hmm import batch, sampling
+    from pangenie_tpu_torch.hmm import batch, fb_generic, sampling
+    from pangenie_tpu_torch.panel.sampling import reset_global_rand
+    from pangenie_tpu_torch.utils import timer
 
     prefix = os.path.join(casedir, "index")
     reads = os.path.join(casedir, "reads.fa")
@@ -1268,10 +1478,13 @@ def run_large_panel(casedir: str, gpu: str, device: str = "cuda"):
     command("index", lambda: commands.run_index_command(
         os.path.join(casedir, "ref.fa"), os.path.join(casedir, "panel.vcf"), 31, prefix,
         nr_jellyfish_threads=2))
-    with first_group_kept(captured):
+    batches = []
+    with first_group_kept(captured), batches_kept(batches):
         command("genotype -f", lambda: commands.run_genotype_command(
             prefix, reads, os.path.join(casedir, "out"), nr_jellyfish_threads=2,
             nr_core_threads=2, device=device))
+    shapes = [(batch_shape(c), r) for c, r in batches]
+    del batches
     if batch.last_dispatch != "cuda_fused":
         raise AssertionError(f"dispatch was {batch.last_dispatch}, not cuda_fused")
     with panels_kept(captured, copy_records=True):
@@ -1304,6 +1517,43 @@ def run_large_panel(casedir: str, gpu: str, device: str = "cuda"):
     if segmented != captured["paths"]:
         raise AssertionError("the checkpointed route sampled other paths")
 
+    # path subsets past the fused kernels' 128: the wide K3/K4, counted alone
+    for k in kernels().values():
+        k.launches = 0
+    fb_generic.last_walk = (0, 0, 0)
+    subsets = f"genotype -f -a {LARGE_SUBSET}"
+    chunks = []
+    pick_chunk = fb_generic.pick_chunk
+
+    def chunk_kept(*args):
+        chunks.append(pick_chunk(*args))
+        return chunks[-1]
+
+    def genotype_subsets(out):
+        # the subsets are drawn from the process-wide rand() stream: the
+        # same stream state gives the profiled rerun the same subsets
+        reset_global_rand()
+        commands.run_genotype_command(
+            prefix, reads, os.path.join(casedir, out), nr_jellyfish_threads=2,
+            nr_core_threads=2, sampling_size=LARGE_SUBSET, device=device)
+
+    with patched(fb_generic, "pick_chunk", chunk_kept):
+        command(subsets, lambda: genotype_subsets("out_subsets"))
+    subset_launches = {name: k.launches for name, k in kernels().items()}
+    walk = fb_generic.last_walk
+    if len(chunks) != 1:
+        raise AssertionError(f"{subsets}: {len(chunks)} chunked walks, not 1")
+    # the shape each wide-tier launch but the last of each pass took
+    subset_shape = (walk[0], min(chunks[0], walk[1]), LARGE_SUBSET, 32)
+    if batch.last_dispatch != "cuda_generic":
+        raise AssertionError(f"{subsets}: dispatch was {batch.last_dispatch}, "
+                             f"not cuda_generic")
+    for name in ("K3", "K4"):
+        if subset_launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by {subsets}")
+    subset_result = genotype_concordance(os.path.join(casedir, "out_subsets_genotyping.vcf"),
+                                         os.path.join(casedir, "truth.vcf"))
+
     with open(os.path.join(casedir, "DONE")) as f:
         made = f.read().strip()
     print(f"  large panel ({made}, {t['shape']}) [{gpu}]: "
@@ -1313,10 +1563,29 @@ def run_large_panel(casedir: str, gpu: str, device: str = "cuda"):
           f"{t['S1']:.3f} ms, plain {t['S1_plain']:.3f} ms, {against_bound(t, 'S1')}; "
           f"{wrote}; the checkpointed route (budget {budget} bytes, segments {segments}) "
           f"sampled the same paths; launches {launches}")
+    print(f"  genotype -f batches (B, N, P, A) and routes: {shapes}")
+    print(f"  {subsets} [{gpu}]: wall {walls[subsets][0]:.2f} s, dispatch "
+          f"{batch.last_dispatch} over (B, N, chunks) {walk} in chunks of "
+          f"{chunks[0]} (K3/K4's wide tier at P={LARGE_SUBSET}), concordance "
+          f"{subset_result.concordance:.5f} over {subset_result.total} variants, "
+          f"launches {subset_launches}")
     print_walls(walls)
     if result.concordance < 0.98:
         raise AssertionError(f"concordance {result.concordance} < 0.98")
-    return launches, err, t
+    if subset_result.concordance < 0.98:
+        raise AssertionError(f"{subsets}: concordance {subset_result.concordance} < 0.98")
+
+    wall, busy, by_name = profile_device(lambda: genotype_subsets("out_subsets_profiled"))
+    if _vcf_body(os.path.join(casedir, "out_subsets_profiled_genotyping.vcf")) != _vcf_body(
+            os.path.join(casedir, "out_subsets_genotyping.vcf")):
+        raise AssertionError(f"the profiled {subsets} VCF differs from the first run's")
+    print_profile(subsets, wall, busy, by_name, gpu)
+    wide = {k: sum(dt for name, (dt, _n) in by_name.items() if f"fbe_{k}_wide" in name)
+            for k in ("forward", "backward")}
+    print(f"  {subsets} device time: K3's wide tier {wide['forward']:.3f} s, K4's "
+          f"{wide['backward']:.3f} s of {busy:.3f} s busy; HMM phase wall "
+          f"{timer.last_phases.get('genotyping (HMM)', float('nan')):.2f} s", flush=True)
+    return launches, err, t, subset_launches, subset_shape
 
 
 def run_widest_panel(casedir: str, gpu: str, device: str = "cuda"):
@@ -1433,10 +1702,11 @@ def smoke(device, gpu, inputs) -> int:
                 print(f"    {entry}: {line.split(':', 1)[-1].strip()}")
 
     phase("kernel vs plain (and times)")
-    err, fb_times = check_fb(device, gpu)
+    check_fb(device, gpu)
     s1_err, s1_times = check_s1(device, gpu)
     check_s1_wide(device, gpu)
     g_err, g_times = check_generic(device, gpu)
+    check_wide(device, gpu, WIDE_SHAPES)
 
     phase("long chromosome: sampling DP over the old 1 GiB backtrace rule")
     check_long_chromosome(device, gpu)
@@ -1446,13 +1716,20 @@ def smoke(device, gpu, inputs) -> int:
     seg_times, seg_launches = check_beyond_card(device, gpu)
     seg_times.update(S1_SEG_plain=seg_plain_ms)
 
+    phase("routes: fused (K1/K2) and generic (K3/K4) on the same columns")
+    check_routes(device, gpu)
+
     phase("end to end")
     casedir, seconds = inputs["bench"].get()
     print(f"  bench inputs ({BENCH}) simulated in {seconds:.1f} s", flush=True)
-    launches = run_e2e(casedir, gpu)
+    launches, bench_cols = run_e2e(casedir, gpu)
 
     phase("profile")
     run_profiled(casedir, gpu)
+
+    phase("the bench run's own batch: K1/K2 against the plain versions, and the routes")
+    fb_times = check_bench_columns(bench_cols, gpu)
+    del bench_cols
 
     phase("sv panel: index + genotype -f")
     sv_dir, seconds = inputs["sv"].get()
@@ -1462,7 +1739,13 @@ def smoke(device, gpu, inputs) -> int:
     phase("large panel: index + genotype -f + sampling at 2049 paths")
     large_dir, seconds = inputs["large"].get()
     print(f"  large panel inputs ({LARGE_PANEL}) simulated in {seconds:.1f} s", flush=True)
-    large_launches, large_err, large_times = run_large_panel(large_dir, gpu)
+    (large_launches, large_err, large_times, subset_launches,
+     subset_shape) = run_large_panel(large_dir, gpu)
+
+    phase("K3/K4's wide tier at the chunk shape of genotype -f -a "
+          f"{LARGE_SUBSET}: {subset_shape}")
+    torch.cuda.empty_cache()
+    w_err, w_times = check_wide(device, gpu, [subset_shape])
 
     phase("widest panel: index + sampling at 6405 paths")
     widest_dir, seconds = inputs["widest"].get()
@@ -1482,14 +1765,20 @@ def smoke(device, gpu, inputs) -> int:
     s1_src = "pangenie_tpu_torch/csrc/sampling_dp.cu"
     pallas = "pangenie_tpu/hmm/pallas_fb.py"
     record = {"kernels": [
-        entry("fb_forward (K1)", fb_src, f"{pallas}:122", launches["K1"],
-              err["K1"], fb_times, "K1"),
-        entry("fb_backward (K2)", fb_src, f"{pallas}:148", launches["K2"],
-              err["K2"], fb_times, "K2"),
+        dict(entry("fb_forward (K1)", fb_src, f"{pallas}:122", launches["K1"],
+                   fb_times["K1_err"], fb_times, "K1"), at=fb_times["shape"]),
+        dict(entry("fb_backward (K2)", fb_src, f"{pallas}:148", launches["K2"],
+                   fb_times["K2_err"], fb_times, "K2"), at=fb_times["shape"]),
         entry("fbe_forward (K3)", fb_src, f"{pallas}:307", sv_launches["K3"],
               g_err["K3"], g_times, "K3"),
         entry("fbe_backward (K4)", fb_src, f"{pallas}:333", sv_launches["K4"],
               g_err["K4"], g_times, "K4"),
+        dict(entry("fbe_forward wide tier (K3 past 128 paths: 1024 threads, state in "
+                   "global memory)", fb_src, f"{pallas}:307", subset_launches["K3"],
+                   w_err["K3"], w_times, "K3"), at=w_times["shape"]),
+        dict(entry("fbe_backward wide tier (K4 past 128 paths: 1024 threads, state in "
+                   "global memory)", fb_src, f"{pallas}:333", subset_launches["K4"],
+                   w_err["K4"], w_times, "K4"), at=w_times["shape"]),
         entry("viterbi_iteration (S1: sweep and chase)", s1_src,
               "pangenie_tpu/hmm/sampling.py:174", launches["S1"], s1_err, s1_times, "S1"),
         entry("backtrace chase (S1)", s1_src, "pangenie_tpu/hmm/sampling.py:232",

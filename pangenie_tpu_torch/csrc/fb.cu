@@ -5,7 +5,13 @@
 //      to path pairs inside the kernel (the fused route);
 //   K3 fbe_forward_kernel, K4 fbe_backward_kernel: the same sweeps on
 //      precomputed [P, P] state emissions, with entry carries so that a
-//      chain runs in N-chunks (the generic route: any A, any length).
+//      chain runs in N-chunks (the generic route: any A, any length, any
+//      P; past 128 paths fbe_forward_wide_kernel / fbe_backward_wide_kernel).
+//
+// Tiers by P: K1 takes P <= 128; K2 runs fb_backward_warp_kernel (one
+// warp a chain) up to P = 32 and fb_backward_kernel up to 128; K3/K4 keep
+// the state in registers up to 128 and in global memory beyond (their
+// sections below).
 //
 // Replaces: pangenie_tpu/hmm/pallas_fb.py:_fwd_kernel (K1), :_bwd_kernel
 // (K2), driven there by forward_backward_batch_pallas, and
@@ -23,9 +29,9 @@
 // at P=89, from one SM. Parallelism comes only from the batch: one CTA
 // per chain, so B=1 (a long chromosome's chunk) occupies 1 of 132 SMs.
 //
-// K1/K2: the whole [P, P] f32 state stays in shared memory for the
-// entire sweep (row pitch P+1 so the per-row reductions are free of
-// bank conflicts). Row sums / column sums / total are taken in a fixed
+// K1 and K2's 256-thread tier: the whole [P, P] f32 state stays in
+// shared memory for the entire sweep (row pitch P+1 so the per-row
+// reductions are free of bank conflicts). Row sums / column sums / total are taken in a fixed
 // order (no atomics: results do not change from run to run), and the
 // state is mixed and normalized in place. K1/K2 gather E[p, q] =
 // EA[al[p], al[q]] from a shared [A, A] tile (exactly the one-hot
@@ -40,7 +46,7 @@
 // e_after / u_after (the following chunk's first column), writes the raw
 // [P, P] posteriors straight to global memory and returns the normalized
 // beta after the chunk's first column as the carry for the chunk before.
-// Their design, against what made a column slow:
+// The register tiers' design (P <= 128), against what made a column slow:
 //
 // - The state lives in registers. 16 warps (512 threads, so 128
 //   registers a thread); warp w owns rows p = w + 16*r (r < RW =
@@ -75,13 +81,12 @@
 //   a quarter of the memory instructions of one 4-byte access per cell.
 // - Two block barriers per column. K3 reduces the unnormalized cur,
 //   stores alpha_n = cur / s during the next column and folds 1/s into
-//   that column's mix. K4 reduces g = cur_n * E_n (the next column's
-//   helper, beta_n * E_n, times s_n) and the total s_n of cur in the
-//   pass that computes cur_n, and folds 1/s_n into the next mix. One
-//   warp sums the totals and takes 1/s once for the block. Where s <= 0
-//   the state becomes uniform exactly as in the plain versions (K4 then
-//   reduces uniform * E_n once more, a branch the whole block takes
-//   together); padding columns (E = 0) take that branch.
+//   that column's mix (E multiplies the mix after 1/s). K4 knows the
+//   total s_n of cur before cur (fbe_total) and reduces the next
+//   column's helper g = (cur_n / s_n) * E_n in the pass that computes
+//   cur_n. One warp sums the totals and takes 1/s once for the block.
+//   Where s <= 0 the state becomes uniform exactly as in the plain
+//   versions; padding columns (E = 0) lead there.
 // - Sums in a fixed order and no float atomics: a launch repeats its
 //   results bit for bit.
 // Allocates nothing; launches on the caller's stream.
@@ -195,7 +200,7 @@ __global__ void __launch_bounds__(FB_THREADS)
 fb_backward_kernel(const float* __restrict__ alphas, const float* __restrict__ c_fwd,
                    const float* __restrict__ ea, const int* __restrict__ al,
                    const float* __restrict__ trans,
-                   const unsigned char* __restrict__ is_last,
+                   const int* __restrict__ is_last,
                    float* __restrict__ posts, int N, int P, int A) {
     extern __shared__ float smem[];
     const int pitch = P + 1;
@@ -290,6 +295,47 @@ fb_backward_kernel(const float* __restrict__ alphas, const float* __restrict__ c
 
 // ---- K3/K4 ----
 
+// The total s of a backward column's cur, from the total H of the helper
+// it mixes: each term of the factored mix sums over the P x P cells to H
+// u0, 2 P H u1 and P^2 H u2; at is_last cur is 1 in every cell. Known
+// before cur, so the next helper is formed from beta = cur / s before it
+// meets the emissions, as in the plain versions. (Folding 1 / s into the
+// next column's mix instead multiplies E by the unnormalized cur, which
+// underflows on real columns: emissions near 1e-41, totals near 1e-20.)
+__device__ __forceinline__ float fbe_total(bool last, float H, float u0, float u1,
+                                           float u2, int P) {
+    return last ? (float)(P * P) : H * (u0 + (float)(2 * P) * u1 + (float)(P * P) * u2);
+}
+
+// A backward column's scalars, so that no cell divides or branches: with
+// sc = 2^64 for a total s under 1e-30 (else 1; exact), cur * sc = u0s g +
+// u1s (R + C) + hs, beta = (cur * sc) inv, and the raw posterior alpha *
+// cur * cf = alpha (cur * sc) cfs. At is_last cur is 1 and sc is 1 (s =
+// P^2). Where s <= 0 the helper is 0, cur is 0 and beta uniform: then hs
+// is the uniform value, inv 1 and cfs 0.
+struct BwdScale {
+    float u0s, u1s, hs, inv, cfs;
+};
+
+__device__ __forceinline__ BwdScale fbe_bwd_scale(bool last, float H, float u0, float u1,
+                                                  float u2, int P, float cf, float uniform) {
+    const float s = fbe_total(last, H, u0, u1, u2, P);
+    const float sc = s < 1e-30f ? 0x1p64f : 1.f;
+    BwdScale k;
+    if (s > 0.f) {
+        k.u0s = u0 * sc;
+        k.u1s = u1 * sc;
+        k.hs = u2 * H * sc;
+        k.inv = __frcp_rn(s * sc);
+        k.cfs = sc > 1.f ? cf * 0x1p-64f : cf;
+    } else {
+        k.u0s = k.u1s = k.cfs = 0.f;
+        k.hs = uniform;
+        k.inv = 1.f;
+    }
+    return k;
+}
+
 // K3/K4's dynamic shared memory (FbeSmem holds the offsets into it)
 extern __shared__ __align__(16) float fbe_shm[];
 
@@ -382,8 +428,7 @@ struct FbeSmem {
     int colpart;      // [FBE_WARPS, part pitch] each warp's column sums over its rows
     int col;          // [P] column sums
     int wsum;         // [32] each warp's total of the reduced state
-    int wcur;         // [32] each warp's total of cur (K4)
-    int tot;          // [4] total of the reduced state, 1 / the normalizer
+    int tot;          // [2] total of the reduced state, 1 / it
     int slot_pitch, part_pitch;   // the ring starts at 0
 };
 
@@ -395,24 +440,22 @@ __device__ __forceinline__ FbeSmem fbe_layout(int P) {
     s.colpart = s.stage + fbe_column_floats(P);
     s.col = s.colpart + FBE_WARPS * s.part_pitch;
     s.wsum = s.col + P;
-    s.wcur = s.wsum + 32;
-    s.tot = s.wcur + 32;
+    s.tot = s.wsum + 32;
     return s;
 }
 
 static size_t fbe_smem(int P) {
     return sizeof(float) * ((size_t)FBE_RING * (FBE_HEADER + fbe_column_floats(P))
                             + fbe_column_floats(P) + (size_t)FBE_WARPS * fbe_part_pitch(P)
-                            + P + 68);
+                            + P + 34);
 }
 
 // First half of a reduction, no barrier: the row sums of v into R (every
 // lane of the warp gets them), the warp's column partials and its total
-// into shared memory; with `cur` also the warp's total of cur_sum.
+// into shared memory.
 template <int RW, int NC>
 __device__ __forceinline__ void reduce_warp(const float (&v)[RW][NC], float (&R)[RW],
-                                            const Cells<RW, NC>& c, const FbeSmem& s,
-                                            float cur_sum, bool cur) {
+                                            const Cells<RW, NC>& c, const FbeSmem& s) {
     float tot = 0.f;
 #pragma unroll
     for (int r = 0; r < RW; ++r) {
@@ -433,19 +476,14 @@ __device__ __forceinline__ void reduce_warp(const float (&v)[RW][NC], float (&R)
         for (int r = 0; r < RW; ++r) x += v[r][k];
         if (q < c.P) fbe_shm[s.colpart + c.w * s.part_pitch + q] = x;
     }
-    if (cur) cur_sum = warp_sum(cur_sum);
-    if (c.lane == 0) {
-        fbe_shm[s.wsum + c.w] = tot;
-        if (cur) fbe_shm[s.wcur + c.w] = cur_sum;
-    }
+    if (c.lane == 0) fbe_shm[s.wsum + c.w] = tot;
 }
 
 // Second half, after a barrier. Column sums: four lanes per column, each
 // over every fourth warp, then two shuffles (threads [0, 4P)). The last
-// warp sums the warps' totals: tot[0] the state's, tot[1] 1 / the
-// normalizer (the state's total, or with `cur` the total of cur; 1 where
-// that is not positive), tot[2] the normalizer. Each sum in a fixed order.
-__device__ __forceinline__ void reduce_block(const FbeSmem& s, int P, bool cur) {
+// warp sums the warps' totals: tot[0] the state's, tot[1] 1 / it (1 where
+// it is not positive). Each sum in a fixed order.
+__device__ __forceinline__ void reduce_block(const FbeSmem& s, int P) {
     constexpr int W = FBE_WARPS;
     const int t = threadIdx.x;
     if (t < 4 * P) {
@@ -460,11 +498,9 @@ __device__ __forceinline__ void reduce_block(const FbeSmem& s, int P, bool cur) 
     if ((t >> 5) == W - 1) {
         const int lane = t & 31;
         const float h = warp_sum(lane < W ? fbe_shm[s.wsum + lane] : 0.f);
-        const float z = cur ? warp_sum(lane < W ? fbe_shm[s.wcur + lane] : 0.f) : h;
         if (lane == 0) {
             fbe_shm[s.tot + 0] = h;
-            fbe_shm[s.tot + 1] = z > 0.f ? 1.f / z : 1.f;
-            fbe_shm[s.tot + 2] = z;
+            fbe_shm[s.tot + 1] = h > 0.f ? 1.f / h : 1.f;
         }
     }
 }
@@ -502,10 +538,10 @@ fbe_forward_kernel(const float* __restrict__ E, const float* __restrict__ u,
 #pragma unroll
         for (int k = 0; k < NC; ++k)
             a[r][k] = c.ok(r, k) ? alpha0[(size_t)b * PP + c.at(r, k)] : 0.f;
-    reduce_warp(a, R, c, s, 0.f, false);
+    reduce_warp(a, R, c, s);
     cp_async_wait<D - 1>();                               // column 0
     __syncthreads();
-    reduce_block(s, P, false);
+    reduce_block(s, P);
     __syncthreads();
     float H = fbe_shm[s.tot + 0], inv = 1.f;     // the entry carry mixes as it is
     bool uni = false;                  // the carry is the uniform state
@@ -535,7 +571,7 @@ fbe_forward_kernel(const float* __restrict__ E, const float* __restrict__ u,
                 a[r][k] = inv * (u0 * x + u1 * (R[r] + C[k]) + hh) * ev;
             }
         }
-        reduce_warp(a, R, c, s, 0.f, false);
+        reduce_warp(a, R, c, s);
         __syncthreads();
         // every thread is done with the slot: column n + D takes it
         if (n + D < N) fetch(n + D, slot);
@@ -543,7 +579,7 @@ fbe_forward_kernel(const float* __restrict__ E, const float* __restrict__ u,
         cp_async_wait<D - 1>();                           // column n + 1
         slot = slot + 1 == D ? 0 : slot + 1;
         if (n > 0) store_column(alpha_b + (size_t)(n - 1) * PP, fbe_shm + s.stage, PP);
-        reduce_block(s, P, false);
+        reduce_block(s, P);
         __syncthreads();
         const float tot = fbe_shm[s.tot + 0];
         if (t == 0) c_fwd[(size_t)b * N + n] = tot > 0.f ? tot : 1.f;
@@ -606,9 +642,9 @@ fbe_backward_kernel(const float* __restrict__ alphas, const float* __restrict__ 
         if (j < N) fetch(N - 1 - j, j);
         cp_async_commit();
     }
-    // g: the helper of the column ahead times the total of its beta
-    // (helper = g * inv); R its row sums, s.col its column sums, H its
-    // total. a: alpha of the column being computed, loaded a column ahead.
+    // g: the helper of the column ahead (its beta times its E); R its row
+    // sums, s.col its column sums, H its total. a: alpha of the column
+    // being computed, loaded a column ahead.
     float g[RW][NC], a[RW][NC], R[RW];
 #pragma unroll
     for (int r = 0; r < RW; ++r)
@@ -619,24 +655,26 @@ fbe_backward_kernel(const float* __restrict__ alphas, const float* __restrict__ 
             g[r][k] = ok ? beta0[(size_t)b * PP + i] * e_after[(size_t)b * PP + i] : 0.f;
             a[r][k] = ok ? alpha_b[(size_t)(N - 1) * PP + i] : 0.f;
         }
-    reduce_warp(g, R, c, s, 0.f, false);
+    reduce_warp(g, R, c, s);
     cp_async_wait<D - 1>();                               // column N-1
     __syncthreads();
-    reduce_block(s, P, false);
+    reduce_block(s, P);
     __syncthreads();
-    float H = fbe_shm[s.tot + 0], inv = 1.f, z = 1.f;   // beta0 is normalized
+    float H = fbe_shm[s.tot + 0];                       // beta0 is normalized
     float u0 = u_after[(size_t)b * 3], u1 = u_after[(size_t)b * 3 + 1],
           u2 = u_after[(size_t)b * 3 + 2];
+    BwdScale k0;                       // column 0's, for beta_out
     int slot = 0;
 
     for (int n = N - 1; n >= 0; --n) {
         const float* hdr = fbe_shm + (size_t)slot * s.slot_pitch;
         const float* e = hdr + FBE_HEADER + misalign(e_b + (size_t)n * PP);
-        const float cf = hdr[3];
         const bool last = ((const int*)hdr)[4] != 0;
+        // the total of cur, known before it (fbe_total), and beta = cur / s
+        const BwdScale ks = fbe_bwd_scale(last, H, u0, u1, u2, P, hdr[3], uniform);
+        k0 = ks;
         const float* a_next = alpha_b + (size_t)(n > 0 ? n - 1 : 0) * PP;
         float* st = fbe_shm + s.stage + misalign(post_b + (size_t)n * PP);
-        const float hh = u2 * H;
         // the column sums, read once into registers; at NC = 4, where four
         // more registers would spill, each cell reads its own from shared
         // memory instead
@@ -644,7 +682,7 @@ fbe_backward_kernel(const float* __restrict__ alphas, const float* __restrict__ 
             const int q = c.lane + 32 * k;
             return q < P ? fbe_shm[s.col + q] : 0.f;
         };
-        float csum = 0.f, C[NC];
+        float C[NC];
 #pragma unroll
         for (int k = 0; k < NC; ++k) C[k] = NC < 4 ? col_sum(k) : 0.f;
 #pragma unroll
@@ -656,17 +694,17 @@ fbe_backward_kernel(const float* __restrict__ alphas, const float* __restrict__ 
                 const bool ok = c.ok(r, k);
                 const float ck = NC < 4 ? C[k] : col_sum(k);
                 // is_last re-seeds the sweep with ones (src/hmm.cpp:321-324)
-                float cur = last ? 1.f : inv * (u0 * g[r][k] + u1 * (R[r] + ck) + hh);
+                // cur * sc (BwdScale)
+                float cur = last ? 1.f : ks.u0s * g[r][k] + ks.u1s * (R[r] + ck) + ks.hs;
                 cur = ok ? cur : 0.f;
                 // the raw posterior takes the un-normalized cur
-                if (ok) st[row + 32 * k] = a[r][k] * cur * cf;
-                // at column 0, a keeps cur for beta_out
+                if (ok) st[row + 32 * k] = a[r][k] * cur * ks.cfs;
+                // at column 0, a keeps cur * sc for beta_out
                 a[r][k] = n > 0 ? (ok ? a_row[32 * k] : 0.f) : cur;
-                csum += cur;
-                g[r][k] = cur * (ok ? e[row + 32 * k] : 0.f);
+                g[r][k] = cur * ks.inv * (ok ? e[row + 32 * k] : 0.f);
             }
         }
-        reduce_warp(g, R, c, s, csum, true);
+        reduce_warp(g, R, c, s);
         // column n's u is its predecessor's successor mix (read after the
         // cells, so that it holds no register there, and before the
         // barrier, after which the slot is refilled)
@@ -678,27 +716,9 @@ fbe_backward_kernel(const float* __restrict__ alphas, const float* __restrict__ 
         cp_async_wait<D - 1>();                           // column n - 1
         slot = slot + 1 == D ? 0 : slot + 1;
         store_column(post_b + (size_t)n * PP, fbe_shm + s.stage, PP);
-        reduce_block(s, P, true);
+        reduce_block(s, P);
         __syncthreads();
         H = fbe_shm[s.tot + 0];
-        inv = fbe_shm[s.tot + 1];
-        z = fbe_shm[s.tot + 2];
-        if (!(z > 0.f) && n > 0) {
-            // beta_n is uniform, so the next helper is uniform * E_n; the
-            // whole block sees the same total and takes this branch
-            const float* e_n = e_b + (size_t)n * PP;
-#pragma unroll
-            for (int r = 0; r < RW; ++r)
-#pragma unroll
-                for (int k = 0; k < NC; ++k)
-                    g[r][k] = c.ok(r, k) ? uniform * e_n[c.at(r, k)] : 0.f;
-            reduce_warp(g, R, c, s, 0.f, false);
-            __syncthreads();
-            reduce_block(s, P, false);
-            __syncthreads();
-            H = fbe_shm[s.tot + 0];
-            inv = 1.f;
-        }
         u0 = nu0;
         u1 = nu1;
         u2 = nu2;
@@ -709,7 +729,482 @@ fbe_backward_kernel(const float* __restrict__ alphas, const float* __restrict__ 
     for (int r = 0; r < RW; ++r)
 #pragma unroll
         for (int k = 0; k < NC; ++k)
-            if (c.ok(r, k)) bo[c.at(r, k)] = z > 0.f ? a[r][k] * inv : uniform;
+            if (c.ok(r, k)) bo[c.at(r, k)] = a[r][k] * k0.inv;
+    cp_async_wait<0>();
+}
+
+// ---- K3/K4's wide tier: P > FB_MAX_PATHS ----
+//
+// A [P, P] state past 128 paths does not fit the registers (nor, past
+// about 230 paths, one SM's shared memory), so it lives in global memory,
+// where L2 holds it up to about P = 3,000: K3 keeps it in its own alphas
+// output (column n-1 unnormalized until column n reads it back, then
+// normalized in place), K4 its helper g in a [P, P] scratch of the chain.
+// The scratch also holds two buffers each of row sums and column sums
+// (the sums of the column being read and of the one being written).
+// 32 warps own the rows (w + 32 r) and take the columns in tiles of
+// FBE_WIDE_TILE, lane l holding columns l + 32 k of a tile: a cell is
+// owned by the same thread in every pass, so a thread reads back only
+// what it wrote itself. Row sums are warp shuffles, summed tile after
+// tile by the owning warp; column sums go through one tile of per-warp
+// partials in shared memory, four threads a column; the totals are
+// each warp's, summed by every thread in the same order. Two barriers a
+// tile, none between a cell's read and its write. The arithmetic is the
+// register tiers' (the factored mix; K3 folds 1 / s into the next column,
+// K4 forms its helper from beta = cur / s with s known before cur, see
+// fbe_total; the uniform state where s <= 0); sums in a fixed order, so a
+// launch repeats its bits. Speed is not this tier's aim: at P=200 a column takes
+// ~35 us (tools/fbe_times.py --wide), some 20-30 GB/s from one SM with
+// one row of loads in flight a warp, and 64 registers a thread at 1024
+// threads spill a few words. A thread-block cluster per chain, with more
+// rows in flight, is the design that would make it fast.
+
+#define FBE_WIDE_WARPS 32
+#define FBE_WIDE_TILE 256
+#define FBE_WIDE_KT (FBE_WIDE_TILE / 32)
+
+// one tile of column partials, and the warps' totals of two columns
+static size_t fbe_wide_smem() {
+    return sizeof(float) * (FBE_WIDE_WARPS * FBE_WIDE_TILE + 2 * 32);
+}
+
+// The sum of the warps' totals wt[0, 32), the same bits in every thread.
+__device__ __forceinline__ float warps_total(const float* wt) {
+    return warp_sum(wt[threadIdx.x & 31]);
+}
+
+// One pass over a chain's [P, P] cells. cell(c, i, j) returns the new
+// state value of cell (i, j), c = i P + j (it does its own reads and
+// writes). The pass writes the state's row sums to Rn, its column sums
+// to Cn and each warp's total to wt[w], all visible to every thread when
+// it returns.
+template <class Cell>
+__device__ __forceinline__ void wide_pass(int P, Cell cell, float* Rn, float* Cn,
+                                          float* wt) {
+    constexpr int W = FBE_WIDE_WARPS, T = FBE_WIDE_TILE, KT = FBE_WIDE_KT;
+    const int t = threadIdx.x, w = t >> 5, lane = t & 31;
+    float* part = fbe_shm;                       // [W, T]
+    float tot = 0.f;
+    for (int c0 = 0; c0 < P; c0 += T) {
+        float cs[KT];
+#pragma unroll
+        for (int k = 0; k < KT; ++k) cs[k] = 0.f;
+        for (int i = w; i < P; i += W) {
+            const size_t row = (size_t)i * P;
+            float rsum = 0.f;
+#pragma unroll
+            for (int k = 0; k < KT; ++k) {
+                const int j = c0 + lane + 32 * k;
+                if (j < P) {
+                    const float v = cell(row + j, i, j);
+                    rsum += v;
+                    cs[k] += v;
+                }
+            }
+            rsum = warp_sum(rsum);
+            if (lane == 0) Rn[i] = c0 == 0 ? rsum : Rn[i] + rsum;
+            tot += rsum;
+        }
+#pragma unroll
+        for (int k = 0; k < KT; ++k) part[w * T + lane + 32 * k] = cs[k];
+        if (lane == 0) wt[w] = tot;
+        __syncthreads();
+        {   // column c0 + q: four threads, each over every fourth warp
+            const int q = t >> 2, jq = t & 3;
+            const unsigned group = 0xfu << (t & 28);
+            float x = 0.f;
+            for (int v = jq; v < W; v += 4) x += part[v * T + q];
+            x += __shfl_xor_sync(group, x, 1);
+            x += __shfl_xor_sync(group, x, 2);
+            if (jq == 0 && c0 + q < P) Cn[c0 + q] = x;
+        }
+        __syncthreads();
+    }
+}
+
+__global__ void __launch_bounds__(32 * FBE_WIDE_WARPS, 1)
+fbe_forward_wide_kernel(const float* __restrict__ E, const float* __restrict__ u,
+                        const float* __restrict__ alpha0, float* __restrict__ alphas,
+                        float* __restrict__ c_fwd, float* __restrict__ scratch, int N,
+                        int P) {
+    const size_t PP = (size_t)P * P;
+    const int b = blockIdx.x, t = threadIdx.x;
+    const float uniform = 1.0f / (float)PP, row_uniform = (float)P * uniform;
+    const float* e_b = E + (size_t)b * N * PP;
+    const float* u_b = u + (size_t)b * N * 3;
+    const float* a0 = alpha0 + (size_t)b * PP;
+    float* alpha_b = alphas + (size_t)b * N * PP;
+    float* R = scratch + (size_t)b * 4 * P;      // [2, P] row sums
+    float* C = R + 2 * P;                        // [2, P] column sums
+    float* wt = fbe_shm + FBE_WIDE_WARPS * FBE_WIDE_TILE;   // [2, 32]
+
+    // pass 0: the entry carry's sums (it mixes as it is)
+    wide_pass(P, [&](size_t c, int, int) { return a0[c]; }, R, C, wt);
+    float H = warps_total(wt), inv = 1.f;
+    bool uni = false;            // the carry is the uniform state
+    for (int n = 0; n < N; ++n) {
+        // column n reads the sums of pass n (buffer n & 1), writes pass n+1's
+        const int rd = n & 1, wr = rd ^ 1;
+        const float u0 = u_b[3 * n], u1 = u_b[3 * n + 1], hh = u_b[3 * n + 2] * H;
+        const float* Rp = R + rd * P;
+        const float* Cp = C + rd * P;
+        const float* src = n == 0 ? a0 : alpha_b + (size_t)(n - 1) * PP;
+        float* prev = alpha_b + (size_t)(n > 0 ? n - 1 : 0) * PP;
+        float* col = alpha_b + (size_t)n * PP;
+        const float* e = e_b + (size_t)n * PP;
+        wide_pass(P, [&](size_t c, int i, int j) {
+            const float x = uni ? uniform : src[c];
+            if (n > 0) prev[c] = uni ? uniform : x * inv;         // alpha_{n-1}
+            const float rs = uni ? row_uniform : Rp[i];
+            const float cs = uni ? row_uniform : Cp[j];
+            const float v = inv * (u0 * x + u1 * (rs + cs) + hh) * e[c];
+            col[c] = v;                                           // unnormalized
+            return v;
+        }, R + wr * P, C + wr * P, wt + 32 * wr);
+        const float tot = warps_total(wt + 32 * wr);
+        if (t == 0) c_fwd[(size_t)b * N + n] = tot > 0.f ? tot : 1.f;
+        uni = !(tot > 0.f);
+        inv = uni ? 1.f : 1.f / tot;
+        H = uni ? 1.f : tot;
+    }
+    float* last_col = alpha_b + (size_t)(N - 1) * PP;
+    for (size_t c = t; c < PP; c += blockDim.x)
+        last_col[c] = uni ? uniform : last_col[c] * inv;
+}
+
+__global__ void __launch_bounds__(32 * FBE_WIDE_WARPS, 1)
+fbe_backward_wide_kernel(const float* __restrict__ alphas, const float* __restrict__ c_fwd,
+                         const float* __restrict__ E, const float* __restrict__ u,
+                         const float* __restrict__ e_after,
+                         const float* __restrict__ u_after, const int* __restrict__ is_last,
+                         const float* __restrict__ beta0, float* __restrict__ posts,
+                         float* __restrict__ beta_out, float* __restrict__ scratch, int N,
+                         int P) {
+    const size_t PP = (size_t)P * P;
+    const int b = blockIdx.x, t = threadIdx.x;
+    const float uniform = 1.0f / (float)PP;
+    const float* e_b = E + (size_t)b * N * PP;
+    const float* u_b = u + (size_t)b * N * 3;
+    const float* alpha_b = alphas + (size_t)b * N * PP;
+    const float* b0 = beta0 + (size_t)b * PP;
+    const float* ea = e_after + (size_t)b * PP;
+    float* post_b = posts + (size_t)b * N * PP;
+    float* bo = beta_out + (size_t)b * PP;
+    float* R = scratch + (size_t)b * (4 * P + PP);     // [2, P] row sums
+    float* C = R + 2 * P;                              // [2, P] column sums
+    float* G = R + 4 * P;                              // [P, P] the helper g
+    float* wt = fbe_shm + FBE_WIDE_WARPS * FBE_WIDE_TILE;   // [2, 32] totals of g
+
+    // pass 0: the helper of the column after the chunk, beta0 * e_after
+    wide_pass(P, [&](size_t c, int, int) {
+        const float v = b0[c] * ea[c];
+        G[c] = v;
+        return v;
+    }, R, C, wt);
+    float H = warps_total(wt);                          // beta0 is normalized
+    float u0 = u_after[(size_t)b * 3], u1 = u_after[(size_t)b * 3 + 1],
+          u2 = u_after[(size_t)b * 3 + 2];
+    BwdScale ks;
+    for (int n = N - 1, pass = 1; n >= 0; --n, ++pass) {
+        // pass reads the sums of pass - 1
+        const int rd = (pass - 1) & 1, wr = pass & 1;
+        const float* Rp = R + rd * P;
+        const float* Cp = C + rd * P;
+        // is_last re-seeds the sweep with ones (src/hmm.cpp:321-324)
+        const bool last = is_last[(size_t)b * N + n] != 0;
+        // the total of cur, known before it (fbe_total), and beta = cur / s
+        ks = fbe_bwd_scale(last, H, u0, u1, u2, P, c_fwd[(size_t)b * N + n], uniform);
+        const float* a_n = alpha_b + (size_t)n * PP;
+        const float* e_n = e_b + (size_t)n * PP;
+        float* p_n = post_b + (size_t)n * PP;
+        wide_pass(P, [&](size_t c, int i, int j) {
+            // cur * sc (BwdScale)
+            const float cur = last ? 1.f : ks.u0s * G[c] + ks.u1s * (Rp[i] + Cp[j]) + ks.hs;
+            p_n[c] = a_n[c] * cur * ks.cfs;    // the raw posterior takes the raw cur
+            if (n == 0) bo[c] = cur;
+            const float g = cur * ks.inv * e_n[c];
+            G[c] = g;
+            return g;
+        }, R + wr * P, C + wr * P, wt + 32 * wr);
+        H = warps_total(wt + 32 * wr);
+        // column n's u is its predecessor's successor mix
+        u0 = u_b[3 * n];
+        u1 = u_b[3 * n + 1];
+        u2 = u_b[3 * n + 2];
+    }
+    // the normalized beta after the chunk's first column
+    for (size_t c = t; c < PP; c += blockDim.x) bo[c] = bo[c] * ks.inv;
+}
+
+// ---- K2 at P <= 32 (and A <= 8): one warp per chain ----
+//
+// The chain's only dependent step is the column's normalizer and the sums
+// of the next helper; everything else hangs off it. Lane l holds column
+// q = l mod Q (Q = P rounded up to a power of two) and, in registers, the
+// rows grp + L r of it (grp = l / Q, L = 32 / Q lanes a column; so the L
+// lanes of a column read their alphas from different banks): at the
+// bench's P=16, two lanes a column of 8 rows each. Each column: the
+// helper's row sums are a butterfly over the Q lanes of a row, its
+// column sum over the L lanes of a column and its total over the warp,
+// all shuffles in a fixed order (every lane gets the same bits). The
+// total s of cur needs no sum of its own (fbe_total: it follows from the
+// helper's total), so the next helper is formed from beta = cur / s, as
+// K4 does. The transition is mixed in the factored form (u0, u1, u2). The column's
+// inputs (trans, c_fwd, is_last, its [A, A] emissions, the paths' alleles
+// and its alpha column) arrive by cp.async in a ring of FBW_RING slots
+// in shared memory, issued FBW_RING - 1 columns ahead by predicated
+// copies placed after the cells, so that they issue among the column's
+// shuffles; one __syncwarp a column publishes a slot, and the lane's
+// inputs are read out of it a column ahead into registers (up to 8 rows
+// a lane). The posterior alpha * cur * c_fwd is summed by row allele in
+// registers (8 of them: real batches pad A to 3-8), then off the chain:
+// the partials are summed over a column's lanes by shuffles and across
+// columns by their allele from a double buffer in shared memory, one
+// column later. (A second instance for A <= 2 that collapsed in six
+// shuffles took 48.3 against 99.6 ms at B=2 N=65,536 P=16 A=2, but no
+// real batch has A <= 2: PERF.md.) Tier by P:
+// 32 < P <= 128 (or A > 8, which the fused route never sends) keeps
+// fb_backward_kernel.
+
+#define FBW_RING 8
+#define FBW_HEADER 8                 // t0, t1, t2, c_fwd, is_last
+#define FBW_MAX_PATHS 32
+#define FBW_MAX_ALLELES 8
+
+__host__ __device__ __forceinline__ int fbw_ea_floats(int A) { return (A * A + 3) & ~3; }
+__host__ __device__ __forceinline__ int fbw_al_floats(int P) { return (P + 3) & ~3; }
+__host__ __device__ __forceinline__ int fbw_slot_floats(int P, int A) {
+    return FBW_HEADER + fbw_ea_floats(A) + fbw_al_floats(P) + fbe_column_floats(P);
+}
+// the collapse's double buffer: per column lane, 8 partials and its allele
+#define FBW_COLLAPSE_FLOATS (32 * (FBW_MAX_ALLELES + 1))
+
+static size_t fbw_smem(int P, int A) {
+    return sizeof(float) * ((size_t)FBW_RING * fbw_slot_floats(P, A)
+                            + 2 * FBW_COLLAPSE_FLOATS);
+}
+
+// the sum of v over the lanes that differ from this one in bits [LO, HI)
+template <int LO, int HI>
+__device__ __forceinline__ float xor_sum(float v) {
+#pragma unroll
+    for (int o = LO; o < HI; o <<= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
+    return v;
+}
+
+template <int Q, int RW>
+__global__ void __launch_bounds__(32, 1)
+fb_backward_warp_kernel(const float* __restrict__ alphas, const float* __restrict__ c_fwd,
+                        const float* __restrict__ ea, const int* __restrict__ al,
+                        const float* __restrict__ trans, const int* __restrict__ is_last,
+                        float* __restrict__ posts, int N, int P, int A) {
+    constexpr int L = 32 / Q, D = FBW_RING;
+    const int lane = threadIdx.x, b = blockIdx.x, PP = P * P, AA = A * A;
+    const int q = lane & (Q - 1), grp = lane / Q;
+    const bool qok = q < P;
+    const float uniform = 1.0f / (float)PP;
+    const int ea_off = FBW_HEADER, al_off = ea_off + fbw_ea_floats(A);
+    const int alpha_off = al_off + fbw_al_floats(P), pitch = fbw_slot_floats(P, A);
+    float* coll = fbe_shm + D * pitch;          // [2][32 x 8 partials, 32 alleles]
+    const float* ea_b = ea + (size_t)b * N * AA;
+    const int* al_b = al + (size_t)b * N * P;
+    const float* tr_b = trans + (size_t)b * N * 3;
+    const float* alpha_b = alphas + (size_t)b * N * PP;
+    const float* cf_b = c_fwd + (size_t)b * N;
+    const int* last_b = is_last + (size_t)b * N;
+    float* post_b = posts + (size_t)b * N * AA;
+
+    // The copies of one column into its slot, planned once: the alpha
+    // column in 16-byte pieces where P^2 is a multiple of 4 (a column then
+    // starts 16-byte aligned), else in 4-byte ones; the scalars (the
+    // [A, A] emissions, the paths' alleles, t0-t2, c_fwd, is_last) one
+    // 4-byte copy each, spread over the lanes. Every source pointer steps
+    // back one column per copy, so a column's copies are predicated
+    // stores with no address arithmetic beyond one add each and no
+    // branch: the compiler schedules them among the column's shuffles.
+    // Columns are copied in order N-1, N-2, ... into slots 0, 1, ... mod D.
+    constexpr int NV = (Q * Q / 4 + 31) / 32 > 0 ? (Q * Q / 4 + 31) / 32 : 1;
+    constexpr int NW = (Q * Q + 31) / 32;
+    constexpr int NS = (FBW_MAX_ALLELES * FBW_MAX_ALLELES + Q + 5 + 31) / 32;
+    const bool vec = (PP & 3) == 0;
+    const float* a_src = alpha_b + (size_t)(N - 1) * PP;
+    const char* s_src[NS];
+    int s_step[NS], s_dst[NS];
+    bool s_ok[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+        int j = lane + 32 * i;
+        const size_t m = N - 1;
+        s_ok[i] = j < AA + P + 5;
+        s_src[i] = (const char*)ea_b;                  // a valid address where unused
+        s_step[i] = 0;
+        s_dst[i] = 0;
+        if (j < AA) {
+            s_src[i] = (const char*)(ea_b + m * AA + j);
+            s_step[i] = 4 * AA;
+            s_dst[i] = 4 * (ea_off + j);
+        } else if ((j -= AA) < P) {
+            s_src[i] = (const char*)(al_b + m * P + j);
+            s_step[i] = 4 * P;
+            s_dst[i] = 4 * (al_off + j);
+        } else if ((j -= P) < 3) {
+            s_src[i] = (const char*)(tr_b + 3 * m + j);
+            s_step[i] = 12;
+            s_dst[i] = 4 * j;
+        } else if (j == 3 || j == 4) {
+            s_src[i] = j == 3 ? (const char*)(cf_b + m) : (const char*)(last_b + m);
+            s_step[i] = 4;
+            s_dst[i] = 4 * j;
+        }
+    }
+    int f_slot = 0, f_col = N - 1;
+    auto fetch_next = [&]() {
+        if (f_col >= 0) {
+            float* s = fbe_shm + f_slot * pitch;
+            float* d = s + alpha_off;
+            if (vec) {
+#pragma unroll
+                for (int i = 0; i < NV; ++i) {
+                    const int v = 4 * (lane + 32 * i);
+                    if (v < PP) cp_async16(d + v, a_src + v);
+                }
+            } else {
+#pragma unroll
+                for (int i = 0; i < NW; ++i) {
+                    const int v = lane + 32 * i;
+                    if (v < PP) cp_async4(d + v, a_src + v);
+                }
+            }
+#pragma unroll
+            for (int i = 0; i < NS; ++i)
+                if (s_ok[i]) cp_async4((char*)s + s_dst[i], s_src[i]);
+            a_src -= PP;
+#pragma unroll
+            for (int i = 0; i < NS; ++i) s_src[i] -= s_step[i];
+        }
+        f_slot = f_slot + 1 == D ? 0 : f_slot + 1;
+        --f_col;
+    };
+    // a column's inputs, read from its slot (a column ahead of their use
+    // where RW <= 8; at RW = 24 or 32 the registers are too few for two):
+    // the lane's emissions, alphas and row alleles, its column's allele,
+    // c_fwd, is_last and the transition (t0, t1, t2)
+    struct Inputs {
+        float e[RW], alpha[RW];
+        int ap[RW], cq;
+        float cf, t0, t1, t2;
+        bool last;
+    };
+    auto load = [&](int slot, Inputs& x) {
+        const float* s = fbe_shm + slot * pitch;
+        const int* als = (const int*)(s + al_off);
+        const float* eas = s + ea_off;
+        const float* alp = s + alpha_off;
+        x.cq = qok ? als[q] : 0;
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+            const int p = grp + L * r;
+            const bool ok = qok && p < P;
+            x.ap[r] = ok ? als[p] : 0;
+            x.e[r] = ok ? eas[x.ap[r] * A + x.cq] : 0.f;
+            x.alpha[r] = ok ? alp[p * P + q] : 0.f;
+        }
+        x.t0 = s[0];
+        x.t1 = s[1];
+        x.t2 = s[2];
+        x.cf = s[3];
+        x.last = ((const int*)s)[4] != 0;
+    };
+    // out[a, c] of column m from the partials of buffer `par`:
+    // the sum over columns x whose allele is c of their row-allele-a
+    // partials
+    auto collapse = [&](int par, int m) {
+        const float* part = coll + par * FBW_COLLAPSE_FLOATS;
+        const int* cls = (const int*)(part + 32 * FBW_MAX_ALLELES);
+        for (int j = lane; j < AA; j += 32) {
+            const int a = j / A, c = j - a * A;
+            float acc = 0.f;
+#pragma unroll
+            for (int x = 0; x < Q; ++x)
+                if (x < P) acc += cls[x] == c ? part[x * FBW_MAX_ALLELES + a] : 0.f;
+            post_b[(size_t)m * AA + j] = acc;
+        }
+    };
+
+    for (int j = 0; j < D - 1; ++j) {                     // columns N-1 .. N-D+1
+        fetch_next();
+        cp_async_commit();
+    }
+    constexpr bool AHEAD = RW <= 8;
+    cp_async_wait<D - 2>();                               // column N-1
+    __syncwarp();
+    Inputs x, y;
+    if (AHEAD) load(0, x);
+    // g: the helper beta_{n+1} * E_{n+1}; R its row sums, C its column
+    // sum, H its total. Before the last column beta is 0; its successor
+    // wraps to column 0 (as jnp.roll), whose transition multiplies zeros
+    // there.
+    float g[RW], R[RW], C = 0.f, H = 0.f;
+#pragma unroll
+    for (int r = 0; r < RW; ++r) g[r] = R[r] = 0.f;
+    float t0 = tr_b[0], t1 = tr_b[1], t2 = tr_b[2];
+    float u0 = t0 - 2.f * t1 + t2, u1 = t1 - t2, u2 = t2;
+
+    for (int k = 0; k < N; ++k) {
+        const int n = N - 1 - k;
+        // column k's inputs are in x; every lane's copies of column k + 1
+        // have arrived, and every lane is done with the slot of column k
+        cp_async_wait<D - 3>();
+        __syncwarp();
+        if (k > 0) collapse((k - 1) & 1, n + 1);
+        if (!AHEAD) load(k % D, x);
+
+        // the total of cur, known before it (fbe_total), and beta = cur / s
+        const BwdScale ks = fbe_bwd_scale(x.last, H, u0, u1, u2, P, x.cf, uniform);
+        float rs[FBW_MAX_ALLELES], g_sum = 0.f;
+#pragma unroll
+        for (int a = 0; a < FBW_MAX_ALLELES; ++a) rs[a] = 0.f;
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+            const bool ok = qok && grp + L * r < P;
+            // cur * sc (BwdScale)
+            float cur = x.last ? 1.f : ks.u0s * g[r] + ks.u1s * (R[r] + C) + ks.hs;
+            cur = ok ? cur : 0.f;
+            const float post = x.alpha[r] * cur * ks.cfs;
+#pragma unroll
+            for (int a = 0; a < FBW_MAX_ALLELES; ++a) rs[a] += x.ap[r] == a ? post : 0.f;
+            g[r] = cur * ks.inv * x.e[r];
+            g_sum += g[r];
+        }
+        // off the chain: column k + D - 1 into the slot of column k - 1,
+        // and column k + 1's inputs out of its slot
+        fetch_next();                                     // column n - (D - 1)
+        cp_async_commit();
+        if (AHEAD && n > 0) load((k + 1) % D, y);
+
+        // the new helper's sums
+        H = xor_sum<1, 32>(g_sum);
+        C = xor_sum<Q, 32>(g_sum);
+#pragma unroll
+        for (int r = 0; r < RW; ++r) R[r] = xor_sum<1, Q>(g[r]);
+        // the partials summed over the column's lanes, to buffer k & 1
+        // for the collapse at the next column
+#pragma unroll
+        for (int a = 0; a < FBW_MAX_ALLELES; ++a) rs[a] = xor_sum<Q, 32>(rs[a]);
+        if (grp == 0 && qok) {
+            float* part = coll + (k & 1) * FBW_COLLAPSE_FLOATS;
+#pragma unroll
+            for (int a = 0; a < FBW_MAX_ALLELES; ++a) part[q * FBW_MAX_ALLELES + a] = rs[a];
+            ((int*)(part + 32 * FBW_MAX_ALLELES))[q] = x.cq;
+        }
+        // column n's transition mixes the helper of column n - 1
+        u0 = x.t0 - 2.f * x.t1 + x.t2;
+        u1 = x.t1 - x.t2;
+        u2 = x.t2;
+        x = y;
+    }
+    __syncwarp();
+    collapse((N - 1) & 1, 0);
     cp_async_wait<0>();
 }
 
@@ -723,12 +1218,12 @@ static size_t backward_smem(int P, int A) {
         + sizeof(int) * 2 * P;
 }
 
-// One CTA per chain; checks P, opts in to the kernel's shared memory,
-// launches on the caller's stream and returns the cudaError_t.
+// One CTA per chain; opts in to the kernel's shared memory, launches on
+// the caller's stream and returns the cudaError_t (the entry points have
+// checked P).
 template <typename Kernel, typename... Args>
-static int launch(Kernel kernel, int B, int P, int threads, size_t smem, void* stream,
+static int launch(Kernel kernel, int B, int threads, size_t smem, void* stream,
                   Args... args) {
-    if (P < 1 || P > FB_MAX_PATHS) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -736,17 +1231,26 @@ static int launch(Kernel kernel, int B, int P, int threads, size_t smem, void* s
     return (int)cudaGetLastError();
 }
 
-// K3/K4's launch as fb_kernels.generic_launch derives it: FBE_WARPS
-// warps and fbe_smem bytes.
-static bool fbe_config_ok(int P, int threads, int smem) {
-    return P >= 1 && P <= FB_MAX_PATHS && threads == 32 * FBE_WARPS
-        && (size_t)smem == fbe_smem(P);
+// K3/K4's launch as fb_kernels.generic_launch derives it: up to
+// FB_MAX_PATHS, FBE_WARPS warps and fbe_smem bytes; beyond, the wide
+// tier's FBE_WIDE_WARPS warps and fbe_wide_smem bytes, and its scratch.
+static bool fbe_config_ok(int P, int threads, int smem, const float* scratch) {
+    if (P > FB_MAX_PATHS)
+        return threads == 32 * FBE_WIDE_WARPS && (size_t)smem == fbe_wide_smem()
+            && scratch != nullptr;
+    return P >= 1 && threads == 32 * FBE_WARPS && (size_t)smem == fbe_smem(P);
 }
 
-// (RW, NC) of every instance: RW = ceil(P / FBE_WARPS) rows a warp and
-// NC = ceil(P / 32) columns a lane, for P up to 128
+// (RW, NC) of every register-tier instance: RW = ceil(P / FBE_WARPS)
+// rows a warp and NC = ceil(P / 32) columns a lane, for P up to 128
 #define FBE_INSTANCES(X) \
     X(1, 1) X(2, 1) X(3, 2) X(4, 2) X(5, 3) X(6, 3) X(7, 4) X(8, 4)
+
+// (Q, RW) of every K2 warp-tier instance: Q lanes a row (P rounded up to
+// a power of two), RW = Q / (32 / Q) rows a lane (at least 1; at Q = 32,
+// 24 up to P = 24)
+#define FBW_INSTANCES(X) \
+    X(1, 1) X(2, 1) X(4, 1) X(8, 2) X(16, 8) X(32, 24) X(32, 32)
 
 extern "C" const char* pg_fb_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
@@ -755,28 +1259,49 @@ extern "C" const char* pg_fb_error_string(int code) {
 extern "C" int pg_fb_forward(const float* ea, const int* al, const float* trans,
                              float* alphas, float* c_fwd, int B, int N, int P,
                              int A, void* stream) {
-    if (A < 1) return (int)cudaErrorInvalidValue;
-    return launch(fb_forward_kernel, B, P, FB_THREADS, forward_smem(P, A), stream,
+    if (A < 1 || P < 1 || P > FB_MAX_PATHS) return (int)cudaErrorInvalidValue;
+    return launch(fb_forward_kernel, B, FB_THREADS, forward_smem(P, A), stream,
                   ea, al, trans, alphas, c_fwd, N, P, A);
+}
+
+// K2's tier: the threads of its CTA, 32 (one warp) or FB_THREADS
+extern "C" int pg_fb_backward_threads(int P, int A) {
+    return P <= FBW_MAX_PATHS && A <= FBW_MAX_ALLELES ? 32 : FB_THREADS;
 }
 
 extern "C" int pg_fb_backward(const float* alphas, const float* c_fwd,
                               const float* ea, const int* al, const float* trans,
-                              const unsigned char* is_last, float* posts, int B,
+                              const int* is_last, float* posts, int B,
                               int N, int P, int A, void* stream) {
-    if (A < 1) return (int)cudaErrorInvalidValue;
-    return launch(fb_backward_kernel, B, P, FB_THREADS, backward_smem(P, A), stream,
+    if (A < 1 || P < 1 || P > FB_MAX_PATHS) return (int)cudaErrorInvalidValue;
+    if (pg_fb_backward_threads(P, A) == 32) {
+        int Q = 1;
+        while (Q < P) Q <<= 1;
+        const int RW = Q < 32 ? (Q * Q + 31) / 32 : (P <= 24 ? 24 : 32);
+        const size_t smem = fbw_smem(P, A);
+#define FBW_BACKWARD(q, rw)                                                  \
+        if (Q == q && RW == rw)                                              \
+            return launch(fb_backward_warp_kernel<q, rw>, B, 32, smem, stream, \
+                          alphas, c_fwd, ea, al, trans, is_last, posts, N, P, A);
+        FBW_INSTANCES(FBW_BACKWARD)
+#undef FBW_BACKWARD
+        return (int)cudaErrorInvalidValue;
+    }
+    return launch(fb_backward_kernel, B, FB_THREADS, backward_smem(P, A), stream,
                   alphas, c_fwd, ea, al, trans, is_last, posts, N, P, A);
 }
 
 extern "C" int pg_fbe_forward(const float* E, const float* u, const float* alpha0,
-                              float* alphas, float* c_fwd, int B, int N, int P,
-                              int threads, int smem, void* stream) {
-    if (!fbe_config_ok(P, threads, smem)) return (int)cudaErrorInvalidValue;
+                              float* alphas, float* c_fwd, float* scratch, int B, int N,
+                              int P, int threads, int smem, void* stream) {
+    if (!fbe_config_ok(P, threads, smem, scratch)) return (int)cudaErrorInvalidValue;
+    if (P > FB_MAX_PATHS)
+        return launch(fbe_forward_wide_kernel, B, threads, smem, stream,
+                      E, u, alpha0, alphas, c_fwd, scratch, N, P);
     const int RW = (P + FBE_WARPS - 1) / FBE_WARPS, NC = (P + 31) / 32;
-#define FBE_FORWARD(rw, nc)                                                   \
-    if (RW == rw && NC == nc)                                                 \
-        return launch(fbe_forward_kernel<rw, nc>, B, P, threads, smem, stream, \
+#define FBE_FORWARD(rw, nc)                                                \
+    if (RW == rw && NC == nc)                                              \
+        return launch(fbe_forward_kernel<rw, nc>, B, threads, smem, stream, \
                       E, u, alpha0, alphas, c_fwd, N, P);
     FBE_INSTANCES(FBE_FORWARD)
 #undef FBE_FORWARD
@@ -787,13 +1312,17 @@ extern "C" int pg_fbe_backward(const float* alphas, const float* c_fwd,
                                const float* E, const float* u, const float* e_after,
                                const float* u_after, const int* is_last,
                                const float* beta0, float* posts, float* beta_out,
-                               int B, int N, int P, int threads, int smem,
-                               void* stream) {
-    if (!fbe_config_ok(P, threads, smem)) return (int)cudaErrorInvalidValue;
+                               float* scratch, int B, int N, int P, int threads,
+                               int smem, void* stream) {
+    if (!fbe_config_ok(P, threads, smem, scratch)) return (int)cudaErrorInvalidValue;
+    if (P > FB_MAX_PATHS)
+        return launch(fbe_backward_wide_kernel, B, threads, smem, stream,
+                      alphas, c_fwd, E, u, e_after, u_after, is_last, beta0, posts,
+                      beta_out, scratch, N, P);
     const int RW = (P + FBE_WARPS - 1) / FBE_WARPS, NC = (P + 31) / 32;
-#define FBE_BACKWARD(rw, nc)                                                   \
-    if (RW == rw && NC == nc)                                                  \
-        return launch(fbe_backward_kernel<rw, nc>, B, P, threads, smem, stream, \
+#define FBE_BACKWARD(rw, nc)                                                    \
+    if (RW == rw && NC == nc)                                                   \
+        return launch(fbe_backward_kernel<rw, nc>, B, threads, smem, stream,    \
                       alphas, c_fwd, E, u, e_after, u_after, is_last, beta0, posts, \
                       beta_out, N, P);
     FBE_INSTANCES(FBE_BACKWARD)

@@ -7,8 +7,10 @@ route follows from the batch's shape, on every device:
 - the generic route (:mod:`fb_generic`: A-bucketed state emissions, then
   kernels K3/K4 in N-chunks with carries) when the padded allele count
   exceeds ``MAX_FUSED_ALLELES`` — the reference's rule, kept so that both
-  packages use the same formulation for the same columns — or when the
-  chain is longer than ``fb_generic.SEGMENT`` columns;
+  packages use the same formulation for the same columns — when the
+  chain is longer than ``fb_generic.SEGMENT`` columns, or when it has
+  more paths than the fused kernels hold (``fb_kernels.MAX_PATHS``; K3/K4
+  take any P);
 - the fused route (kernels K1/K2, emission gathered from [A, A] inside
   the kernel) otherwise.
 
@@ -41,7 +43,9 @@ def use_generic(columns: ColumnArrays) -> bool:
     """True when the batch takes the generic (K3/K4) route."""
     A = columns.incidence.shape[-1]
     N = columns.lp.shape[1]
-    return A > MAX_FUSED_ALLELES or N > fb_generic.SEGMENT
+    P = columns.allele_local.shape[-1]
+    return (A > MAX_FUSED_ALLELES or N > fb_generic.SEGMENT
+            or P > fb_kernels.MAX_PATHS)
 
 
 def forward_backward_batch(columns: ColumnArrays):

@@ -49,9 +49,10 @@ def k1(B: int, N: int, P: int, A: int) -> Work:
 
 def k2(B: int, N: int, P: int, A: int) -> Work:
     """fb_backward: alphas, c_fwd, ea, allele_local (int32), trans,
-    is_last (1 byte) in; posteriors [B, N, A, A] out."""
+    is_last (int32, as the kernel copies it) in; posteriors [B, N, A, A]
+    out."""
     cols, cells = B * N, B * N * P * P
-    return Work(4 * (cells + cols + cols * A * A + cols * P + 3 * cols) + cols
+    return Work(4 * (cells + cols + cols * A * A + cols * P + 3 * cols + cols)
                 + 4 * cols * A * A, BWD_OPS * cells)
 
 

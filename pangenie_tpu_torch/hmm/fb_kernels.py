@@ -7,8 +7,13 @@ On CPU tensors each wrapper runs its plain torch version
 ``forward_e_plain`` / ``backward_e_plain`` in ``fb_generic.py``); on
 CUDA tensors it launches the kernel or raises — there is no fallback
 from the card to the plain version. The wrappers check device, dtype,
-shape and contiguity and allocate the outputs; the kernels allocate
-nothing.
+shape and contiguity and allocate the outputs and the wide tier's
+scratch; the kernels allocate nothing.
+
+K1/K2 take at most ``MAX_PATHS`` paths; ``batch.use_generic`` sends
+every batch with more to K3/K4, which take any P: up to ``MAX_PATHS``
+with the [P, P] state in registers, beyond it on the wide tier, whose
+state lives in global memory (``wide_scratch``).
 """
 
 from __future__ import annotations
@@ -31,13 +36,13 @@ K2 = CudaKernel(
     "fb", "pg_fb_backward", "fb", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 )
 # kernel K3: replaces pangenie_tpu/hmm/pallas_fb.py:_fwd_kernel_e
-K3 = CudaKernel("fb", "pg_fbe_forward", "fb", [_P] * 5 + [_I] * 5 + [_P])
+K3 = CudaKernel("fb", "pg_fbe_forward", "fb", [_P] * 6 + [_I] * 5 + [_P])
 # kernel K4: replaces pangenie_tpu/hmm/pallas_fb.py:_bwd_kernel_e
-K4 = CudaKernel("fb", "pg_fbe_backward", "fb", [_P] * 10 + [_I] * 5 + [_P])
+K4 = CudaKernel("fb", "pg_fbe_backward", "fb", [_P] * 11 + [_I] * 5 + [_P])
 
-# a CTA's 256 threads compute the P row sums and P column sums in parallel
-# (K1/K2); K3/K4 give each of 16 warps at most 8 rows and each lane at
-# most 4 columns
+# K1 (and K2 above 32 paths): a CTA's 256 threads compute the P row sums
+# and P column sums in parallel; K3/K4's register tiers give each of 16
+# warps at most 8 rows and each lane at most 4 columns
 MAX_PATHS = 128
 
 # K3/K4's launch (checked again by fbe_config_ok in csrc/fb.cu): shared
@@ -47,16 +52,36 @@ SMEM_BYTES = 232_448
 WARPS = 16
 RING = 2
 _HEADER = 8
+# K3/K4's wide tier (P > MAX_PATHS, FBE_WIDE_* in csrc/fb.cu): 32 warps
+# own the rows, and the columns go through in tiles of WIDE_TILE, each
+# lane holding WIDE_TILE / 32 of a row
+WIDE_WARPS = 32
+WIDE_TILE = 256
 
 
 def generic_launch(P: int):
-    """(threads, dynamic shared bytes) of K3/K4 at P paths: WARPS warps;
-    a ring of RING slots, a staging column and the reduction scratch
-    (mirrors fbe_smem in csrc/fb.cu). A column is held at any 16-byte
-    misalignment; the column partials' pitch is P rounded up to 8 mod 32."""
+    """(threads, dynamic shared bytes) of K3/K4 at P paths (mirrors
+    fbe_smem and fbe_wide_smem in csrc/fb.cu). Up to MAX_PATHS: WARPS
+    warps; a ring of RING slots, a staging column and the reduction
+    scratch. A column is held at any 16-byte misalignment; the column
+    partials' pitch is P rounded up to 8 mod 32. Beyond: WIDE_WARPS
+    warps, one tile of column partials and the warps' totals of two
+    columns, whatever P."""
+    if P > MAX_PATHS:
+        return 32 * WIDE_WARPS, 4 * (WIDE_WARPS * WIDE_TILE + 2 * 32)
     column = (P * P + 6) // 4 * 4
-    scratch = 4 * (column + WARPS * (P + (8 - P) % 32) + P + 68)
+    scratch = 4 * (column + WARPS * (P + (8 - P) % 32) + P + 34)
     return 32 * WARPS, scratch + RING * 4 * (_HEADER + column)
+
+
+def wide_scratch(B: int, P: int, backward: bool, device) -> torch.Tensor:
+    """The wide tier's state in global memory, per chain: two buffers of
+    row sums and two of column sums, and for K4 the helper [P, P]. An
+    empty tensor where P takes a register tier."""
+    if P <= MAX_PATHS:
+        return torch.empty((0,), dtype=torch.float32, device=device)
+    return torch.empty((B, 4 * P + (P * P if backward else 0)), dtype=torch.float32,
+                       device=device)
 
 
 def _check(name, t, dtype, shape, device):
@@ -73,8 +98,9 @@ def _check(name, t, dtype, shape, device):
 def _paths_check(P):
     if P > MAX_PATHS:
         raise ValueError(
-            f"{P} paths exceed the forward-backward kernels' limit of "
-            f"{MAX_PATHS}; sample haplotypes (-x) or use path subsets (-a)"
+            f"{P} paths exceed the fused kernels' (K1/K2) limit of {MAX_PATHS}; "
+            f"they are reached only through batch.forward_backward_batch, "
+            f"which sends such batches to the generic route (K3/K4, any P)"
         )
 
 
@@ -111,14 +137,14 @@ def backward(alphas, c_fwd, ea, allele_local, trans, is_last):
         return backward_plain(alphas, c_fwd, ea, allele_local, trans, is_last)
     B, N, P, A = _shape_check(ea, allele_local)
     al = allele_local.to(torch.int32).contiguous()
-    last = is_last.to(torch.uint8).contiguous()
+    last = is_last.to(torch.int32).contiguous()     # K2 copies it in 4-byte words
     dev = ea.device
     _check("alphas", alphas, torch.float32, (B, N, P, P), dev)
     _check("c_fwd", c_fwd, torch.float32, (B, N), dev)
     _check("ea", ea, torch.float32, (B, N, A, A), dev)
     _check("allele_local", al, torch.int32, (B, N, P), dev)
     _check("trans", trans, torch.float32, (B, N, 3), dev)
-    _check("is_last", last, torch.uint8, (B, N), dev)
+    _check("is_last", last, torch.int32, (B, N), dev)
     posts = torch.empty((B, N, A, A), dtype=torch.float32, device=dev)
     if B and N:
         K2(alphas.data_ptr(), c_fwd.data_ptr(), ea.data_ptr(), al.data_ptr(),
@@ -134,7 +160,6 @@ def forward_e(E, u, alpha0):
     if E.device.type == "cpu":
         return forward_e_plain(E, u, alpha0)
     B, n, P, _ = E.shape
-    _paths_check(P)
     dev = E.device
     _check("E", E, torch.float32, (B, n, P, P), dev)
     _check("u", u, torch.float32, (B, n, 3), dev)
@@ -142,8 +167,10 @@ def forward_e(E, u, alpha0):
     alphas = torch.empty((B, n, P, P), dtype=torch.float32, device=dev)
     c_fwd = torch.empty((B, n), dtype=torch.float32, device=dev)
     if B and n:
+        scratch = wide_scratch(B, P, False, dev)
         K3(E.data_ptr(), u.data_ptr(), alpha0.data_ptr(), alphas.data_ptr(),
-           c_fwd.data_ptr(), B, n, P, *generic_launch(P), launch_stream(dev))
+           c_fwd.data_ptr(), scratch.data_ptr(), B, n, P, *generic_launch(P),
+           launch_stream(dev))
     return alphas, c_fwd
 
 
@@ -153,7 +180,6 @@ def backward_e(alphas, c_fwd, E, u, E_after, u_after, is_last, beta0):
     if E.device.type == "cpu":
         return backward_e_plain(alphas, c_fwd, E, u, E_after, u_after, is_last, beta0)
     B, n, P, _ = E.shape
-    _paths_check(P)
     last = is_last.to(torch.int32).contiguous()     # K4 copies it in 4-byte words
     dev = E.device
     _check("alphas", alphas, torch.float32, (B, n, P, P), dev)
@@ -167,10 +193,11 @@ def backward_e(alphas, c_fwd, E, u, E_after, u_after, is_last, beta0):
     posts = torch.empty((B, n, P, P), dtype=torch.float32, device=dev)
     beta_out = torch.empty((B, P, P), dtype=torch.float32, device=dev)
     if B and n:
+        scratch = wide_scratch(B, P, True, dev)
         K4(alphas.data_ptr(), c_fwd.data_ptr(), E.data_ptr(), u.data_ptr(),
            E_after.data_ptr(), u_after.data_ptr(), last.data_ptr(),
-           beta0.data_ptr(), posts.data_ptr(), beta_out.data_ptr(), B, n, P,
-           *generic_launch(P), launch_stream(dev))
+           beta0.data_ptr(), posts.data_ptr(), beta_out.data_ptr(),
+           scratch.data_ptr(), B, n, P, *generic_launch(P), launch_stream(dev))
     else:
         beta_out.copy_(beta0)
     return posts, beta_out

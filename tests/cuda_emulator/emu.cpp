@@ -74,6 +74,14 @@ void emu_syncthreads() {
 
 int emu_lane() { return (int)(current->tid % 32); }
 
+void emu_syncwarp(unsigned mask) {
+    if (!((mask >> (current->tid % 32)) & 1u)) {
+        fprintf(stderr, "emulated __syncwarp outside its lane mask\n");
+        abort();
+    }
+    lane_barrier(mask);
+}
+
 // a cache hint: nothing to emulate, but the address must be one
 void emu_prefetch(const void* p) {
     if (p == nullptr) {

@@ -280,6 +280,30 @@ def _edge_inputs(P, n, device):
     return tuple(to)
 
 
+def _tiny_columns(x, b, lo):
+    """Emissions x (K2's [B, N, A, A] or K3/K4's [B, n, P, P]) of columns
+    lo and lo + 1 of chain b scaled by 1e-25, as real columns have them
+    (emissions near 1e-41, totals of cur near 1e-20): a backward whose
+    helper multiplies E by the unnormalized cur (1e-25 x 1e-25) underflows
+    float32 there, the plain version's beta * E does not."""
+    x = x.clone()
+    x[b, lo:lo + 2] *= 1e-25
+    return x
+
+
+def _kept_columns_close(got, want):
+    """Raw posteriors [B, N, X, X] on the columns whose plain sums float32
+    keeps (above 1e-30): sums equal at rtol, columns divided by their sums
+    at rtol/atol."""
+    s_got = got.sum(dim=(-2, -1), keepdim=True)
+    s_want = want.sum(dim=(-2, -1), keepdim=True)
+    keep = (s_want > 1e-30).flatten(0, 1)[:, 0, 0]
+    got, want = (got / s_got).flatten(0, 1), (want / s_want).flatten(0, 1)
+    torch.testing.assert_close(s_got.flatten(0, 1)[keep], s_want.flatten(0, 1)[keep],
+                               rtol=2e-4, atol=0)
+    torch.testing.assert_close(got[keep], want[keep], rtol=2e-4, atol=1e-7)
+
+
 def _posteriors_close_or_zero(got, want):
     """Columns whose plain posteriors are exactly 0 (their cur is 0: the
     column before an all-zero E column, and padding) are 0 in the
@@ -323,14 +347,141 @@ def test_generic_kernels_reject_float64(cuda):
         fb_kernels.forward_e(E, u, torch.ones((1, 8, 8), dtype=torch.float64, device=cuda))
 
 
-def test_generic_kernels_reject_more_than_128_paths(cuda):
-    P = 129
-    E = torch.ones((1, 4, P, P), device=cuda)
-    with pytest.raises(ValueError, match="paths exceed"):
-        fb_kernels.forward_e(E, torch.zeros((1, 4, 3), device=cuda),
-                             torch.ones((1, P, P), device=cuda))
-    with pytest.raises(ValueError, match="paths exceed"):
-        fb_kernels.backward_e(
-            E, torch.ones((1, 4), device=cuda), E, torch.zeros((1, 4, 3), device=cuda),
-            E[:, 0], torch.zeros((1, 3), device=cuda),
-            torch.zeros((1, 4), dtype=torch.bool, device=cuda), E[:, 0])
+def test_fused_kernels_reject_more_than_128_paths(cuda):
+    """K1/K2 keep their limit (batch.use_generic sends such batches to
+    K3/K4); the error names the route."""
+    B, N, P, A = 1, 4, 129, 2
+    ea = torch.ones((B, N, A, A), device=cuda)
+    al = torch.zeros((B, N, P), dtype=torch.int32, device=cuda)
+    trans = torch.zeros((B, N, 3), device=cuda)
+    with pytest.raises(ValueError, match="generic route"):
+        fb_kernels.forward(ea, al, trans)
+    with pytest.raises(ValueError, match="generic route"):
+        fb_kernels.backward(torch.ones((B, N, P, P), device=cuda),
+                            torch.ones((B, N), device=cuda), ea, al, trans,
+                            torch.zeros((B, N), dtype=torch.bool, device=cuda))
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("P", [129, 200, 256, 465, 1025])
+def test_wide_generic_kernels_match_plain(cuda, P, B):
+    """K3/K4's wide tier (P > 128) against their plain versions on the
+    edge inputs (entry carries, is_last inside the chunk, an all-zero E
+    column, padding; B = 1 keeps the first chain), and two launches give
+    the same bits."""
+    inputs = _edge_inputs(P, 7, cuda)
+    E, u, alpha0, e_after, u_after, is_last, beta0 = (x[:B].contiguous() for x in inputs)
+    launches = _generic_launches()
+    a_k, c_k = fb_kernels.forward_e(E, u, alpha0)
+    a_p, c_p = fb_generic.forward_e_plain(E, u, alpha0)
+    torch.testing.assert_close(a_k, a_p, rtol=2e-4, atol=1e-7)
+    torch.testing.assert_close(c_k, c_p, rtol=2e-4, atol=1e-7)
+    args = (a_k, c_k, E, u, e_after, u_after, is_last, beta0)
+    p_k, b_k = fb_kernels.backward_e(*args)
+    p_p, b_p = fb_generic.backward_e_plain(*args)
+    _posteriors_close_or_zero(p_k, p_p)
+    torch.testing.assert_close(b_k, b_p, rtol=2e-4, atol=1e-7)
+    a_2, c_2 = fb_kernels.forward_e(E, u, alpha0)
+    p_2, b_2 = fb_kernels.backward_e(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a_2, a_k) and torch.equal(c_2, c_k)
+    assert torch.equal(p_2, p_k) and torch.equal(b_2, b_k)
+    k3, k4 = _generic_launches()
+    assert (k3 - launches[0], k4 - launches[1]) == (2, 2)
+
+
+def test_route_takes_200_paths_on_the_card(cuda):
+    """What ``genotype -a 200`` hands the forward-backward: a batch of 200
+    paths goes to the generic route on the card (cuda_generic, the wide
+    tier) without raising, and agrees with the same route on the CPU."""
+    from pangenie_tpu_torch.hmm import batch
+
+    B, N, P = 2, 40, 200
+    launches = _generic_launches()
+    posts, corr = batch.forward_backward_batch(_generic_columns(B, N, P, cuda))
+    torch.cuda.synchronize()
+    assert batch.last_dispatch == "cuda_generic"
+    assert _generic_launches() != launches
+    ref_p, ref_c = batch.forward_backward_batch(_generic_columns(B, N, P, "cpu"))
+    assert batch.last_dispatch == "torch_generic"
+    _assert_posteriors_close(posts.cpu(), ref_p)
+    torch.testing.assert_close(corr.cpu(), ref_c, rtol=2e-4, atol=1e-7)
+
+
+def _k2_inputs(B, N, P, A, seed):
+    """K2's inputs in float32 on the CPU: emissions in [0.1, 1), alleles
+    drawn per path, transitions from a recombination rate per column,
+    is_last at the end of every chain and inside chain 0, and an all-zero
+    emission column in chain 1 (forward and backward turn uniform there);
+    alphas and c_fwd from the plain forward."""
+    rng = np.random.default_rng(seed)
+    ea = torch.from_numpy((0.1 + 0.9 * rng.random((B, N, A, A))).astype(np.float32))
+    al = torch.from_numpy(rng.integers(0, A, (B, N, P)))
+    r = rng.uniform(1e-3, 0.1, (B, N))
+    switch = r / P
+    stay = 1.0 - r + switch
+    trans = torch.from_numpy(np.stack(
+        [stay * stay, stay * switch, switch * switch], axis=-1).astype(np.float32))
+    is_last = torch.zeros((B, N), dtype=torch.bool)
+    is_last[:, N - 1] = True
+    is_last[0, N // 2] = True
+    if B > 1:
+        ea[1, N // 3] = 0.0
+    alphas, c_fwd = forward_plain(ea, al, trans)
+    return alphas, c_fwd, ea, al, trans, is_last
+
+
+@pytest.mark.parametrize("A", [2, 8])
+@pytest.mark.parametrize("P", range(1, 33))
+def test_k2_one_warp_tier_matches_plain(cuda, P, A):
+    """K2's one-warp tier (P <= 32) against backward_plain on B=3 chains
+    of 50 columns (more than its ring), is_last inside a chain and an
+    all-zero emission column; two launches give the same bits."""
+    inputs = tuple(x.to(cuda) for x in _k2_inputs(3, 50, P, A, seed=100 * P + A))
+    launches = fb_kernels.K2.launches
+    got = fb_kernels.backward(*inputs)
+    again = fb_kernels.backward(*inputs)
+    torch.cuda.synchronize()
+    assert fb_kernels.K2.launches == launches + 2
+    torch.testing.assert_close(got, backward_plain(*inputs), rtol=2e-4, atol=1e-7)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("P,A", [(16, 2), (16, 8), (32, 2), (33, 8)])
+def test_k2_after_tiny_emissions(cuda, P, A):
+    """K2 where two columns' emissions are near 1e-25 (_tiny_columns), on
+    both tiers, against backward_plain (columns divided by their sums)."""
+    alphas, c_fwd, ea, al, trans, is_last = _k2_inputs(3, 50, P, A, seed=7 * P + A)
+    ea = _tiny_columns(ea, 1, 30)
+    alphas, c_fwd = forward_plain(ea, al, trans)
+    inputs = tuple(x.to(cuda) for x in (alphas, c_fwd, ea, al, trans, is_last))
+    _kept_columns_close(fb_kernels.backward(*inputs).cpu(),
+                        backward_plain(*inputs).cpu())
+
+
+@pytest.mark.parametrize("P", [16, 89, 200])
+def test_generic_kernels_after_tiny_emissions(cuda, P):
+    """K4 (register tiers and the wide tier) where two columns' emissions
+    are near 1e-25 (_tiny_columns), against its plain version on K3's
+    alphas (columns divided by their sums)."""
+    E, u, alpha0, e_after, u_after, is_last, beta0 = _edge_inputs(P, 37, cuda)
+    E = _tiny_columns(E, 0, 5)
+    a, c = fb_kernels.forward_e(E, u, alpha0)
+    args = (a, c, E, u, e_after, u_after, is_last, beta0)
+    p_k, b_k = fb_kernels.backward_e(*args)
+    p_p, b_p = fb_generic.backward_e_plain(*args)
+    _kept_columns_close(p_k.cpu(), p_p.cpu())
+    torch.testing.assert_close(b_k, b_p, rtol=2e-4, atol=1e-7)
+
+
+def test_k2_at_a_long_chain(cuda):
+    """K2 at B=2 N=4096 P=16 A=2 (the bench's P and A) against the plain
+    version."""
+    cols = synthetic_columns(n_columns=4096, n_paths=16, n_kmers=16, n_alleles=2,
+                             batch_dims=(2,), seed=11, dtype=np.float32)
+    cols = columns_from_numpy(cols, cuda, torch.float32)
+    ea = allele_emissions(cols)
+    a, c = fb_kernels.forward(ea, cols.allele_local, cols.trans)
+    p = fb_kernels.backward(a, c, ea, cols.allele_local, cols.trans, cols.is_last)
+    p_ref = backward_plain(a, c, ea, cols.allele_local, cols.trans, cols.is_last)
+    torch.testing.assert_close(p, p_ref, rtol=2e-4, atol=1e-7)

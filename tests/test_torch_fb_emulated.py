@@ -1,5 +1,7 @@
-"""Kernels K3/K4 of ``pangenie_tpu_torch/csrc/fb.cu`` run on the CPU by
-an emulator of the CUDA threads, against their plain versions.
+"""Kernels K2, K3 and K4 of ``pangenie_tpu_torch/csrc/fb.cu`` run on the
+CPU by an emulator of the CUDA threads, against their plain versions:
+K3/K4's register tiers and their wide tier (P > 128, the state in a
+global scratch), K2's one-warp tier (P <= 32, A <= 8) and its CTA tier.
 
 The kernel source is compiled with g++ against the headers of
 ``tests/cuda_emulator/``, which stand in for ``cuda_runtime.h`` and
@@ -24,7 +26,15 @@ import torch
 
 from pangenie_tpu_torch import _build
 from pangenie_tpu_torch.hmm import fb_generic, fb_kernels
-from test_torch_cuda_kernels import _edge_inputs, _posteriors_close_or_zero
+from pangenie_tpu_torch.hmm.forward_backward import backward_plain, forward_plain
+from test_torch_cuda_kernels import (
+    _edge_inputs,
+    _generic_columns,
+    _k2_inputs,
+    _kept_columns_close,
+    _posteriors_close_or_zero,
+    _tiny_columns,
+)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -54,16 +64,25 @@ def emulated(tmp_path_factory):
     lib = ctypes.CDLL(str(lib))
     lib.pg_fbe_forward.argtypes = fb_kernels.K3._argtypes
     lib.pg_fbe_backward.argtypes = fb_kernels.K4._argtypes
+    lib.pg_fb_backward.argtypes = fb_kernels.K2._argtypes
+    lib.pg_fb_backward_threads.argtypes = [ctypes.c_int, ctypes.c_int]
     return lib
+
+
+def _scratch(B, P, backward):
+    """The wide tier's scratch, NaN-filled so that a read before a write
+    shows (empty where P takes a register tier)."""
+    return fb_kernels.wide_scratch(B, P, backward, "cpu").fill_(float("nan"))
 
 
 def _forward(lib, E, u, alpha0):
     B, n, P, _ = E.shape
     alphas = torch.full((B, n, P, P), float("nan"))
     c_fwd = torch.full((B, n), float("nan"))
+    scratch = _scratch(B, P, False)
     assert lib.pg_fbe_forward(E.data_ptr(), u.data_ptr(), alpha0.data_ptr(),
-                              alphas.data_ptr(), c_fwd.data_ptr(), B, n, P,
-                              *fb_kernels.generic_launch(P), None) == 0
+                              alphas.data_ptr(), c_fwd.data_ptr(), scratch.data_ptr(),
+                              B, n, P, *fb_kernels.generic_launch(P), None) == 0
     return alphas, c_fwd
 
 
@@ -72,10 +91,11 @@ def _backward(lib, alphas, c_fwd, E, u, e_after, u_after, is_last, beta0):
     last = is_last.to(torch.int32).contiguous()
     posts = torch.full((B, n, P, P), float("nan"))
     beta_out = torch.full((B, P, P), float("nan"))
+    scratch = _scratch(B, P, True)
     assert lib.pg_fbe_backward(alphas.data_ptr(), c_fwd.data_ptr(), E.data_ptr(),
                                u.data_ptr(), e_after.data_ptr(), u_after.data_ptr(),
                                last.data_ptr(), beta0.data_ptr(), posts.data_ptr(),
-                               beta_out.data_ptr(), B, n, P,
+                               beta_out.data_ptr(), scratch.data_ptr(), B, n, P,
                                *fb_kernels.generic_launch(P), None) == 0
     return posts, beta_out
 
@@ -128,5 +148,113 @@ def test_emulated_launch_rejects_another_layout(emulated):
     one_slot = 4 * (8 + 68)                 # header + a P=8 column at any misalignment
     for bad in ((threads, smem + 4), (threads, smem - one_slot), (threads // 2, smem)):
         code = emulated.pg_fbe_forward(E.data_ptr(), u.data_ptr(), alpha0.data_ptr(),
-                                       out.data_ptr(), c.data_ptr(), 1, 2, 8, *bad, None)
+                                       out.data_ptr(), c.data_ptr(), None, 1, 2, 8, *bad,
+                                       None)
         assert code != 0
+
+
+@pytest.mark.parametrize("P,n", [(129, 7), (200, 3), (257, 3)])
+def test_emulated_wide_tier_matches_plain(emulated, P, n):
+    """K3/K4's wide tier (32 warps, the state in global memory, columns
+    in tiles of 256: P = 257 takes two) on the edge inputs of the register
+    tiers: entry carries alpha0 and beta0 that are not ones or zeros,
+    is_last inside the chunk, an all-zero E column (the state turns
+    uniform), padding and an all-padding chain; two launches give the
+    same bits."""
+    assert fb_kernels.generic_launch(P) == (1024, 4 * (32 * 256 + 64))
+    E, u, alpha0, e_after, u_after, is_last, beta0 = _edge_inputs(P, n, "cpu")
+    a_k, c_k = _forward(emulated, E, u, alpha0)
+    a_p, c_p = fb_generic.forward_e_plain(E, u, alpha0)
+    torch.testing.assert_close(a_k, a_p, rtol=2e-4, atol=1e-7)
+    torch.testing.assert_close(c_k, c_p, rtol=2e-4, atol=1e-7)
+    args = (a_k, c_k, E, u, e_after, u_after, is_last, beta0)
+    p_k, b_k = _backward(emulated, *args)
+    p_p, b_p = fb_generic.backward_e_plain(*args)
+    _posteriors_close_or_zero(p_k, p_p)
+    torch.testing.assert_close(b_k, b_p, rtol=2e-4, atol=1e-7)
+    a_2, c_2 = _forward(emulated, E, u, alpha0)
+    p_2, b_2 = _backward(emulated, *args)
+    assert torch.equal(a_2, a_k) and torch.equal(c_2, c_k)
+    assert torch.equal(p_2, p_k) and torch.equal(b_2, b_k)
+
+
+def test_emulated_wide_tier_in_the_chunked_route(emulated, monkeypatch):
+    """fb_generic.forward_backward_chunked at P = 130 in chunks of 4
+    columns, through the emulated wide K3/K4 (each chunk's carries are
+    the kernels' own outputs), against the same route with the plain
+    versions."""
+    B, N, P, chunk = 2, 10, 130, 4
+    want, want_corr = fb_generic.forward_backward_chunked(
+        _generic_columns(B, N, P, "cpu"), chunk=chunk)
+    monkeypatch.setattr(fb_kernels, "forward_e",
+                        lambda E, u, alpha0: _forward(emulated, E, u, alpha0))
+    monkeypatch.setattr(fb_kernels, "backward_e",
+                        lambda *args: _backward(emulated, *args))
+    got, corr = fb_generic.forward_backward_chunked(
+        _generic_columns(B, N, P, "cpu"), chunk=chunk)
+    assert fb_generic.last_walk == (B, N, 3)
+    _posteriors_close_or_zero(got, want)
+    torch.testing.assert_close(corr, want_corr)
+
+
+def _k2(lib, alphas, c_fwd, ea, al, trans, is_last):
+    B, N, A, _ = ea.shape
+    P = al.shape[2]
+    al32 = al.to(torch.int32).contiguous()
+    last = is_last.to(torch.int32).contiguous()
+    posts = torch.full((B, N, A, A), float("nan"))
+    assert lib.pg_fb_backward(alphas.data_ptr(), c_fwd.data_ptr(), ea.data_ptr(),
+                              al32.data_ptr(), trans.data_ptr(), last.data_ptr(),
+                              posts.data_ptr(), B, N, P, A, None) == 0
+    return posts
+
+
+@pytest.mark.parametrize("A", [1, 2, 8])
+@pytest.mark.parametrize("P", [1, 2, 5, 9, 15, 16, 17, 31, 32, 33])
+def test_emulated_k2_matches_plain(emulated, P, A):
+    """K2 against backward_plain on B=3 chains of 20 columns (more than
+    its ring of 8 slots), with is_last inside a chain and an all-zero
+    emission column: P <= 32 on the one-warp tier, at every lanes-a-row
+    layout and both allele buckets (2, 8); P = 33 still on the CTA tier.
+    Two launches give the same bits."""
+    assert emulated.pg_fb_backward_threads(P, A) == (32 if P <= 32 else 256)
+    inputs = _k2_inputs(3, 20, P, A, seed=100 * P + A)
+    got = _k2(emulated, *inputs)
+    want = backward_plain(*inputs)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-7)
+    assert torch.equal(_k2(emulated, *inputs), got)
+
+
+def test_emulated_k2_short_chains(emulated):
+    """Chains shorter than the ring (N = 1 and 3) on the one-warp tier."""
+    for N in (1, 3):
+        inputs = _k2_inputs(2, N, 16, 2, seed=N)
+        torch.testing.assert_close(_k2(emulated, *inputs), backward_plain(*inputs),
+                                   rtol=2e-4, atol=1e-7)
+
+
+@pytest.mark.parametrize("P,A", [(16, 2), (16, 8), (32, 2), (33, 8)])
+def test_emulated_k2_after_tiny_emissions(emulated, P, A):
+    """K2 where two columns' emissions are near 1e-25 (_tiny_columns, as
+    on real columns), on both tiers, against backward_plain (columns
+    divided by their sums): its helper is formed from the normalized
+    beta, so nothing underflows."""
+    alphas, c_fwd, ea, al, trans, is_last = _k2_inputs(3, 20, P, A, seed=7 * P + A)
+    ea = _tiny_columns(ea, 1, 8)
+    alphas, c_fwd = forward_plain(ea, al, trans)
+    inputs = (alphas, c_fwd, ea, al, trans, is_last)
+    _kept_columns_close(_k2(emulated, *inputs), backward_plain(*inputs))
+
+
+@pytest.mark.parametrize("P", [16, 129])
+def test_emulated_generic_kernels_after_tiny_emissions(emulated, P):
+    """K4's register and wide tiers where two columns' emissions are near
+    1e-25, against backward_e_plain on K3's alphas."""
+    E, u, alpha0, e_after, u_after, is_last, beta0 = _edge_inputs(P, 9, "cpu")
+    E = _tiny_columns(E, 0, 1)
+    a, c = _forward(emulated, E, u, alpha0)
+    args = (a, c, E, u, e_after, u_after, is_last, beta0)
+    p_k, b_k = _backward(emulated, *args)
+    p_p, b_p = fb_generic.backward_e_plain(*args)
+    _kept_columns_close(p_k, p_p)
+    torch.testing.assert_close(b_k, b_p, rtol=2e-4, atol=1e-7)

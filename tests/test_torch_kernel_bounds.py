@@ -22,8 +22,9 @@ from pangenie_tpu_torch.hmm import bounds, fb_generic, fb_kernels, sampling
     # ea 1,048,576 + al 8,388,608 + trans 1,572,864 + alphas 134,217,728
     # + c_fwd 524,288
     (bounds.k1(2, 65536, 16, 2), 146_800_640, 0.0438211),
-    # alphas + c_fwd + ea + al + trans + is_last 131,072 + posts 1,048,576
-    (bounds.k2(2, 65536, 16, 2), 149_028_864, 0.0444862),
+    # alphas + c_fwd + ea + al + trans + is_last (int32) 524,288 + posts
+    # 1,048,576
+    (bounds.k2(2, 65536, 16, 2), 149_422_080, 0.0446036),
     # E 4,152,885,248 + u 1,572,864 + alpha0 31,684 + alphas 4,152,885,248
     # + c_fwd 524,288: 8.31 GB
     (bounds.k3(1, 131072, 89), 8_307_899_332, 2.4799700),
@@ -75,10 +76,12 @@ def test_generic_bytes_match_the_plain_versions_tensors():
 
 
 # P=89: a column of 7,924 floats (P^2 + 3, rounded up to float4s), the
-# partials' pitch 104; 4 x (2 x (8 + 7,924) + 7,924 + 16 x 104 + 89 + 68)
+# partials' pitch 104; 4 x (2 x (8 + 7,924) + 7,924 + 16 x 104 + 89 + 34)
+# past 128 paths the wide tier: 1024 threads, one tile of 32 x 256 column
+# partials and 2 x 32 warp totals, 4 x (8,192 + 64) bytes at any P
 @pytest.mark.parametrize("P,launch", [
-    (1, (512, 900)), (16, (512, 6_080)), (89, (512, 102_436)),
-    (128, (512, 206_208)),
+    (1, (512, 764)), (16, (512, 5_944)), (89, (512, 102_300)),
+    (128, (512, 206_072)), (129, (1024, 33_024)), (6405, (1024, 33_024)),
 ])
 def test_generic_launch_at_known_path_counts(P, launch):
     assert fb_kernels.generic_launch(P) == launch
@@ -95,7 +98,7 @@ def test_generic_launch_fits_every_path_count():
         column = P * P + 3 + (-(P * P + 3)) % 4          # float4s
         pitch = P + (8 - P) % 32
         assert pitch >= P and pitch % 32 == 8
-        assert smem == 4 * (2 * (8 + column) + column + 16 * pitch + P + 68)
+        assert smem == 4 * (2 * (8 + column) + column + 16 * pitch + P + 34)
         assert smem <= fb_kernels.SMEM_BYTES == 232_448
 
 
@@ -186,3 +189,38 @@ def test_segment_columns_fit_the_budget():
     assert sampling.segment_columns(1 << 40, C, N, P, per) == N
     with pytest.raises(RuntimeError, match="does not fit"):
         sampling.segment_columns(1000, C, N, P, per)
+
+
+def test_generic_launch_past_128_paths():
+    """For P = 129..1,024 and at 6,405 (the 1000 Genomes panel's paths):
+    the wide tier's 32 warps and fixed shared memory, within one H100
+    block's; its scratch holds two buffers each of row and column sums,
+    and for K4 the [P, P] helper, per chain; the register tiers take
+    none."""
+    for P in [*range(fb_kernels.MAX_PATHS + 1, 1025), 6405]:
+        threads, smem = fb_kernels.generic_launch(P)
+        assert threads == 32 * fb_kernels.WIDE_WARPS == 1024
+        assert smem == 4 * (fb_kernels.WIDE_WARPS * fb_kernels.WIDE_TILE + 2 * 32)
+        assert smem <= fb_kernels.SMEM_BYTES
+        assert threads == 4 * fb_kernels.WIDE_TILE    # four threads a tile column
+    for P in (129, 6405):
+        assert fb_kernels.wide_scratch(3, P, False, "cpu").shape == (3, 4 * P)
+        assert fb_kernels.wide_scratch(3, P, True, "cpu").shape == (3, 4 * P + P * P)
+    assert fb_kernels.wide_scratch(3, 128, True, "cpu").numel() == 0
+
+
+def test_k2_bytes_match_the_tensors_it_takes():
+    """K2's byte count is the bytes of the tensors the wrapper hands the
+    kernel (is_last as the int32 it copies) and of its posteriors."""
+    from pangenie_tpu_torch.hmm.forward_backward import forward_plain
+
+    B, N, P, A = 2, 6, 5, 3
+    rng = np.random.default_rng(1)
+    ea = torch.from_numpy(rng.random((B, N, A, A)).astype(np.float32))
+    al = torch.from_numpy(rng.integers(0, A, (B, N, P)).astype(np.int32))
+    trans = torch.from_numpy(rng.random((B, N, 3)).astype(np.float32))
+    last = torch.zeros((B, N), dtype=torch.int32)
+    alphas, c_fwd = forward_plain(ea, al, trans)
+    posts = fb_kernels.backward(alphas, c_fwd, ea, al, trans, last)
+    assert bounds.k2(B, N, P, A).nbytes == _nbytes(alphas, c_fwd, ea, al, trans, last,
+                                                   posts)

@@ -1,6 +1,6 @@
 """Times kernels K3/K4 at two of chip_smoke.py's shapes on one NVIDIA GPU.
 
-    python3 tools/fbe_times.py [--root DIR] [--reps 3]
+    python3 tools/fbe_times.py [--root DIR] [--reps 3] [--wide]
 
 Builds the inputs as chip_smoke.py does (seed 17, K=32, A=16): the SV
 path's first chunk (B=1, N=131,072, P=89, with 97/2/1% of the columns
@@ -13,6 +13,12 @@ can be timed in turns on one card. Prints one JSON line per shape, with
 the card's name and power limit and the bytes/s achieved (the bytes of
 the tensors each kernel takes and returns). Exits non-zero without a
 GPU.
+
+``--wide`` times K3/K4's wide tier instead (P > 128: one CTA of 1024
+threads a chain, the state in global memory) at B=2, N=2048, P=200 and
+at chip_smoke.py's B=2, N=512, P=465, K=32, with the 97/2/1% allele mix
+(chip_smoke.py also times it at the chunk shape of its `genotype -f -a
+200` run).
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ import sys
 
 # (B, N, P, K, mixed allele counts)
 SHAPES = [(1, 1 << 17, 89, 32, True), (32, 4096, 32, 32, False)]
+# the wide tier at P = 200 and 465
+WIDE_SHAPES = [(2, 2048, 200, 32, True), (2, 512, 465, 32, True)]
 
 
 def gpu_line() -> str:
@@ -78,6 +86,7 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--wide", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -90,7 +99,7 @@ def main() -> int:
 
     gpu = gpu_line()
     dev = torch.device("cuda", 0)
-    for B, N, P, K, mixed in SHAPES:
+    for B, N, P, K, mixed in WIDE_SHAPES if args.wide else SHAPES:
         E, u, ones, zeros, u_after, last = generic_inputs(B, N, P, K, mixed, dev)
         alphas, c_fwd = fb_kernels.forward_e(E, u, ones)
         bwd = (alphas, c_fwd, E, u, zeros, u_after, last, zeros)
