@@ -19,8 +19,11 @@ Phases, each printed as it runs; any failure exits non-zero:
    path's shape C=2, N=55,040, P=123 (its chase alone against the plain
    chase too), for 15 greedy iterations at C=2, N=4096, P=123 and for
    one iteration at C=2, N=4096, P=300; S1 past 1024 paths, bit for bit, at
-   C=2, N=4096, P=1025/2049/4096/4097/6405, and its time at N=55,040 for
-   P=1024/2049/4096/6405; K3/K4 against their plain versions at the SV
+   C=2, N=4096, P=1025/2049/4096/4097/6405 and at C=2, N=1024,
+   P=8193/16,385 (past 1024 paths a thread-block cluster of CTAs per
+   chromosome: each cluster's cudaOccupancyMaxActiveClusters reading
+   printed first), and its time at N=55,040 for P=1024/2049/4096/6405;
+   K3/K4 against their plain versions at the SV
    path's shape B=1, N=131,072, P=89, K=32, A=16, at B=2, N=8192, P=89
    with 97/2/1% of the columns at A=2/4/16 (where the whole chunked
    route in chunks of 2048 is held against the same route with the
@@ -47,8 +50,9 @@ Phases, each printed as it runs; any failure exits non-zero:
    in every column, and their peak device memory must stay within
    sampling.group_peak_bytes;
    then the checkpointed scan S1-seg: against the full S1 at C=1,
-   N=200,000, P=2049 in 8 segments and against its plain version at
-   N=4096, P=6405, bit for bit; and one chromosome of N=2,300,000 at
+   N=200,000, P=2049 and at C=1, N=100,000, P=6405 (the cluster sweep)
+   in 8 segments, and against its plain version at N=4096, P=6405, bit
+   for bit; and one chromosome of N=2,300,000 at
    P=6405 (14.7 G cells, beyond one card) in the longest segments the
    free memory allows, inputs drawn on the card a segment at a time,
    path and host score checked as above, the scan's kernels timed by
@@ -128,6 +132,10 @@ POST_FLOOR = 1e-20
 # (check_bench_columns).
 FB_SHAPES = [(2, 65536, 16, 16, 2), (128, 4096, 32, 16, 2), (2, 4096, 16, 16, 2),
              (2, 8192, 89, 16, 8)]
+# the first FB_SHAPES entry is held against the plain versions on this
+# many columns and timed at its full N (the plain loops take a minute and
+# a half at N=65,536; the bench run's own batch is held in full)
+FB_PLAIN_COLUMNS = 16384
 MAIN_S1_SHAPE = (2, 55040, 123, 4)                     # (C, N, P, A)
 S1_GREEDY_SHAPE = (2, 4096, 123, 4, 15)                # (C, N, P, A, iterations)
 # over the old 1 GiB rule for int32 [N, P] backtraces (2^28 cells)
@@ -136,9 +144,18 @@ LONG_S1_SHAPE = (1, 2_300_000, 123, 4)                 # (C, N, P, A)
 # chromosomes' N (C, N, paths)
 WIDE_S1_PATHS = (1025, 2049, 4096, 4097, 6405)
 WIDE_S1_CHECK = (2, 4096)
+# the cluster tier's wider edges (8 CTAs of 9 and 17 warps, the runtime-W
+# instance), bit checks at
+# (C, N, paths)
+CLUSTER_S1_CHECK = (2, 1024, (8193, 16385))
+# past what a cluster holds in registers: one CTA of 1024 threads, the
+# scores in a scratch row, 32-bit backtraces (s1_sweep_many_kernel),
+# bit check at (C, N, P)
+SCRATCH_S1_CHECK = (1, 6, 65_537)
 WIDE_S1_TIMES = (2, 55040, (1024, 2049, 4096, 6405))
-# S1-seg against the full S1 where both fit: (C, N, P, segments)
-SEG_CHECK_SHAPE = (1, 200_000, 2049, 8)
+# S1-seg against the full S1 where both fit: (C, N, P, segments), one
+# CTA and a cluster a chromosome
+SEG_CHECK_SHAPES = [(1, 200_000, 2049, 8), (1, 100_000, 6405, 8)]
 # S1-seg's plain version on the card: (C, N, P, segment)
 SEG_PLAIN_SHAPE = (1, 4096, 6405, 512)
 # beyond one card: LONG_S1_SHAPE's length at P=6405, 14.7 G [N, P] cells
@@ -230,10 +247,11 @@ def against_bound(t: dict, key: str) -> str:
             f"{t[key] * 1e3 / t[key + '_cols']:.3f} us per column")
 
 
-def hold_fb(cols, what: str, gpu: str, parent_ms=None):
+def hold_fb(cols, what: str, gpu: str, parent_ms=None, timed_cols=None):
     """K1 and K2 against the plain forward-backward on the columns
-    ``cols``, timed beside their bounds. Returns the times, with K1's and
-    K2's largest absolute errors."""
+    ``cols``, timed beside their bounds on ``timed_cols`` (default
+    ``cols``). Returns the times, with K1's and K2's largest absolute
+    errors."""
     import torch
 
     from pangenie_tpu_torch.hmm import bounds, fb_kernels
@@ -254,6 +272,14 @@ def hold_fb(cols, what: str, gpu: str, parent_ms=None):
     torch.testing.assert_close(p_k, p_p, rtol=RTOL, atol=ATOL)
     e1 = max(float((a_k - a_p).abs().max()), float((c_k - c_p).abs().max()))
     e2 = float((p_k - p_p).abs().max())
+    if timed_cols is not None:
+        plain_n = N
+        del ea, a_k, c_k, a_p, c_p, p_k, p_p
+        ea = allele_emissions(timed_cols)
+        al, tr, last = timed_cols.allele_local, timed_cols.trans, timed_cols.is_last
+        B, N, P = al.shape
+        a_k, c_k = fb_kernels.forward(ea, al, tr)
+        what = f"{what} (plain on its first {plain_n} columns)"
     t = {
         "K1": cuda_ms(lambda: fb_kernels.forward(ea, al, tr), 3),
         "K1_plain": k1_plain,
@@ -281,15 +307,19 @@ def check_fb(device, gpu) -> None:
     from pangenie_tpu_torch.hmm.forward_backward import columns_from_numpy
     from pangenie_tpu_torch.utils.synthetic import synthetic_columns
 
-    for B, N, P, K, A in FB_SHAPES:
-        cols = columns_from_numpy(
+    def columns(B, N, P, K, A):
+        return columns_from_numpy(
             synthetic_columns(n_columns=N, n_paths=P, n_kmers=K, n_alleles=A,
                               batch_dims=(B,), seed=7, dtype="float32"),
             device, torch.float32,
         )
+
+    for B, N, P, K, A in FB_SHAPES:
         first = (B, N, P, K, A) == FB_SHAPES[0]
+        cols = columns(B, FB_PLAIN_COLUMNS if first else N, P, K, A)
         hold_fb(cols, f"B={B} N={N} P={P} K={K} A={A}", gpu,
-                K2_BEFORE_MS if first else None)
+                K2_BEFORE_MS if first else None,
+                columns(B, N, P, K, A) if first else None)
         del cols
         torch.cuda.empty_cache()
 
@@ -375,7 +405,7 @@ def check_s1(device, gpu):
     if not all(torch.equal(g, w) for g, w in zip(got, want)):
         raise AssertionError(f"S1 paths or scores differ from the plain DP at P={P}")
     wide_ms = cuda_ms(lambda: viterbi_iteration(path_cost, mask, switch), 3)
-    print(f"  s1 C={C} N={N} P={P} ({sampling.sweep_layout(P)[0]} warps, "
+    print(f"  s1 C={C} N={N} P={P} ({s1_layout(P)}, "
           f"{sampling.backtrace_dtype(P)} backtraces): bit-identical; [{gpu}] "
           f"{wide_ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
     del path_cost, mask, switch
@@ -480,11 +510,23 @@ def paths_error(got, want) -> float:
                for a, b in zip(got, want))
 
 
+def s1_layout(P: int) -> str:
+    """S1's sweep layout for P paths, in words."""
+    from pangenie_tpu_torch.hmm import sampling
+
+    ranks, warps, per_lane, _row = sampling.sweep_layout(P)
+    cta = f"{warps} warps of {per_lane} paths a lane"
+    if P > sampling.CLUSTER_PATHS:
+        return f"1 CTA of {cta}, the scores in a scratch row"
+    return f"a cluster of {ranks} CTAs of {cta}" if P > sampling.CTA_PATHS else cta
+
+
 def check_s1_wide(device, gpu) -> None:
     """S1 past 1024 paths against the plain sampling DP, bit for bit, at
-    C=2 N=4096 for every WIDE_S1_PATHS entry (up to 32 warps of 4 paths a
-    lane, then 1024 threads of several paths with their scores in shared
-    memory); then S1's time at the bench chromosomes' N=55,040 for every
+    C=2 N=4096 for every WIDE_S1_PATHS entry and at CLUSTER_S1_CHECK (a
+    cluster of CTAs a chromosome, whose cudaOccupancyMaxActiveClusters
+    reading is printed before its first launch), and at SCRATCH_S1_CHECK
+    (one CTA, the scores in a scratch row); then S1's time at the bench chromosomes' N=55,040 for every
     P of WIDE_S1_TIMES beside its bound, inputs drawn on the card. (The
     kernels' record takes S1's times past 1024 paths from the panels'
     end-to-end runs, on their own inputs.)"""
@@ -496,16 +538,20 @@ def check_s1_wide(device, gpu) -> None:
 
     rng = np.random.default_rng(29)
     C, N = WIDE_S1_CHECK
-    for P in WIDE_S1_PATHS:
+    cluster_c, cluster_n, cluster_paths = CLUSTER_S1_CHECK
+    for C, N, P in ([(C, N, P) for P in WIDE_S1_PATHS]
+                    + [(cluster_c, cluster_n, P) for P in cluster_paths] + [SCRATCH_S1_CHECK]):
+        if sampling.CTA_PATHS < P <= sampling.CLUSTER_PATHS:
+            print(f"  s1 P={P}: {s1_layout(P)}; cudaOccupancyMaxActiveClusters: "
+                  f"{sampling.cluster_fits(P)} such clusters fit the card", flush=True)
         inputs = s1_iteration_inputs(rng, C, N, P, 4, device)
         got = viterbi_iteration(*inputs)
         want, plain_ms = timed(lambda: viterbi_iteration_plain(*inputs))
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"S1 paths or scores differ from the plain DP at P={P}")
-        warps, per_lane, _row = sampling.sweep_layout(P)
-        print(f"  s1 C={C} N={N} P={P} ({warps} warps of {per_lane} paths a lane, "
-              f"{sampling.backtrace_dtype(P)} backtraces): bit-identical (max_abs_err "
-              f"{paths_error(got, want)}); plain {plain_ms:.3f} ms", flush=True)
+        print(f"  s1 C={C} N={N} P={P} ({s1_layout(P)}, {sampling.backtrace_dtype(P)} "
+              f"backtraces): bit-identical (max_abs_err {paths_error(got, want)}); plain "
+              f"{plain_ms:.3f} ms", flush=True)
         del inputs, got, want
     C, N, paths = WIDE_S1_TIMES
     g = torch.Generator(device=device)
@@ -518,7 +564,7 @@ def check_s1_wide(device, gpu) -> None:
         sweep_ms = cuda_ms(lambda: sampling.s1_sweep(*inputs), 3)
         chase_ms = cuda_ms(lambda: sampling.s1_chase(bt, ends, P), 3)
         del bt
-        print(f"  times C={C} N={N} P={P} ({sampling.sweep_layout(P)[0]} warps) [{gpu}]: "
+        print(f"  times C={C} N={N} P={P} ({s1_layout(P)}) [{gpu}]: "
               f"S1 {t['S1']:.3f} ms (sweep {sweep_ms:.3f} ms, chase {chase_ms:.3f} ms); "
               f"{against_bound(t, 'S1')}", flush=True)
         del inputs
@@ -527,8 +573,9 @@ def check_s1_wide(device, gpu) -> None:
 
 def check_s1_seg(device, gpu):
     """S1-seg (sampling.viterbi_iteration_segmented through the kernels)
-    against the full S1 where both fit, at SEG_CHECK_SHAPE in segments
-    short enough for at least that many: paths and best bit-identical;
+    against the full S1 where both fit, at each SEG_CHECK_SHAPES entry in
+    segments short enough for at least that many: paths and best
+    bit-identical;
     then against its plain version on the card at SEG_PLAIN_SHAPE.
     Returns the largest absolute difference of those comparisons and the
     plain version's time and shape."""
@@ -538,23 +585,25 @@ def check_s1_seg(device, gpu):
 
     g = torch.Generator(device=device)
     g.manual_seed(37)
-    C, N, P, S = SEG_CHECK_SHAPE
-    inputs = card_s1_inputs(g, C, N, P, device)
+    inputs, err = None, 0.0
 
     def source(lo, hi):
         return tuple(t[:, lo:hi].contiguous() for t in inputs)
 
-    segment = -(-N // S)
-    got, seg_ms = timed(lambda: sampling.viterbi_iteration_segmented(
-        source, C, N, P, segment, device))
-    want, full_ms = timed(lambda: sampling.viterbi_iteration(*inputs))
-    if not all(torch.equal(a, b) for a, b in zip(got, want)):
-        raise AssertionError(f"S1-seg differs from the full S1 at C={C} N={N} P={P}")
-    err = paths_error(got, want)
-    print(f"  s1-seg C={C} N={N} P={P} in {-(-N // segment)} segments of {segment}: paths "
-          f"and best equal the full S1's (max_abs_err {err}); [{gpu}] {seg_ms:.3f} ms "
-          f"(slices included), full S1 {full_ms:.3f} ms", flush=True)
-    del inputs, got, want
+    for C, N, P, S in SEG_CHECK_SHAPES:
+        inputs = card_s1_inputs(g, C, N, P, device)
+        segment = -(-N // S)
+        got, seg_ms = timed(lambda: sampling.viterbi_iteration_segmented(
+            source, C, N, P, segment, device))
+        want, full_ms = timed(lambda: sampling.viterbi_iteration(*inputs))
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"S1-seg differs from the full S1 at C={C} N={N} P={P}")
+        err = max(err, paths_error(got, want))
+        print(f"  s1-seg C={C} N={N} P={P} ({s1_layout(P)}) in {-(-N // segment)} segments "
+              f"of {segment}: paths and best equal the full S1's (max_abs_err "
+              f"{paths_error(got, want)}); [{gpu}] {seg_ms:.3f} ms (slices included), full "
+              f"S1 {full_ms:.3f} ms", flush=True)
+        del inputs, got, want
 
     C, N, P, segment = SEG_PLAIN_SHAPE
     inputs = card_s1_inputs(g, C, N, P, device)
@@ -1590,8 +1639,8 @@ def run_large_panel(casedir: str, gpu: str, device: str = "cuda"):
 
 def run_widest_panel(casedir: str, gpu: str, device: str = "cuda"):
     """``index`` and ``sampling -x 15`` on CUDA over the widest panel
-    (6405 paths: S1's sweep of 1024 threads with the scores in shared
-    memory). Checks: the first greedy path equals the plain DP's on the
+    (6405 paths: S1's sweep as a cluster of 8 CTAs of 7 warps a
+    chromosome). Checks: the first greedy path equals the plain DP's on the
     card for the same inputs (:func:`s1_on_first_group`, which also times
     S1 there); ``sampling`` writes its panel VCF and paths TSVs
     (:func:`check_sampled_panel`). Returns the launch counts of the two
@@ -1761,6 +1810,14 @@ def smoke(device, gpu, inputs) -> int:
                 "bound_by": by, "bytes": t[key + "_work"].nbytes,
                 "us_per_column": t[key] * 1e3 / t[key + "_cols"], "library_ms": None}
 
+    def cluster_keys(P):
+        ranks, warps, per_lane, _row = sampling.sweep_layout(P)
+        return {"cluster_ctas": ranks, "warps_per_cta": warps, "paths_per_lane": per_lane}
+
+    from pangenie_tpu_torch.hmm import sampling
+
+    large_p = int(large_times["shape"].split("P=")[1])
+    widest_p = int(widest_times["shape"].split("P=")[1])
     fb_src = "pangenie_tpu_torch/csrc/fb.cu"
     s1_src = "pangenie_tpu_torch/csrc/sampling_dp.cu"
     pallas = "pangenie_tpu/hmm/pallas_fb.py"
@@ -1783,16 +1840,21 @@ def smoke(device, gpu, inputs) -> int:
               "pangenie_tpu/hmm/sampling.py:174", launches["S1"], s1_err, s1_times, "S1"),
         entry("backtrace chase (S1)", s1_src, "pangenie_tpu/hmm/sampling.py:232",
               launches["S1_CHASE"], s1_err, s1_times, "S1_CHASE"),
-        dict(entry("viterbi_iteration at P=2049 (S1: 17 warps of 4 paths a lane, lane merge)",
+        dict(entry(f"viterbi_iteration at P={large_p} (S1: s1_sweep_kernel as "
+                   f"{s1_layout(large_p)} a chromosome, partials pushed by st.async)",
                    s1_src, "pangenie_tpu/hmm/sampling.py:174", large_launches["S1"], large_err,
-                   large_times, "S1"), at=large_times["shape"]),
-        dict(entry("viterbi_iteration at P=6405 (S1: 1024 threads, scores in shared memory)",
-                   s1_src, "pangenie_tpu/hmm/sampling.py:174", widest_launches["S1"],
-                   widest_err, widest_times, "S1"), at=widest_times["shape"]),
-        dict(entry("viterbi_iteration_segmented (S1-seg: sweeps with entry and exit rows, "
-                   "chases from handed-back states)", s1_src,
+                   large_times, "S1"), at=large_times["shape"], **cluster_keys(large_p)),
+        dict(entry(f"viterbi_iteration at P={widest_p} (S1: s1_sweep_kernel as "
+                   f"{s1_layout(widest_p)} a chromosome, partials pushed by st.async)",
+                   s1_src, "pangenie_tpu/hmm/sampling.py:174",
+                   widest_launches["S1"], widest_err, widest_times, "S1"),
+             at=widest_times["shape"], **cluster_keys(widest_p)),
+        dict(entry(f"viterbi_iteration_segmented (S1-seg: s1_sweep_kernel as "
+                   f"{s1_layout(BEYOND_SHAPE[2])} a chromosome, sweeps with entry and exit "
+                   f"rows, chases from handed-back states)", s1_src,
                    "pangenie_tpu/hmm/sampling.py:652", sum(seg_launches.values()), seg_err,
-                   seg_times, "S1_SEG"), plain_at=seg_plain_shape),
+                   seg_times, "S1_SEG"), plain_at=seg_plain_shape,
+             **cluster_keys(BEYOND_SHAPE[2])),
     ]}
     print(json.dumps(record))
     print(gpu_line())

@@ -19,7 +19,7 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 REPO_ROOT = os.path.dirname(PACKAGE_DIR)
@@ -75,14 +75,18 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin)")
 
 
-def load_cuda_library(name: str) -> ctypes.CDLL:
+def load_cuda_library(name: str, defines: Optional[Dict[str, int]] = None) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` for sm_90a (plain C interface, no torch
-    headers; it may include the ``csrc/*.cuh`` headers) and load it."""
+    headers; it may include the ``csrc/*.cuh`` headers) and load it;
+    ``defines`` (macro: value) builds and loads a variant of its own."""
     source = os.path.join(CUDA_SRC_DIR, name + ".cu")
-    out = os.path.join(BUILD_DIR, f"lib{name}.so")
+    defines = defines or {}
+    variant = "".join(f"-{k}={v}" for k, v in sorted(defines.items()))
+    out = os.path.join(BUILD_DIR, f"lib{name}{variant}.so")
     cmd: List[str] = [
         "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", source,
+        *(f"-D{k}={v}" for k, v in sorted(defines.items())),
     ]
     headers = [os.path.join(CUDA_SRC_DIR, f) for f in os.listdir(CUDA_SRC_DIR)
                if f.endswith(".cuh")]
@@ -113,15 +117,18 @@ def launch_stream(device) -> ctypes.c_void_p:
 
 class CudaKernel:
     """One C entry point of a CUDA library in ``csrc/``, bound on first
-    call, with a count of its launches.
+    call, with a count of its launches; ``defines`` binds it in a variant
+    of the library built with those macros (load_cuda_library).
 
     Every entry point returns a cudaError_t (0 = launched); the library
     exports ``pg_<prefix>_error_string`` to name it. ``launches`` grows
     by one per successful launch, and nowhere else.
     """
 
-    def __init__(self, library: str, symbol: str, error_prefix: str, argtypes):
+    def __init__(self, library: str, symbol: str, error_prefix: str, argtypes,
+                 defines: Optional[Dict[str, int]] = None):
         self.library = library
+        self.defines = defines
         self.symbol = symbol
         self._error_symbol = f"pg_{error_prefix}_error_string"
         self._argtypes = argtypes
@@ -131,7 +138,7 @@ class CudaKernel:
 
     def lib(self) -> ctypes.CDLL:
         if self._lib is None:
-            lib = load_cuda_library(self.library)
+            lib = load_cuda_library(self.library, self.defines)
             fn = getattr(lib, self.symbol)
             fn.argtypes = self._argtypes
             fn.restype = ctypes.c_int

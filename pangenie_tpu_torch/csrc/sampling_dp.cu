@@ -20,33 +20,48 @@
 // its instructions, not bandwidth or arithmetic: the design shortens the
 // chain and keeps what is not on it off it.
 //
-// Sweep, one CTA per chromosome, in three tiers by P (sweep_layout):
-// - P <= 128: one warp, each lane holding R = ceil(P/32) consecutive
-//   paths in registers, so lane order is path order. No barrier. Only the
-//   column minimum is on the chain (one __reduce_min_sync, redux.sync):
-//   the scores' recurrence needs nothing else, and the lane's next
-//   minimum follows from it in three operations (see s1_sweep_kernel). The
-//   first path at the minimum, which only the backtraces need, is one
-//   more reduction off the chain, and the next path at it another, only
-//   before a column whose switch is free. P <= 1024: W = ceil(P/128)
+// Sweep, in three tiers by P (sweep_layout):
+// - P <= 128: one CTA per chromosome, one warp, each lane holding R =
+//   ceil(P/32) consecutive paths in registers, so lane order is path
+//   order. No barrier. Only the column minimum is on the chain (one
+//   __reduce_min_sync, redux.sync): the scores' recurrence needs nothing
+//   else, and the lane's next minimum follows from it in three operations
+//   (see s1_sweep_kernel). The first path at the minimum, which only the
+//   backtraces need, is one more reduction off the chain, and the next
+//   path at it another, only before a column whose switch is free.
+//   P <= 1024: W = ceil(P/128)
 //   warps of 4 paths a lane merge theirs through double-buffered shared
 //   partials, one barrier a column, each thread reading the W partials.
-// - P <= 4096 (S1_REGISTER_PATHS): the same with W = ceil(P/128) up to 32
-//   warps, W a runtime value (one instance), a ring of S1_WIDE_DEPTH
-//   columns (1024 threads leave 64 registers a thread), and each warp
-//   merging the W partials in its lanes: one shared load and three
-//   redux.sync instead of 2W loads in every thread.
-// - P > 4096: 1024 threads, thread t holding paths t, t + 1024, ...,
-//   their scores in shared memory (4 bytes a path, up to 57,856 paths),
-//   past that in a global scratch row [C, P] (L2-resident). A thread keeps
-//   the first two of its paths at its minimum as it walks them; warps and
+// - P <= 65,536 (S1_CLUSTER_PATHS): a thread-block cluster of K CTAs per
+//   chromosome, CTA k sweeping the k-th contiguous slice of the paths
+//   with the code above: W = ceil(P/(8*128)) warps of 4 paths a lane
+//   (ceil(P/(16*128)) where 8 CTAs of 32 warps would not hold the paths),
+//   then K = ceil(P/(128*W)) <= 8 (16) CTAs of W warps, so no CTA holds
+//   only padding; past 8 warps W is a runtime value, one instance with a
+//   ring of S1_WIDE_DEPTH columns, as 1024 threads leave 64 registers a
+//   thread. So K SMs share the column's work (on an H100 the cluster of 6
+//   CTAs of 3 warps is 1.49x faster than one CTA of 17 warps at P=2049,
+//   8 of 4 2.3x than one of 32 at P=4096: tools/s1_times.py --wide against
+//   a checkout from before the cluster; --ranks builds the source with
+//   other S1_CLUSTER_RANKS and times those). The one new step on the chain
+//   is the cluster's merge (cluster_col): every warp
+//   pushes its (m1, f1, g) into the shared memory of every CTA of the
+//   cluster (st.async, csrc/cluster.cuh), each CTA waits on its own
+//   mbarrier alone, and every warp merges the K x W partials from its own
+//   shared memory. CTA order is path order, so the first-minimum rule and
+//   the padding carry over unchanged.
+// - P > 65,536: one CTA of
+//   1024 threads, thread t holding paths t, t + 1024, ..., their scores
+//   in a global scratch row [C, P] (L2-resident). A thread keeps the
+//   first two of its paths at its minimum as it walks them; warps and
 //   block merge as above. Columns S1_AHEAD ahead are prefetched into L2.
 // - No load on the column's chain in the register tiers: cost, mask and
 //   switch of column n + depth are loaded into a register ring while
 //   column n reduces.
 // - Backtraces uint8 (P <= 256), uint16 (P <= 65,536) or uint32, rows of
-//   32*W*R entries (entry p of a row is path p's); a lane's R entries
-//   leave as one store where they make 1, 2, 4 or 8 bytes.
+//   K*32*W*R entries (entry p of a row is path p's, the padding at the
+//   end); a lane's R entries leave as one store where they make 1, 2, 4
+//   or 8 bytes.
 // Chase, N columns cut into S segments of L (hmm/sampling.py picks L):
 // - s1_maps_kernel: for every segment but the first and every state at
 //   its last column, follow its L backtraces to the state at the column
@@ -68,20 +83,33 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster.cuh"
+
 #define UMAX 0xFFFFFFFFu
 #define NONE 0xFFFFFFFFu  // the index of no path: above every real one
 #define FULL_MASK 0xFFFFFFFFu
-// the register tiers' edge: 32 warps of 4 paths a lane
+// one CTA's edge: 8 warps of 4 paths a lane; and what a CTA holds in
+// registers: 32 warps of 4 paths a lane
+#define S1_CTA_PATHS 1024
 #define S1_REGISTER_PATHS 4096
-// columns in flight in the register ring, up to 8 warps and above
+// the cluster tier: up to S1_CLUSTER_RANKS CTAs a chromosome, or up to
+// S1_MAX_RANKS (the non-portable cluster size) where that many CTAs of
+// 32 warps would not hold the paths; past S1_CLUSTER_PATHS, one CTA
+// (tools/s1_times.py builds other S1_CLUSTER_RANKS to time them)
+#ifndef S1_CLUSTER_RANKS
+#define S1_CLUSTER_RANKS 8
+#endif
+#define S1_MAX_RANKS 16
+#define S1_CLUSTER_PATHS (S1_MAX_RANKS * S1_REGISTER_PATHS)
+// columns in flight in the register ring, up to 8 warps a CTA and above
 #define S1_DEPTH 8
 #define S1_WIDE_DEPTH 2
-// threads of the wide tiers' CTA and the partials' words: [2][32][4]
+// threads of the CTA past S1_CLUSTER_PATHS and its partials' words:
+// [2][32][4]
 #define S1_THREADS 1024
 #define S1_PART_WORDS (2 * 4 * 32)
-// dynamic shared memory one H100 block can use
-#define S1_SMEM_BYTES 232448
-// columns the shared tier prefetches into L2 ahead of the one it sweeps,
+// columns the one-CTA tier past S1_CLUSTER_PATHS prefetches into L2
+// ahead of the one it sweeps,
 // and the paths a thread loads together
 #define S1_AHEAD 8
 #define S1_UNROLL 8
@@ -91,8 +119,7 @@
 
 typedef unsigned long long u64;
 
-// the multi-warp sweeps' partials: [2 buffers][warps][m1, f1, g, -]; the
-// shared tier keeps its scores after S1_PART_WORDS
+// the multi-warp sweeps' partials: [2 buffers][warps][m1, f1, g, -]
 extern __shared__ __align__(16) u64 s1_shm[];
 
 // min(a + b, UMAX) as uint32: where a > ~b the sum overflows and
@@ -161,17 +188,14 @@ __device__ __forceinline__ Col block_merge(const Col c, int step, bool need_g) {
     return lane_merge(m, i1, i2, need_g);
 }
 
-// The block's Col; `step` alternates the partials' buffer. W = 0: the
-// warps are blockDim.x / 32, up to 32, merged by block_merge; W <= 8:
-// every thread reads the W partials.
+// The block's Col from its W <= 8 warps; `step` alternates the
+// partials' buffer; every thread reads the W partials.
 template <int R, int W>
 __device__ __forceinline__ Col block_col(const unsigned (&score)[R], unsigned lane_min,
                                          unsigned first, int step, bool need_g) {
     const Col c = warp_col<R>(score, lane_min, first, need_g);
     if constexpr (W == 1) {
         return c;
-    } else if constexpr (W == 0) {
-        return block_merge(c, step, need_g);
     } else {
         unsigned* part = reinterpret_cast<unsigned*>(s1_shm) + (step & 1) * 4 * W;
         const int warp = threadIdx.x >> 5;
@@ -198,6 +222,54 @@ __device__ __forceinline__ Col block_col(const unsigned (&score)[R], unsigned la
         }
         return {m1, f1, g};
     }
+}
+
+// The cluster's Col from its CTAs' warps (each CTA W of them, W = 0: up
+// to 32, blockDim.x / 32), given the warp's own Col c. Dynamic shared
+// memory holds two mbarriers, then two buffers of ranks x W partials
+// (buffer step & 1). Thread 0 arms this CTA's mbarrier of the buffer with
+// the ranks x W x 16 bytes it expects; lanes 0..ranks-1 of every warp
+// push the warp's partial into slot rank x W + warp of that buffer in
+// CTA `lane` (st.async, which completes 16 bytes on that CTA's mbarrier);
+// every thread runs `between` (work off the chain: the backtraces'
+// store, the ring's next loads) and waits on its own CTA's mbarrier
+// alone; then lane l of every warp reads partials l, l + 32, ... from its
+// own shared memory, keeping the least score and its first two paths,
+// and the lanes merge theirs (lane_merge: the partials need no order).
+// `phases` holds each mbarrier's phase parity. A CTA pushes into buffer
+// step & 1 again two columns later, after the next column's wait, which
+// completes only once every warp of the cluster has pushed that column,
+// so after it has read this one. (A cluster barrier in place of the
+// mbarriers, every warp then reading the partials through distributed
+// shared memory, took 1.48 us a column over the warps' own reductions on
+// an H100 at 8 CTAs, the push 0.42: tools/s1_cluster_merge.py.)
+template <int W, typename F>
+__device__ __forceinline__ Col cluster_col(const Col c, int step, bool need_g, unsigned rank,
+                                           unsigned ranks, unsigned& phases, F&& between) {
+    const unsigned lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const unsigned warps = W ? W : blockDim.x >> 5, total = ranks * warps;
+    const unsigned b = step & 1;
+    uint64_t* bar = reinterpret_cast<uint64_t*>(s1_shm) + b;
+    uint4* part = reinterpret_cast<uint4*>(s1_shm) + 1 + b * total;
+    if (threadIdx.x == 0) mbar_expect(bar, 16 * total);
+    if (lane < ranks)
+        cluster_push4(part + rank * warps + warp, lane, make_uint4(c.m1, c.f1, c.g, 0), bar);
+    between();
+    mbar_wait(bar, (phases >> b) & 1);
+    phases ^= 1u << b;
+    unsigned m = UMAX, i1 = NONE, i2 = NONE;
+    for (unsigned q = lane; q < total; q += 32) {
+        const uint4 v = part[q];
+        if (v.x < m) {
+            m = v.x;
+            i1 = v.y;
+            i2 = v.z;
+        } else if (v.x == m) {  // the first two of {i1, i2, f, g}
+            i2 = min(min(i2, v.z), max(i1, v.y));
+            i1 = min(i1, v.y);
+        }
+    }
+    return lane_merge(m, i1, i2, need_g);
 }
 
 // Column n's cost, mask byte (0 for padding paths) and switch into one
@@ -267,15 +339,21 @@ __device__ __forceinline__ void store_backs(BT* dst, const unsigned (&back)[R]) 
 // CARRY, none of this is in the code: the unrolled columns stay one
 // block of straight-line code, with no branch a column (a branch a
 // column made the one-warp sweep at P=123 46% slower on an H100).
-template <int R, int W, int D, bool CARRY, typename BT>
+// With CLUSTER, the CTA is rank k of a cluster of `ranks` CTAs
+// (blockIdx.x / ranks is the chromosome): its paths are the k-th slice
+// of a row, and the Col of a column is the cluster's (cluster_col).
+template <int R, int W, int D, bool CARRY, bool CLUSTER, typename BT>
 __global__ void __launch_bounds__(W ? 32 * W : S1_THREADS)
     s1_sweep_kernel(const unsigned* __restrict__ cost, const unsigned char* __restrict__ mask,
                     const unsigned* __restrict__ sw, const unsigned* __restrict__ carry_in,
                     unsigned* __restrict__ carry_out, BT* __restrict__ bt,
-                    unsigned* __restrict__ best, int* __restrict__ ends, int N, int P) {
-    const int c = blockIdx.x;
-    const unsigned first = threadIdx.x * R;  // the lane's first path
-    const size_t row = (size_t)(W ? 32 * W : blockDim.x) * R;
+                    unsigned* __restrict__ best, int* __restrict__ ends, int N, int P,
+                    int ranks) {
+    const int c = blockIdx.x / ranks;
+    const unsigned rank = CLUSTER ? cluster_rank() : 0;
+    const unsigned slice = (W ? 32 * W : blockDim.x) * R;  // the CTA's paths
+    const unsigned first = rank * slice + threadIdx.x * R;  // the lane's first path
+    const size_t row = (size_t)ranks * slice;
     const bool keep = !CARRY || bt != nullptr;
     cost += (size_t)c * N * P;
     mask += (size_t)c * N * P;
@@ -289,8 +367,27 @@ __global__ void __launch_bounds__(W ? 32 * W : S1_THREADS)
         load_column<R>(ring_cost[d], ring_live[d], ring_sw[d], cost, mask, sw, min(d, N - 1),
                        P, first);
 
-    unsigned score[R], back[R], lane_min = UMAX;
+    unsigned score[R], back[R], lane_min = UMAX, phases = 0;
     Col col = {UMAX, NONE, NONE};
+    if constexpr (CLUSTER) {
+        if (threadIdx.x == 0) {
+            mbar_init(reinterpret_cast<uint64_t*>(s1_shm));
+            mbar_init(reinterpret_cast<uint64_t*>(s1_shm) + 1);
+        }
+        cluster_arrive();  // no push before every CTA's mbarriers are set up
+        cluster_wait();
+    }
+    // the Col of the scores, `between` run first (one CTA) or while the
+    // cluster's partials come in
+    auto merge = [&](unsigned least, int buffer, bool need_g, auto&& between) -> Col {
+        if constexpr (CLUSTER) {
+            return cluster_col<W>(warp_col<R>(score, least, first, need_g), buffer, need_g,
+                                  rank, ranks, phases, between);
+        } else {
+            between();
+            return block_col<R, W>(score, least, first, buffer, need_g);
+        }
+    };
     auto step = [&](int n, int k) {
         const unsigned s = ring_sw[k], c1 = sat_add(col.m1, s);
         const unsigned at_first =
@@ -306,11 +403,12 @@ __global__ void __launch_bounds__(W ? 32 * W : S1_THREADS)
             a_min = min(a_min, a);
             u_min = min(u_min, u);
         }
-        if (keep) store_backs<R>(bt + (size_t)n * row, back);
-        load_column<R>(ring_cost[k], ring_live[k], ring_sw[k], cost, mask, sw,
-                       min(n + D, N - 1), P, first);
-        col = block_col<R, W>(score, min(a_min, sat_add(col.m1, u_min)), first, n,
-                              ring_sw[(k + 1) % D] == 0);
+        const bool need_g = ring_sw[(k + 1) % D] == 0;
+        col = merge(min(a_min, sat_add(col.m1, u_min)), n, need_g, [&] {
+            if (keep) store_backs<R>(bt + (size_t)n * row, back);
+            load_column<R>(ring_cost[k], ring_live[k], ring_sw[k], cost, mask, sw,
+                           min(n + D, N - 1), P, first);
+        });
     };
     if (CARRY && carry_in) {
         // the carried column's Col (partials' buffer 1), then column 0
@@ -319,7 +417,7 @@ __global__ void __launch_bounds__(W ? 32 * W : S1_THREADS)
             score[j] = first + j < (unsigned)P ? carry_in[(size_t)c * P + first + j] : UMAX;
             lane_min = min(lane_min, score[j]);
         }
-        col = block_col<R, W>(score, lane_min, first, -1, ring_sw[0] == 0);
+        col = merge(lane_min, -1, ring_sw[0] == 0, [] {});
         step(0, 0);
     } else {
         // column 0: score 0 before its cost, backtrace 0
@@ -329,10 +427,11 @@ __global__ void __launch_bounds__(W ? 32 * W : S1_THREADS)
             lane_min = min(lane_min, score[j]);
             back[j] = 0;
         }
-        if (keep) store_backs<R>(bt, back);
-        load_column<R>(ring_cost[0], ring_live[0], ring_sw[0], cost, mask, sw, min(D, N - 1),
-                       P, first);
-        col = block_col<R, W>(score, lane_min, first, 0, ring_sw[1 % D] == 0);
+        col = merge(lane_min, 0, ring_sw[1 % D] == 0, [&] {
+            if (keep) store_backs<R>(bt, back);
+            load_column<R>(ring_cost[0], ring_live[0], ring_sw[0], cost, mask, sw,
+                           min(D, N - 1), P, first);
+        });
     }
     int n0 = 1;
     for (; n0 + D <= N; n0 += D) {
@@ -344,7 +443,7 @@ __global__ void __launch_bounds__(W ? 32 * W : S1_THREADS)
         if (n0 + d >= N) break;
         step(n0 + d, (d + 1) % D);
     }
-    if (threadIdx.x == 0) {
+    if (rank == 0 && threadIdx.x == 0) {
         best[c] = col.m1;
         ends[c] = (int)col.f1;
     }
@@ -352,6 +451,11 @@ __global__ void __launch_bounds__(W ? 32 * W : S1_THREADS)
 #pragma unroll
         for (int j = 0; j < R; ++j)
             if (first + j < (unsigned)P) carry_out[(size_t)c * P + first + j] = score[j];
+    }
+    if constexpr (CLUSTER) {
+        // no CTA leaves while another may still push into it
+        cluster_arrive();
+        cluster_wait();
     }
 }
 
@@ -384,10 +488,10 @@ __device__ __forceinline__ void prefetch_column(const unsigned* cost,
         PREFETCH_L2(mask + at + p);
 }
 
-// The sweep for P > S1_REGISTER_PATHS: 1024 threads, thread t holding
-// paths t, t + 1024, ...; its scores in shared memory or, where
-// `scratch` is given, in scratch [C, P]. A thread reads and writes only
-// its own scores, so only the Col's merge needs a barrier. The same
+// The sweep of one CTA past S1_CTA_PATHS (the rule's past
+// S1_CLUSTER_PATHS): 1024 threads, thread t holding paths t, t + 1024,
+// ...; its scores in scratch [C, P]. A thread reads and writes only its
+// own scores, so only the Col's merge needs a barrier. The same
 // recurrence, entry and exit rows and backtrace rule as s1_sweep_kernel,
 // written for one path at a time: s' = sat(min(s, c1) + cost).
 template <typename BT>
@@ -400,8 +504,7 @@ __global__ void __launch_bounds__(S1_THREADS)
                          unsigned* __restrict__ scratch, int N, int P, int row) {
     const int c = blockIdx.x;
     const unsigned t = threadIdx.x;
-    unsigned* __restrict__ score = scratch ? scratch + (size_t)c * P
-                                           : reinterpret_cast<unsigned*>(s1_shm) + S1_PART_WORDS;
+    unsigned* __restrict__ score = scratch + (size_t)c * P;
     const bool keep = bt != nullptr;
     cost += (size_t)c * N * P;
     mask += (size_t)c * N * P;
@@ -523,28 +626,43 @@ __global__ void s1_rewalk_kernel(const BT* __restrict__ bt, const int* __restric
     if (s == 0 && state_out) state_out[c] = b[x];
 }
 
-// The sweep's layout, as hmm/sampling.py:sweep_layout derives it: W warps
-// of R paths a lane.
-static bool sweep_layout(int P, int& W, int& R) {
+// The sweep's layout, as hmm/sampling.py:sweep_layout derives it: K CTAs
+// a chromosome, each of W warps of R paths a lane (W = 0: one CTA of
+// 1024 threads, the scores in a scratch row). One CTA up to
+// S1_CTA_PATHS paths; then, up to S1_CLUSTER_PATHS, a cluster: W warps
+// of 4 paths a lane as S1_CLUSTER_RANKS CTAs need them (S1_MAX_RANKS
+// where S1_CLUSTER_RANKS CTAs of 32 warps would not hold the paths),
+// then the fewest CTAs of W warps that hold the paths, so that none
+// holds only padding; then W = 0. False where no instance takes P
+// (only in a build with another S1_CLUSTER_RANKS).
+static bool sweep_layout(int P, int& K, int& W, int& R) {
     if (P < 1) return false;
+    K = 1;
     if (P <= 128) {
         W = 1;
         R = (P + 31) / 32;
-    } else if (P <= S1_REGISTER_PATHS) {
+    } else if (P <= S1_CTA_PATHS) {
         W = (P + 127) / 128;
         R = 4;
+    } else if (P <= S1_CLUSTER_PATHS) {
+        const int most = P <= S1_CLUSTER_RANKS * S1_REGISTER_PATHS ? S1_CLUSTER_RANKS
+                                                                   : S1_MAX_RANKS;
+        W = (P + 128 * most - 1) / (128 * most);
+        K = (P + 128 * W - 1) / (128 * W);
+        R = 4;
+        return W >= 2 && W <= 32;
     } else {
-        W = S1_THREADS / 32;
+        W = 0;
         R = (P + S1_THREADS - 1) / S1_THREADS;
     }
     return true;
 }
 
-// Whether the shared tier keeps P scores in shared memory, beside the
-// partials (else the caller gives a scratch row a chromosome).
-static bool scores_in_shared(int P) {
-    return 4 * ((size_t)S1_PART_WORDS + P) <= S1_SMEM_BYTES;
-}
+// Whether the layout for P paths is the cluster tier's.
+static bool clustered(int P) { return P > S1_CTA_PATHS && P <= S1_CLUSTER_PATHS; }
+
+// The entries of a backtrace row: every CTA's paths.
+static int layout_row(int K, int W, int R) { return K * (W ? 32 * W : S1_THREADS) * R; }
 
 template <typename Kernel, typename... Args>
 static int launch(Kernel kernel, int blocks, int threads, size_t smem, void* stream,
@@ -553,20 +671,72 @@ static int launch(Kernel kernel, int blocks, int threads, size_t smem, void* str
     return (int)cudaGetLastError();
 }
 
+// A cluster launch of `blocks` CTAs in clusters of `ranks`, once
+// cudaOccupancyMaxActiveClusters says one such cluster fits the card;
+// else cudaErrorLaunchOutOfResources, and nothing runs. With `fits`
+// given, only that reading is written there.
+template <typename... Params, typename... Args>
+static int launch_cluster(void (*kernel)(Params...), int blocks, int ranks, int threads,
+                          size_t smem, void* stream, int* fits, Args... args) {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = ranks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t config = {};
+    config.gridDim.x = blocks;
+    config.gridDim.y = config.gridDim.z = 1;
+    config.blockDim.x = threads;
+    config.blockDim.y = config.blockDim.z = 1;
+    config.dynamicSmemBytes = smem;
+    config.stream = (cudaStream_t)stream;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    int err = 0;
+    if (ranks > 8)
+        err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err) return err;
+    int clusters = 0;
+    err = (int)cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+    if (err) return err;
+    if (fits) {
+        *fits = clusters;
+        return 0;
+    }
+    if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
+    err = (int)cudaLaunchKernelEx(&config, kernel, args...);
+    if (err) return err;
+    return (int)cudaGetLastError();
+}
+
+// The cluster tier's instance for W warps a CTA (W > 8: the runtime-W
+// one, its ring S1_WIDE_DEPTH deep); its shared memory: two mbarriers and
+// two buffers of K x W partials.
+template <bool CARRY>
+static int sweep_cluster(int K, int W, int* fits, const unsigned* cost,
+                         const unsigned char* mask, const unsigned* sw,
+                         const unsigned* carry_in, unsigned* carry_out, void* bt,
+                         unsigned* best, int* ends, int C, int N, int P, void* stream) {
+#define S1_CLUSTER(w, d)                                                                       \
+    if (W == w || (w == 0 && W > 8))                                                           \
+        return launch_cluster(s1_sweep_kernel<4, w, d, CARRY, true, uint16_t>, C * K, K,       \
+                              32 * W, 16 + 32 * (size_t)K * W, stream, fits, cost, mask, sw,   \
+                              carry_in, carry_out, (uint16_t*)bt, best, ends, N, P, K);
+    S1_CLUSTER(2, S1_DEPTH) S1_CLUSTER(3, S1_DEPTH) S1_CLUSTER(4, S1_DEPTH)
+    S1_CLUSTER(5, S1_DEPTH) S1_CLUSTER(6, S1_DEPTH) S1_CLUSTER(7, S1_DEPTH)
+    S1_CLUSTER(8, S1_DEPTH) S1_CLUSTER(0, S1_WIDE_DEPTH)
+#undef S1_CLUSTER
+    return (int)cudaErrorInvalidValue;
+}
+
 template <typename BT>
 static int sweep_many(const unsigned* cost, const unsigned char* mask, const unsigned* sw,
                       const unsigned* carry_in, unsigned* carry_out, void* bt, unsigned* best,
                       int* ends, unsigned* scratch, int C, int N, int P, int row,
                       void* stream) {
-    const bool shared = scores_in_shared(P);
-    if (!shared && !scratch) return (int)cudaErrorInvalidValue;
-    const size_t smem = 4 * ((size_t)S1_PART_WORDS + (shared ? P : 0));
-    const int err = (int)cudaFuncSetAttribute(
-        s1_sweep_many_kernel<BT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err) return err;
-    return launch(s1_sweep_many_kernel<BT>, C, S1_THREADS, smem, stream, cost, mask, sw,
-                  carry_in, carry_out, (BT*)bt, best, ends, shared ? nullptr : scratch, N, P,
-                  row);
+    if (!scratch) return (int)cudaErrorInvalidValue;
+    return launch(s1_sweep_many_kernel<BT>, C, S1_THREADS, 4 * S1_PART_WORDS, stream, cost,
+                  mask, sw, carry_in, carry_out, (BT*)bt, best, ends, scratch, N, P, row);
 }
 
 template <typename BT>
@@ -591,38 +761,36 @@ extern "C" const char* pg_s1_error_string(int code) {
 // cost, mask [C, N, P]; sw [C, N]; carry_in, carry_out [C, P] (uint32
 // scores of the column before column 0 and of the last column) or null;
 // bt [C, N, row] uint8 for P <= 256, uint16 for P <= 65,536, else
-// uint32, or null (no backtraces); best (uint32 bits) and ends [C]; scratch [C, P]
-// uint32 where P > S1_REGISTER_PATHS and the scores do not fit in shared
-// memory, else ignored.
+// uint32, or null (no backtraces); best (uint32 bits) and ends [C];
+// scratch [C, P] uint32 for the one-CTA tier past S1_CLUSTER_PATHS,
+// else ignored.
 extern "C" int pg_s1_sweep(const unsigned* cost, const unsigned char* mask,
                            const unsigned* sw, const unsigned* carry_in, unsigned* carry_out,
                            void* bt, unsigned* best, int* ends, unsigned* scratch, int C,
                            int N, int P, int row, void* stream) {
-    int W, R;
-    if (C < 1 || N < 1 || !sweep_layout(P, W, R) || row != 32 * W * R)
+    int K, W, R;
+    if (C < 1 || N < 1 || !sweep_layout(P, K, W, R) || row != layout_row(K, W, R))
         return (int)cudaErrorInvalidValue;
-    if (P > S1_REGISTER_PATHS)
+    const bool carry = carry_in || carry_out || !bt;
+    if (clustered(P))
+        return carry ? sweep_cluster<true>(K, W, nullptr, cost, mask, sw, carry_in, carry_out,
+                                           bt, best, ends, C, N, P, stream)
+                     : sweep_cluster<false>(K, W, nullptr, cost, mask, sw, carry_in,
+                                            carry_out, bt, best, ends, C, N, P, stream);
+    if (W == 0)
         return P <= 65536 ? sweep_many<uint16_t>(cost, mask, sw, carry_in, carry_out, bt, best,
                                                  ends, scratch, C, N, P, row, stream)
                           : sweep_many<uint32_t>(cost, mask, sw, carry_in, carry_out, bt, best,
                                                  ends, scratch, C, N, P, row, stream);
-    const bool carry = carry_in || carry_out || !bt;
-    if (W > 8)
-        return carry ? launch(s1_sweep_kernel<4, 0, S1_WIDE_DEPTH, true, uint16_t>, C, 32 * W,
-                              4 * S1_PART_WORDS, stream, cost, mask, sw, carry_in, carry_out,
-                              (uint16_t*)bt, best, ends, N, P)
-                     : launch(s1_sweep_kernel<4, 0, S1_WIDE_DEPTH, false, uint16_t>, C,
-                              32 * W, 4 * S1_PART_WORDS, stream, cost, mask, sw, carry_in,
-                              carry_out, (uint16_t*)bt, best, ends, N, P);
     const size_t smem = W > 1 ? 8 * W * sizeof(unsigned) : 0;
 #define S1_SWEEP(w, r, T)                                                                  \
     if (W == w && R == r)                                                                  \
-        return carry ? launch(s1_sweep_kernel<r, w, S1_DEPTH, true, T>, C, 32 * w, smem,   \
-                              stream, cost, mask, sw, carry_in, carry_out, (T*)bt, best,   \
-                              ends, N, P)                                                  \
-                     : launch(s1_sweep_kernel<r, w, S1_DEPTH, false, T>, C, 32 * w, smem,  \
-                              stream, cost, mask, sw, carry_in, carry_out, (T*)bt, best,   \
-                              ends, N, P);
+        return carry ? launch(s1_sweep_kernel<r, w, S1_DEPTH, true, false, T>, C, 32 * w,  \
+                              smem, stream, cost, mask, sw, carry_in, carry_out, (T*)bt,   \
+                              best, ends, N, P, 1)                                         \
+                     : launch(s1_sweep_kernel<r, w, S1_DEPTH, false, false, T>, C, 32 * w, \
+                              smem, stream, cost, mask, sw, carry_in, carry_out, (T*)bt,   \
+                              best, ends, N, P, 1);
     S1_SWEEP(1, 1, uint8_t) S1_SWEEP(1, 2, uint8_t) S1_SWEEP(1, 3, uint8_t)
     S1_SWEEP(1, 4, uint8_t) S1_SWEEP(2, 4, uint8_t) S1_SWEEP(3, 4, uint16_t)
     S1_SWEEP(4, 4, uint16_t) S1_SWEEP(5, 4, uint16_t) S1_SWEEP(6, 4, uint16_t)
@@ -631,16 +799,27 @@ extern "C" int pg_s1_sweep(const unsigned* cost, const unsigned char* mask,
     return (int)cudaErrorInvalidValue;
 }
 
+// The clusters of the sweep's instance for P paths that fit the card at
+// once, by cudaOccupancyMaxActiveClusters, into `clusters`; 0 where the
+// layout is not a cluster.
+extern "C" int pg_s1_cluster_fits(int P, int* clusters) {
+    int K, W, R;
+    if (!sweep_layout(P, K, W, R)) return (int)cudaErrorInvalidValue;
+    *clusters = 0;
+    return clustered(P) ? sweep_cluster<false>(K, W, clusters, nullptr, nullptr, nullptr, nullptr,
+                                        nullptr, nullptr, nullptr, nullptr, 1, 1, P, nullptr)
+                 : 0;
+}
+
 // The path [C, N] from the sweep's bt and the states `ends` [C] at the
 // last column, through segments of L columns; maps: [C, ceil(N / L), P]
 // int32 scratch; state_out [C] (or null): the state at the column before
-// column 0 that the path's backtrace there names.
+// column 0 that the path's backtrace there names. A row of `row` entries
+// holds path p's at entry p, whatever the sweep's layout.
 extern "C" int pg_s1_chase(const void* bt, const int* ends, int* maps, int* path,
                            int* state_out, int C, int N, int P, int row, int L,
                            void* stream) {
-    int W, R;
-    if (C < 1 || N < 1 || L < 1 || !sweep_layout(P, W, R) || row != 32 * W * R)
-        return (int)cudaErrorInvalidValue;
+    if (C < 1 || N < 1 || L < 1 || P < 1 || row < P) return (int)cudaErrorInvalidValue;
     if (P <= 256)
         return chase<uint8_t>(bt, ends, maps, path, state_out, C, N, P, row, L, stream);
     if (P <= 65536)

@@ -3,8 +3,9 @@
 Port of ``pangenie_tpu/hmm/sampling.py:sample_panels_batched``
 (reference src/haplotypesampler.cpp:20-314). Each of the ``size``
 greedy iterations runs one masked single-path min-plus Viterbi per
-chromosome — kernel S1 (``csrc/sampling_dp.cu``: a sweep, then a
-parallel chase of the backtraces) on the card, the plain column loop
+chromosome — kernel S1 (``csrc/sampling_dp.cu``: a sweep, past 1024
+paths on a thread-block cluster of CTAs a chromosome, then a parallel
+chase of the backtraces) on the card, the plain column loop
 :func:`viterbi_iteration_plain` on the CPU — then masks the chosen
 paths and penalizes their alleles with elementwise torch
 (``min(cost + penalty, 25)``, padding columns left alone). Any number
@@ -50,40 +51,52 @@ _I = ctypes.c_int
 # entry and exit rows, the checkpointed scan _viterbi_iteration_segmented
 S1 = CudaKernel("sampling_dp", "pg_s1_sweep", "s1", [_P] * 9 + [_I] * 4 + [_P])
 S1_CHASE = CudaKernel("sampling_dp", "pg_s1_chase", "s1", [_P] * 5 + [_I] * 5 + [_P])
-# the register tiers' edge (csrc/sampling_dp.cu: S1_REGISTER_PATHS): 32
-# warps of 4 paths a lane; above it, 1024 threads of ceil(P/1024) paths
+# S1's tiers (csrc/sampling_dp.cu): one CTA up to CTA_PATHS (8 warps of
+# 4 paths a lane); above it a cluster of up to CLUSTER_RANKS CTAs a
+# chromosome, or up to MAX_RANKS where CLUSTER_RANKS CTAs of 32 warps
+# (REGISTER_PATHS paths each) would not hold the paths (up to
+# CLUSTER_PATHS); past that one CTA of THREADS threads of ceil(P/1024).
+# CLUSTER_RANKS is the source's S1_CLUSTER_RANKS: a library built with
+# another (tools/s1_times.py --ranks) is driven with this set to match.
+CTA_PATHS = 1024
 REGISTER_PATHS = 4096
+CLUSTER_RANKS = 8
+MAX_RANKS = 16
+CLUSTER_PATHS = MAX_RANKS * REGISTER_PATHS
 THREADS = 1024
-# an H100 block's shared memory, and the words of the partials before
-# the shared tier's scores there
-SMEM_BYTES = 232_448
-PART_WORDS = 2 * 4 * 32
 
 
 def sweep_layout(P: int):
-    """(warps, paths a lane, backtrace row) of S1's sweep for P paths:
-    one warp of ceil(P/32) paths a lane up to 128 paths, ceil(P/128)
-    warps of 4 up to 4096, else 32 warps of ceil(P/1024); a row holds
-    every lane's paths."""
+    """(CTAs a chromosome, warps a CTA, paths a lane, backtrace row) of
+    S1's sweep for P paths, as csrc/sampling_dp.cu:sweep_layout derives
+    them: one CTA of one warp of ceil(P/32) paths a lane up to 128 paths,
+    of ceil(P/128) warps of 4 up to CTA_PATHS; then a cluster whose CTAs
+    have the warps of 4 paths a lane that CLUSTER_RANKS CTAs need
+    (MAX_RANKS where CLUSTER_RANKS CTAs of 32 warps would not hold the
+    paths), as few CTAs as hold the paths, so none holds only padding;
+    past CLUSTER_PATHS one CTA of 32 warps of ceil(P/1024). ValueError
+    where no instance takes the layout (only with another CLUSTER_RANKS).
+    A row holds every CTA's paths, path p at entry p."""
+    ranks = 1
     if P <= 128:
         warps, per_lane = 1, -(-P // 32)
-    elif P <= REGISTER_PATHS:
+    elif P <= CTA_PATHS:
         warps, per_lane = -(-P // 128), 4
+    elif P <= CLUSTER_PATHS:
+        most = CLUSTER_RANKS if P <= CLUSTER_RANKS * REGISTER_PATHS else MAX_RANKS
+        warps, per_lane = -(-P // (128 * most)), 4
+        ranks = -(-P // (128 * warps))
+        if not 2 <= warps <= 32:
+            raise ValueError(f"S1 has no cluster of CTAs of {warps} warps ({P} paths)")
     else:
         warps, per_lane = THREADS // 32, -(-P // THREADS)
-    return warps, per_lane, 32 * warps * per_lane
+    return ranks, warps, per_lane, ranks * 32 * warps * per_lane
 
 
 def backtrace_dtype(P: int) -> torch.dtype:
     """uint8 backtraces up to 256 paths, 16 bits (uint16 in int16) up to
     65,536, else int32."""
     return torch.uint8 if P <= 256 else torch.int16 if P <= 65536 else torch.int32
-
-
-def scores_in_shared(P: int) -> bool:
-    """Whether the sweep above REGISTER_PATHS keeps its P scores in shared
-    memory beside the partials (else in a scratch row a chromosome)."""
-    return 4 * (PART_WORDS + P) <= SMEM_BYTES
 
 
 def chase_segment(N: int) -> int:
@@ -281,7 +294,7 @@ def s1_sweep(path_cost, mask, switch, carry_in=None, carry_out=False, backtraces
     False keeps none. ``sweep`` is the C entry point (the emulated test
     passes its own); ``stream`` defaults to the device's current one."""
     C, N, P = path_cost.shape
-    _warps, _per_lane, row = sweep_layout(P)
+    row = sweep_layout(P)[3]
     dev = path_cost.device
 
     def empty(shape, dtype=torch.int32):
@@ -290,7 +303,7 @@ def s1_sweep(path_cost, mask, switch, carry_in=None, carry_out=False, backtraces
     bt = empty((C, N, row), backtrace_dtype(P)) if backtraces else None
     best, ends = empty((C,)), empty((C,))
     out = empty((C, P)) if carry_out else None
-    scratch = None if P <= REGISTER_PATHS or scores_in_shared(P) else empty((C, P))
+    scratch = empty((C, P)) if P > CLUSTER_PATHS else None
     if carry_in is not None:
         carry_in = carry_in.to(device=dev, dtype=torch.int32).contiguous()
 
@@ -318,6 +331,21 @@ def s1_chase(bt, ends, P: int, chase=S1_CHASE, stream=None):
     chase(bt.data_ptr(), ends.data_ptr(), maps.data_ptr(), paths.data_ptr(),
           state_out.data_ptr(), C, N, P, row, L, _stream(bt, stream))
     return paths, state_out
+
+
+def cluster_fits(P: int) -> int:
+    """How many clusters of S1's sweep for P paths (:func:`sweep_layout`)
+    the card runs at once, by cudaOccupancyMaxActiveClusters, as the
+    sweep checks it before each cluster launch; 0 where the layout is not
+    a cluster. RuntimeError with the CUDA error otherwise."""
+    fn = S1.lib().pg_s1_cluster_fits
+    fn.argtypes = [_I, ctypes.POINTER(_I)]
+    clusters = _I(0)
+    code = fn(P, ctypes.byref(clusters))
+    if code:
+        raise RuntimeError(f"pg_s1_cluster_fits: CUDA error {code} "
+                           f"({S1.lib().pg_s1_error_string(code).decode()})")
+    return clusters.value
 
 
 def _check_inputs(path_cost, mask, switch):
@@ -435,7 +463,7 @@ def segment_columns(budget: int, C: int, N: int, P: int, column_bytes: int) -> i
     of the budget left for the allocator's rounding. Raises RuntimeError
     where not one column fits."""
     budget -= budget // 16
-    _warps, _per_lane, row = sweep_layout(P)
+    row = sweep_layout(P)[3]
     bt = torch.empty((), dtype=backtrace_dtype(P)).element_size()
     per_column = column_bytes + C * (row * bt + 8)
     # path [C, N], chase maps (at most isqrt(N) + 2 rows of [C, P]), the
@@ -541,7 +569,7 @@ def group_peak_bytes(C: int, N: int, P: int, A: int, size: int) -> int:
     model's 11.54, chip_smoke.py.)
     """
     cols, cells = C * N, C * N * P
-    _warps, _per_lane, row = sweep_layout(P)
+    row = sweep_layout(P)[3]
     bt = cols * row * torch.empty((), dtype=backtrace_dtype(P)).element_size()
     held = cols * (8 * A + 4 + 1 + 4 * size) + cells * (4 + 4 + 1)
     s1 = cells + bt + 4 * C * -(-N // chase_segment(N)) * P + 16 * cols

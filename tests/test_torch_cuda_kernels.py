@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from pangenie_tpu_torch import _build
 from pangenie_tpu_torch.hmm import fb_generic, fb_kernels, sampling
 from pangenie_tpu_torch.hmm.forward_backward import (
     allele_emissions,
@@ -64,12 +65,14 @@ def test_fb_kernels_reject_float64(cuda):
 
 @pytest.mark.parametrize("C,N,P,masked", [
     (1, 50, 5, 0.0), (3, 200, 123, 0.3), (2, 64, 1, 0.2), (2, 40, 33, 0.97),
-    # every sweep layout: one warp of 1-4 paths a lane, 2-32 warps, 1024
-    # threads of several paths, uint8 and uint16 backtraces; N = 1 and N
-    # off the chase's segment length
+    # every sweep layout: one warp of 1-4 paths a lane, 2-8 warps, a
+    # cluster of 5-8 CTAs past 1024 paths, uint8 and uint16 backtraces; N = 1
+    # and N off the chase's segment length
     (2, 37, 31, 0.3), (2, 37, 32, 0.3), (2, 37, 128, 0.3), (2, 37, 129, 0.3),
     (2, 37, 300, 0.3), (1, 90, 1024, 0.3), (3, 1, 123, 0.3), (2, 1, 300, 0.0),
     (2, 37, 2048, 0.3), (1, 37, 4096, 0.3), (2, 1, 6405, 0.3),
+    # clusters of 7 and 8 CTAs of 5, 7, 9 and 17 warps
+    (2, 37, 4097, 0.3), (1, 37, 6405, 0.3), (2, 23, 8193, 0.3), (1, 23, 16385, 0.3),
 ])
 def test_s1_matches_plain(cuda, C, N, P, masked):
     rng = np.random.default_rng(P)
@@ -99,11 +102,11 @@ def test_s1_saturates(cuda):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("C,N,P", [(2, 300, 1025), (1, 70, 4097), (2, 120, 6405)])
+@pytest.mark.parametrize("C,N,P", [(2, 300, 1025), (1, 70, 4097), (2, 120, 6405),
+                                   (2, 60, 8193), (1, 40, 16385)])
 def test_s1_takes_more_than_1024_paths(cuda, C, N, P):
-    """Past 1024 paths (up to 32 warps, then 1024 threads of several
-    paths with scores in shared memory, 16-bit backtraces) S1 gives the
-    plain DP's paths and scores."""
+    """Past 1024 paths (a cluster of 5-8 CTAs a chromosome, 16-bit
+    backtraces) S1 gives the plain DP's paths and scores."""
     rng = np.random.default_rng(P)
     cost = torch.from_numpy(rng.integers(0, 4, (C, N, P)).astype(np.int32)).to(cuda)
     mask = torch.from_numpy(rng.random((C, N, P)) >= 0.3).to(cuda)
@@ -111,6 +114,34 @@ def test_s1_takes_more_than_1024_paths(cuda, C, N, P):
     got = sampling.viterbi_iteration(cost, mask, switch)
     want = sampling.viterbi_iteration_plain(cost, mask, switch)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("P,ranks", [(6405, 2), (6405, 4), (6405, 16), (4097, 16),
+                                     (2049, 2), (4096, 4), (2049, 1)])
+def test_s1_cluster_sizes(cuda, monkeypatch, P, ranks):
+    """The clusters of the source built with S1_CLUSTER_RANKS = ranks, as
+    tools/s1_times.py --ranks times them (the runtime-W instance, the
+    non-portable sizes 11 and 13, 2 and 4 CTAs, and a cluster of one CTA
+    of 17 warps), with and without entry and exit rows: the plain sweep's
+    backtraces, exit row, best and path."""
+    monkeypatch.setattr(sampling, "CLUSTER_RANKS", ranks)
+    sweep = _build.CudaKernel("sampling_dp", "pg_s1_sweep", "s1", sampling.S1._argtypes,
+                              defines={"S1_CLUSTER_RANKS": ranks})
+    C, N = 2, 45
+    rng = np.random.default_rng(P + ranks)
+    cost = torch.from_numpy(rng.integers(0, 4, (C, N, P)).astype(np.int32)).to(cuda)
+    mask = torch.from_numpy(rng.random((C, N, P)) >= 0.3).to(cuda)
+    switch = torch.from_numpy(rng.integers(0, 6, (C, N)).astype(np.int32)).to(cuda)
+    carry = torch.from_numpy(rng.integers(100, 104, (C, P)).astype(np.int32)).to(cuda)
+    for carry_in in (None, carry):
+        got = sampling.s1_sweep(cost, mask, switch, carry_in=carry_in, carry_out=True,
+                                sweep=sweep)
+        bts, last = sampling.sweep_plain(cost, mask, switch, carry_in)
+        assert torch.equal(got.bt[:, :, :P].to(torch.int64) & 0xFFFF, bts.to(torch.int64))
+        assert torch.equal(got.carry_out.to(torch.int64) & sampling.UINT_MAX, last)
+        paths = sampling.s1_chase(got.bt, got.ends, P)[0]
+        assert torch.equal(paths, sampling.chase_plain(got.bt, got.ends)[0])
+    assert sweep.launches == 2
 
 
 def test_s1_scores_in_a_scratch_row(cuda):
@@ -126,7 +157,9 @@ def test_s1_scores_in_a_scratch_row(cuda):
 
 
 @pytest.mark.parametrize("C,N,P,segment", [(2, 200, 123, 23), (1, 90, 2049, 16),
-                                           (2, 50, 6405, 9), (1, 40, 300, 40)])
+                                           (2, 50, 6405, 9), (1, 40, 300, 40),
+                                           (2, 50, 4097, 7), (1, 40, 8193, 9),
+                                           (1, 30, 16385, 8)])
 def test_s1_checkpointed_scan_matches_the_full_sweep(cuda, C, N, P, segment):
     """The checkpointed scan through the kernels (exit rows, entry rows,
     chases from handed-back states) gives S1's paths and best."""

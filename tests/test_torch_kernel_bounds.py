@@ -102,16 +102,21 @@ def test_generic_launch_fits_every_path_count():
         assert smem <= fb_kernels.SMEM_BYTES == 232_448
 
 
-# (warps, paths a lane, backtrace row) and backtrace bytes: one warp up
-# to 128 paths, then warps of 4 paths a lane up to 4096, then 32 warps of
-# ceil(P/1024); uint8 up to 256 paths, 16 bits up to 65,536, then 32
+# (CTAs, warps a CTA, paths a lane, backtrace row) and backtrace bytes:
+# one CTA of one warp up to 128 paths, of warps of 4 paths a lane up to
+# 1024; then clusters of up to 8 CTAs of the warps of 4 paths a lane that
+# 8 CTAs need, of up to 16 past 32,768 paths, as few CTAs as hold the
+# paths, up to 65,536; then one CTA of 32 warps of ceil(P/1024);
+# uint8 up to 256 paths, 16 bits up to 65,536, then 32
 @pytest.mark.parametrize("P,layout,bt_bytes", [
-    (1, (1, 1, 32), 1), (32, (1, 1, 32), 1), (33, (1, 2, 64), 1), (65, (1, 3, 96), 1),
-    (123, (1, 4, 128), 1), (128, (1, 4, 128), 1), (129, (2, 4, 256), 1),
-    (256, (2, 4, 256), 1), (257, (3, 4, 384), 2), (1024, (8, 4, 1024), 2),
-    (1025, (9, 4, 1152), 2), (2049, (17, 4, 2176), 2), (4096, (32, 4, 4096), 2),
-    (4097, (32, 5, 5120), 2), (6405, (32, 7, 7168), 2), (65536, (32, 64, 65536), 2),
-    (65537, (32, 65, 66560), 4),
+    (1, (1, 1, 1, 32), 1), (32, (1, 1, 1, 32), 1), (33, (1, 1, 2, 64), 1),
+    (65, (1, 1, 3, 96), 1), (123, (1, 1, 4, 128), 1), (128, (1, 1, 4, 128), 1),
+    (129, (1, 2, 4, 256), 1), (256, (1, 2, 4, 256), 1), (257, (1, 3, 4, 384), 2),
+    (1024, (1, 8, 4, 1024), 2), (1025, (5, 2, 4, 1280), 2), (2049, (6, 3, 4, 2304), 2),
+    (4096, (8, 4, 4, 4096), 2), (4097, (7, 5, 4, 4480), 2), (6405, (8, 7, 4, 7168), 2),
+    (8193, (8, 9, 4, 9216), 2), (16385, (8, 17, 4, 17408), 2),
+    (32768, (8, 32, 4, 32768), 2), (32769, (16, 17, 4, 34816), 2),
+    (65536, (16, 32, 4, 65536), 2), (65537, (1, 32, 65, 66560), 4),
 ])
 def test_s1_sweep_layout(P, layout, bt_bytes):
     assert sampling.sweep_layout(P) == layout
@@ -119,22 +124,47 @@ def test_s1_sweep_layout(P, layout, bt_bytes):
 
 
 def test_s1_sweep_layout_for_every_path_count():
-    """For P = 1..8192: a row holds every path and at most one lane's
-    worth (or one pass of 1024 threads) more; at most 32 warps; 4 paths a
-    lane from 129 to 4096 paths; scores in shared memory past 4096 up to
-    57,856 paths."""
-    for P in range(1, 8193):
-        warps, per_lane, row = sampling.sweep_layout(P)
-        assert row == 32 * warps * per_lane and P <= row
+    """For P = 1..16,384: a row holds every path and at most one lane's
+    worth more a CTA; at most 32 warps a CTA; 4 paths a lane from 129
+    paths on; past 1024 a cluster of up to 8 CTAs of 2-32 warps, in path
+    order, the padding at the row's end and less than one CTA's paths, so
+    that no CTA holds only padding."""
+    for P in range(1, 16_385):
+        ranks, warps, per_lane, row = sampling.sweep_layout(P)
+        assert row == ranks * 32 * warps * per_lane and P <= row
         assert 1 <= warps <= 32
         if P <= 128:
-            assert warps == 1 and row - P < 32
-        elif P <= sampling.REGISTER_PATHS:
-            assert per_lane == 4 and row - P < 128
+            assert (ranks, warps) == (1, 1) and row - P < 32
+        elif P <= sampling.CTA_PATHS:
+            assert ranks == 1 and per_lane == 4 and row - P < 128
         else:
-            assert warps == 32 and row - P < 1024 and sampling.scores_in_shared(P)
+            slice_ = row // ranks
+            assert 2 <= ranks <= 8 and warps == -(-P // 1024) and per_lane == 4
+            assert row - P < slice_ and (P - 1) // slice_ == ranks - 1
         assert sampling.backtrace_dtype(P) == (torch.uint8 if P <= 256 else torch.int16)
-    assert sampling.scores_in_shared(57_856) and not sampling.scores_in_shared(57_857)
+
+
+# the layouts of the source built with S1_CLUSTER_RANKS = ranks (as
+# tools/s1_times.py --ranks builds it), which sampling.CLUSTER_RANKS
+# follows; None: no instance takes it (CTAs of one warp)
+ASKED_FOR = {(6405, 1): (13, 4, 4, 6656), (6405, 4): (4, 13, 4, 6656),
+             (6405, 16): (13, 4, 4, 6656), (2049, 2): (2, 9, 4, 2304),
+             (2049, 4): (4, 5, 4, 2560), (1000, 16): (1, 8, 4, 1024),
+             (1000, 8): (1, 8, 4, 1024), (300, 2): (1, 3, 4, 384), (1025, 16): None}
+
+
+@pytest.mark.parametrize("P,ranks", list(ASKED_FOR))
+def test_s1_sweep_layout_asked_for(monkeypatch, P, ranks):
+    """Another S1_CLUSTER_RANKS gives each CTA the warps of 4 paths a
+    lane that that many CTAs need (16 past that many CTAs of 32 warps),
+    then as few CTAs as hold the paths, where an instance takes it (2-32
+    warps); up to 1024 paths one CTA, whatever the build."""
+    monkeypatch.setattr(sampling, "CLUSTER_RANKS", ranks)
+    if ASKED_FOR[P, ranks] is None:
+        with pytest.raises(ValueError, match="no cluster"):
+            sampling.sweep_layout(P)
+    else:
+        assert sampling.sweep_layout(P) == ASKED_FOR[P, ranks]
 
 
 def test_s1_chase_segments():
@@ -158,6 +188,26 @@ def test_sampling_group_peak_bytes():
     assert sampling.group_peak_bytes(1, 2_300_000, 123, 4, 2) == 3_264_446_364
 
 
+@pytest.mark.parametrize("ranks", [1, 4, 8, 16])
+def test_s1_bound_does_not_depend_on_the_layout(monkeypatch, ranks):
+    """S1's bound at the widest panel's shape (C=1 N=5,506 P=6,405) is
+    the same for every layout of its sweep, the clusters of 13, 4, 8 and
+    13 CTAs of builds with S1_CLUSTER_RANKS = 1, 4, 8 (the rule) and 16,
+    whose rows (6656, 6656, 7168, 6656 entries) differ from the parent's
+    one CTA of 32 warps (7168): the backtraces are the kernel's own
+    scratch, and the bytes and operations are those of the function (5
+    bytes a cell in, the switch in, the path and best out), 0.0526 ms by
+    bytes."""
+    C, N, P = 1, 5506, 6405
+    monkeypatch.setattr(sampling, "CLUSTER_RANKS", ranks)
+    ctas, _warps, _per_lane, row = sampling.sweep_layout(P)
+    assert (ctas, row) == {1: (13, 6656), 4: (4, 6656), 8: (8, 7168), 16: (13, 6656)}[ranks]
+    work = bounds.s1(C, N, P)
+    assert work.nbytes == 5 * N * P + 8 * N + 4 == 176_373_702
+    ms, by = work.bound()
+    assert by == "bytes" and ms == pytest.approx(0.0526489, rel=1e-5)
+
+
 def test_s1_seg_bound():
     """The checkpointed scan moves S1's bytes (the same function) and
     does the forward pass's operations over every segment but the last
@@ -179,7 +229,7 @@ def test_segment_columns_fit_the_budget():
     C, N, P, per = 1, 100_000, 2049, 10 * 2049
     budget = 200 << 20
     L = sampling.segment_columns(budget, C, N, P, per)
-    _w, _r, row = sampling.sweep_layout(P)
+    row = sampling.sweep_layout(P)[3]
 
     def need(L):
         return (L * (per + C * (row * 2 + 8)) + 4 * C * N

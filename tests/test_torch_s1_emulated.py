@@ -5,17 +5,23 @@ against its plain version, bit for bit.
 
 The kernel source is compiled with g++ against the headers of
 ``tests/cuda_emulator/`` (``__reduce_min_sync`` and the shuffles are lane
-barriers between fibers, the dynamic shared memory one array), and the
-one textual substitution makes a launch run every thread of every block
-as a fiber. The wrappers ``sampling.s1_sweep`` / ``s1_chase`` allocate
-and lay out the backtraces as on the card. So the kernels' own
-reductions, tie rules, register ring, packed stores, partials, lane
-merges, shared or scratch scores and chase run as written, one block at
-a time; their timing is not modelled. Every tier is covered: one warp,
-up to 8 warps, up to 32 (P <= 4096), and 1024 threads of several paths
-(P = 4097 and 6405, and P = 65,537 with its scores in a scratch row and
-32-bit backtraces). ``tests/test_torch_cuda_kernels.py`` holds the real
-kernels against the plain version on the card.
+barriers between fibers, the dynamic shared memory one array a block),
+and the one textual substitution makes a launch run every thread of
+every block as a fiber; the cluster launch (``cudaLaunchKernelEx``) runs
+through the emulator's own, the K blocks of a cluster together, with the
+cluster barrier, the mbarriers and the pushes into another block's
+shared memory of ``cuda_emulator/cluster.cuh``.
+The wrappers ``sampling.s1_sweep`` / ``s1_chase`` allocate and lay out
+the backtraces as on the card. So the kernels' own reductions, tie
+rules, register ring, packed stores, partials, lane and cluster merges,
+scratch scores and chase run as written; their timing is not modelled.
+Every tier is covered: one warp, up to 8 warps (P <= 1024), a cluster
+of CTAs of 2-8 or 9-32 warps (P = 1025-16,385, and the clusters of the
+source built with other S1_CLUSTER_RANKS), and 1024 threads of several
+paths with their scores in a scratch row and 32-bit backtraces
+(P = 65,537).
+``tests/test_torch_cuda_kernels.py`` holds the real kernels against the
+plain version on the card.
 """
 
 import ctypes
@@ -40,26 +46,45 @@ def _emulated_source(src: str) -> str:
         "if (emu_run(blocks, threads, smem, [&]() { kernel(args...); }))"
         " return (int)cudaErrorInvalidValue;", src)
     assert n == 1, "the launch in csrc/sampling_dp.cu changed"
+    assert src.count("cudaLaunchKernelEx(") == 1, "the cluster launch changed"
     return src
 
 
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    """csrc/sampling_dp.cu built against the emulator, its entry points bound."""
-    out = tmp_path_factory.mktemp("s1_emulated")
+def _build_emulated(out, defines=()):
+    """csrc/sampling_dp.cu built against the emulator into ``out`` (with
+    the -D macros ``defines``), its entry points bound."""
     src = out / "s1_emulated.cpp"
     with open(os.path.join(_build.CUDA_SRC_DIR, "sampling_dp.cu")) as f:
         src.write_text(_emulated_source(f.read()))
     lib = out / "libs1_emulated.so"
     subprocess.run(
         ["g++", "-std=c++17", "-O1", "-shared", "-fPIC", "-Wno-unknown-pragmas",
-         "-I", os.path.join(HERE, "cuda_emulator"), "-o", str(lib),
-         os.path.join(HERE, "cuda_emulator", "emu.cpp"), str(src)],
+         *(f"-D{d}" for d in defines), "-I", os.path.join(HERE, "cuda_emulator"),
+         "-o", str(lib), os.path.join(HERE, "cuda_emulator", "emu.cpp"), str(src)],
         check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(lib))
     lib.pg_s1_sweep.argtypes = sampling.S1._argtypes
     lib.pg_s1_chase.argtypes = sampling.S1_CHASE._argtypes
+    lib.pg_s1_cluster_fits.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     return lib
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    return _build_emulated(tmp_path_factory.mktemp("s1_emulated"))
+
+
+@pytest.fixture(scope="module")
+def emulated_ranks(tmp_path_factory):
+    """The emulated library built with S1_CLUSTER_RANKS = k, by k."""
+    libs = {}
+
+    def get(k):
+        if k not in libs:
+            libs[k] = _build_emulated(tmp_path_factory.mktemp(f"s1_emulated_{k}"),
+                                      [f"S1_CLUSTER_RANKS={k}"])
+        return libs[k]
+    return get
 
 
 def _checked(fn):
@@ -121,20 +146,26 @@ def test_emulated_s1_matches_plain(emulated, P):
 
 
 def _last_warp_paths(P):
-    """The paths the sweep's last warp holds: the last up to 4096 paths
-    (lanes hold consecutive paths), else those at 992..1023 modulo 1024."""
-    warps, per_lane, _row = sampling.sweep_layout(P)
+    """The paths the sweep's last warp holds: up to 1024 paths the last
+    (lanes hold consecutive paths); in a cluster those of the last CTA
+    that holds any, in its last warp that holds any (CTAs and their warps
+    hold consecutive slices); past that those at 992..1023 modulo 1024."""
+    _ranks, warps, per_lane, _row = sampling.sweep_layout(P)
     p = np.arange(P)
-    if P <= sampling.REGISTER_PATHS:
+    if P <= sampling.CTA_PATHS:
         return p[p // (32 * per_lane) == warps - 1]
+    if P <= sampling.CLUSTER_PATHS:
+        warp = p // (32 * per_lane)
+        return p[warp == warp[-1]]
     return p[p % sampling.THREADS >= sampling.THREADS - 32]
 
 
-@pytest.mark.parametrize("P", [200, 300, 2048, 4096, 6405])
+@pytest.mark.parametrize("P", [200, 300, 2048, 4096, 4097, 6405, 8193])
 def test_emulated_s1_minimum_in_a_later_warp(emulated, P):
     """The multi-warp merge where the cheapest paths sit in the last warp
     (costs 0..1 there, 2..3 elsewhere) and switches often cost 0, so
-    first and second minima tie across warps."""
+    first and second minima tie across warps; in a cluster, the minimum
+    and its ties in the last CTA's slice (its last 5 paths at P=6405)."""
     rng = np.random.default_rng(P)
     C, N = 2, 40 if P <= 1024 else 12
     cost = rng.integers(2, 4, (C, N, P)).astype(np.uint32)
@@ -147,7 +178,7 @@ def test_emulated_s1_minimum_in_a_later_warp(emulated, P):
                           torch.from_numpy(mask), torch.from_numpy(switch.view(np.int32)))
 
 
-@pytest.mark.parametrize("P", [100, 300])
+@pytest.mark.parametrize("P", [100, 300, 6405])
 def test_emulated_s1_all_scores_tied(emulated, P):
     """Costs all 0 and half the switches free: every column's first and
     second minima tie, in one lane, and the first path switches to the
@@ -161,11 +192,12 @@ def test_emulated_s1_all_scores_tied(emulated, P):
                           torch.from_numpy(switch))
 
 
-@pytest.mark.parametrize("P", [160, 400])
+@pytest.mark.parametrize("P", [160, 400, 4097, 6405])
 def test_emulated_s1_second_minimum_in_another_warp(emulated, P):
     """Two free paths, one in the first warp and one in a later warp,
-    the rest costing 3: the first minimum's second lies in another warp,
-    and the path alternates between the two at free switches."""
+    the rest costing 3: the first minimum's second lies in another warp
+    (in a cluster, in another CTA: the first and the last), and the path
+    alternates between the two at free switches."""
     rng = np.random.default_rng(P)
     C, N = 1, 30
     cost = np.full((C, N, P), 3, dtype=np.int32)
@@ -218,10 +250,10 @@ def test_emulated_s1_long_enough_for_the_ring_and_segments(emulated):
 
 
 def test_emulated_s1_rejects_another_layout(emulated):
-    """The sweep and the chase refuse a backtrace row other than
-    sweep_layout's."""
+    """The sweep refuses a backtrace row other than sweep_layout's, the
+    chase one that does not hold every path."""
     cost, mask, switch = _inputs(0, 1, 4, 33)
-    _w, _r, row = sampling.sweep_layout(33)
+    row = sampling.sweep_layout(33)[3]
     bt = torch.empty((1, 4, row + 32), dtype=torch.uint8)
     out = torch.empty((1,), dtype=torch.int32)
     args = (cost.data_ptr(), mask.data_ptr(), switch.data_ptr(), None, None, bt.data_ptr(),
@@ -230,25 +262,61 @@ def test_emulated_s1_rejects_another_layout(emulated):
     assert emulated.pg_s1_sweep(*args, 33, row, None) == 0
     maps = torch.empty((1, 2, 33), dtype=torch.int32)
     paths = torch.empty((1, 4), dtype=torch.int32)
-    assert emulated.pg_s1_chase(bt.data_ptr(), out.data_ptr(), maps.data_ptr(),
-                                paths.data_ptr(), None, 1, 4, 33, row + 32, 2, None) != 0
+    chase = (bt.data_ptr(), out.data_ptr(), maps.data_ptr(), paths.data_ptr(), None, 1, 4, 33)
+    assert emulated.pg_s1_chase(*chase, 32, 2, None) != 0
+    assert emulated.pg_s1_chase(*chase, row + 32, 2, None) == 0
 
 
-# past 1024 paths: 9-32 warps of 4 paths a lane up to 4096, then 1024
-# threads of ceil(P/1024) paths with their scores in shared memory;
-# N = 11: chase segments of 4, the last one short
-@pytest.mark.parametrize("P", [1025, 2048, 4096, 4097, 6405])
+# past 1024 paths a cluster of 5, 8, 8, 7, 8, 8 or 8 CTAs of 2, 2, 4, 5,
+# 7 or 9-17 warps (the runtime-W instance), no CTA only padding; N = 11:
+# chase segments of 4, the last one short
+@pytest.mark.parametrize("P", [1025, 2048, 4096, 4097, 6405, 8193, 16_385])
 def test_emulated_s1_wide_matches_plain(emulated, P):
-    assert sampling.sweep_layout(P)[0] == min(32, -(-P // 128))
+    ranks, warps, _per_lane, _row = sampling.sweep_layout(P)
+    assert warps == -(-P // 1024) and ranks == -(-P // (128 * warps))
+    assert (ranks - 1) * 128 * warps < P
     _paths, best = _assert_matches_plain(emulated, *_inputs(P, 2, 11, P, masked=0.3))
     assert int(best[0]) < UMAX and int(best[1]) == UMAX
 
 
+# the source built with other S1_CLUSTER_RANKS (tools/s1_times.py --ranks
+# times them): 2 CTAs of 26 warps and 4 of 13 (the runtime-W instance),
+# 13 of 4 (past the portable cluster size of 8), at P = 2049 2 of 9 and 4
+# of 5, and a cluster of one CTA of 17 warps
+@pytest.mark.parametrize("P,ranks", [(6405, 2), (6405, 4), (6405, 16), (2049, 2), (2049, 4),
+                                     (2049, 1)])
+def test_emulated_s1_cluster_sizes(emulated_ranks, monkeypatch, P, ranks):
+    monkeypatch.setattr(sampling, "CLUSTER_RANKS", ranks)
+    assert sampling.sweep_layout(P)[:2] == {
+        (6405, 2): (2, 26), (6405, 4): (4, 13), (6405, 16): (13, 4), (2049, 2): (2, 9),
+        (2049, 4): (4, 5), (2049, 1): (1, 17)}[P, ranks]
+    _assert_matches_plain(emulated_ranks(ranks), *_inputs(P + ranks, 2, 9, P, masked=0.3))
+
+
+def test_emulated_s1_cluster_checks_its_shape(emulated, emulated_ranks, monkeypatch):
+    """The cluster's shape is checked before the launch: the rule's
+    clusters fit (the emulator's 132 SMs hold 16 clusters of 8 CTAs, 26
+    of 5, 8 of 16), a layout of one CTA a chromosome reads 0, and no
+    instance takes a CTA of one warp (16 CTAs at P = 1025)."""
+    clusters = ctypes.c_int(-1)
+    for P, ranks in ((6405, 8), (1025, 5), (40_000, 16)):
+        assert sampling.sweep_layout(P)[0] == ranks
+        assert emulated.pg_s1_cluster_fits(P, ctypes.byref(clusters)) == 0
+        assert clusters.value == 132 // ranks
+    assert emulated.pg_s1_cluster_fits(1000, ctypes.byref(clusters)) == 0
+    assert clusters.value == 0
+    assert emulated_ranks(16).pg_s1_cluster_fits(1025, ctypes.byref(clusters)) != 0
+    monkeypatch.setattr(sampling, "CLUSTER_RANKS", 16)
+    with pytest.raises(ValueError):
+        sampling.sweep_layout(1025)
+
+
 def test_emulated_s1_scratch_row_matches_plain(emulated):
-    """P = 65,537: the scores do not fit the block's shared memory and
-    live in a scratch row; backtraces are 32-bit."""
+    """P = 65,537: past what a cluster holds in registers, one CTA of
+    1024 threads with the scores in a scratch row; backtraces are
+    32-bit."""
     P = 65_537
-    assert not sampling.scores_in_shared(P)
+    assert sampling.sweep_layout(P)[:2] == (1, 32)
     assert sampling.backtrace_dtype(P) == torch.int32
     _assert_matches_plain(emulated, *_inputs(P, 1, 3, P, masked=0.3))
 
@@ -262,8 +330,8 @@ def _carry(seed, C, P):
     return torch.from_numpy(carry.view(np.int32))
 
 
-# every tier: one warp, 3 warps, 16 warps of 4 paths, 1024 threads
-@pytest.mark.parametrize("P", [45, 300, 2048, 6405])
+# every tier: one warp, 3 warps, clusters of 8 CTAs of 2, 7 and 9 warps
+@pytest.mark.parametrize("P", [45, 300, 2048, 6405, 8193])
 def test_emulated_s1_carries_and_sweep_only(emulated, P):
     """The sweep from an entry row writes the plain sweep's backtraces
     (column 0 an inner column), last column's scores as its exit row,
@@ -304,7 +372,7 @@ def test_emulated_s1_chase_from_given_ends(emulated, P):
     assert torch.equal(paths, want_paths) and torch.equal(state_out.long(), want_out)
 
 
-@pytest.mark.parametrize("P,segment", [(9, 4), (300, 7), (4097, 3)])
+@pytest.mark.parametrize("P,segment", [(9, 4), (300, 7), (4097, 3), (6405, 5)])
 def test_emulated_s1_checkpointed_scan(emulated, P, segment):
     """The checkpointed scan composed of the emulated kernels (forward
     sweeps keeping only their exit rows, then each segment swept again

@@ -1,6 +1,7 @@
 """Times kernel S1 at chip_smoke.py's main sampling shape on one NVIDIA GPU.
 
     python3 tools/s1_times.py [--root DIR] [--reps 3] [--variants] [--wide]
+                              [--ranks] [--beyond]
 
 Builds the inputs as chip_smoke.check_s1 does (seed 5; C=2, N=55,040,
 P=123, A=4: costs 0..25 gathered through random alleles, 30% of the
@@ -23,11 +24,29 @@ give the paths and scores of
 
 ``--wide`` times S1 past 128 paths at the bench chromosomes' N=55,040
 (C=2), inputs drawn on the card (chip_smoke.card_s1_inputs): P=1024
-(8 warps), 2049 and 4096 (17 and 32 warps, the lane merge), 6405 (1024
-threads, scores in shared memory).
-Prints one JSON line per checkout (and one for the variants, one for
-``--wide``) with the card's name and power limit. Exits non-zero
-without a GPU.
+(8 warps), 1025, 2049 and 4096, 4097, 6405, 8193 and 16,385 (the
+cluster tier's edges: 5-8 CTAs of 2-17 warps; one CTA of 9-32 warps in
+a checkout from before the cluster), and at the widest panel's shape C=1
+N=5,506 P=6405; each with its layout and backtrace row as the
+checkout's ``sweep_layout`` gives them, and ``group_peak_bytes`` of a
+15-iteration group at A=4 per [N, P] cell.
+
+``--ranks`` times clusters of other sizes against each other, in turns
+(each size twice, the order reversed the second time): it builds
+``csrc/sampling_dp.cu`` with ``-DS1_CLUSTER_RANKS=k`` (the rule's
+CTAs a chromosome before the padding is cut) for k = 1, 2, 4 and 16
+(8 is the library's own) and drives each with ``sampling.CLUSTER_RANKS``
+set to k: at P=6405 (N=55,040 C=2, and C=1 N=5,506) for k = 2, 4, 8 and
+16; at P=1025, 2049 and 4096 (N=55,040, C=1 and C=2) for k = 1 (a
+cluster of one CTA of 9-32 warps), 2, 4 and 8.
+
+``--beyond`` runs chip_smoke.check_beyond_card with this checkout's
+package: one greedy iteration of N=2,300,000 at P=6405 through S1-seg,
+its kernels timed by torch.profiler.
+
+Prints one JSON line per checkout (and one for the variants, one each
+for ``--wide``, ``--ranks`` and ``--beyond``) with the card's name and
+power limit. Exits non-zero without a GPU.
 """
 
 from __future__ import annotations
@@ -131,9 +150,12 @@ def variants(inputs, want, reps: int) -> dict:
     return times
 
 
+WIDE_SHAPES = [(2, 55040, P) for P in (1024, 1025, 2049, 4096, 4097, 6405, 8193, 16385)] + [
+    (1, 5506, 6405)]
+
+
 def wide(reps: int) -> dict:
-    """S1 at C=2 N=55,040 for P = 1024, 2049, 4096 and 6405 (see the
-    module's docstring)."""
+    """S1 at WIDE_SHAPES (see the module's docstring)."""
     import torch
 
     from pangenie_tpu_torch.hmm import bounds, sampling
@@ -144,20 +166,94 @@ def wide(reps: int) -> dict:
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev)
     g.manual_seed(31)
-    C, N = 2, 55040
-    record = {"shape": {"C": C, "N": N}}
-    for P in (1024, 2049, 4096, 6405):
+    record = {}
+    for C, N, P in WIDE_SHAPES:
         inputs = card_s1_inputs(g, C, N, P, dev)
         ms = cuda_ms(lambda: sampling.viterbi_iteration(*inputs), reps)
-        bt, _best, ends, _ = sampling.s1_sweep(*inputs)
-        record[f"P={P}"] = {
-            "warps": sampling.sweep_layout(P)[0], "S1_ms": ms,
+        bt, _best, ends, _ = sampling.s1_sweep(*inputs)[:4]
+        record[f"C={C} N={N} P={P}"] = {
+            "layout": sampling.sweep_layout(P), "S1_ms": ms,
             "sweep_ms": cuda_ms(lambda: sampling.s1_sweep(*inputs), reps),
             "chase_ms": cuda_ms(lambda: sampling.s1_chase(bt, ends, P), reps),
-            "us_per_column": ms * 1e3 / N, "bound_ms": bounds.s1(C, N, P).bound()[0]}
+            "us_per_column": ms * 1e3 / N, "bound_ms": bounds.s1(C, N, P).bound()[0],
+            "group_peak_bytes_per_cell": sampling.group_peak_bytes(C, N, P, 4, 15) / (C * N * P)}
         del inputs, bt
         torch.cuda.empty_cache()
     return record
+
+
+# (C, N, P, S1_CLUSTER_RANKS of the builds timed), each run in turns
+RANK_SHAPES = [(2, 55040, 6405, (2, 4, 8, 16)), (1, 5506, 6405, (2, 4, 8, 16))] + [
+    (C, 55040, P, (1, 2, 4, 8)) for P in (1025, 2049, 4096) for C in (1, 2)]
+
+
+def ranks_sweep(reps: int) -> dict:
+    """S1 (sweep and chase) per S1_CLUSTER_RANKS build at RANK_SHAPES,
+    each timed twice in turns, the order reversed the second time; every
+    build must give the rule's paths and best."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from pangenie_tpu_torch import _build
+    from pangenie_tpu_torch.hmm import bounds, sampling
+
+    sys.path.insert(0, ROOT)
+    from chip_smoke import card_s1_inputs, patched
+
+    sizes_built = sorted({k for *_shape, sizes in RANK_SHAPES for k in sizes})
+    sweeps = {k: sampling.S1 if k == sampling.CLUSTER_RANKS else _build.CudaKernel(
+        "sampling_dp", "pg_s1_sweep", "s1", sampling.S1._argtypes,
+        defines={"S1_CLUSTER_RANKS": k}) for k in sizes_built}
+    with ThreadPoolExecutor(len(sweeps)) as pool:  # one nvcc a build, all at once
+        list(pool.map(lambda sweep: sweep.lib(), sweeps.values()))
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev)
+    g.manual_seed(43)
+    record = {}
+    for C, N, P, sizes in RANK_SHAPES:
+        inputs = card_s1_inputs(g, C, N, P, dev)
+        want = sampling.viterbi_iteration(*inputs)
+
+        def iteration(k):
+            with patched(sampling, "CLUSTER_RANKS", k):
+                bt, best, ends, _ = sampling.s1_sweep(*inputs, sweep=sweeps[k])
+                return sampling.s1_chase(bt, ends, P)[0], best
+
+        def layout(k):
+            with patched(sampling, "CLUSTER_RANKS", k):
+                return sampling.sweep_layout(P)
+
+        times = {k: [] for k in sizes}
+        for k in sizes:
+            paths, best = iteration(k)
+            if not (torch.equal(paths, want[0])
+                    and torch.equal(best.to(torch.int64) & sampling.UINT_MAX, want[1])):
+                raise AssertionError(f"S1_CLUSTER_RANKS={k} at C={C} N={N} P={P}: "
+                                     "paths or best differ")
+        for order in (sizes, sizes[::-1]):
+            for k in order:
+                times[k].append(cuda_ms(lambda: iteration(k), reps))
+        record[f"C={C} N={N} P={P}"] = {
+            "rule": sampling.sweep_layout(P), "bound_ms": bounds.s1(C, N, P).bound()[0],
+            **{f"S1_CLUSTER_RANKS={k}": {"layout": layout(k), "S1_ms": times[k],
+                                         "us_per_column": [t * 1e3 / N for t in times[k]]}
+               for k in sizes}}
+        del inputs, want
+        torch.cuda.empty_cache()
+    return record
+
+
+def beyond() -> dict:
+    """chip_smoke.check_beyond_card with this checkout's package."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    t, launches = chip_smoke.check_beyond_card(torch.device("cuda", 0), chip_smoke.gpu_line())
+    bound, _by = t["S1_SEG_work"].bound()
+    return {"S1_SEG_ms": t["S1_SEG"], "bound_ms": bound, "launches": launches}
 
 
 def main() -> int:
@@ -166,6 +262,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--variants", action="store_true")
     ap.add_argument("--wide", action="store_true")
+    ap.add_argument("--ranks", action="store_true")
+    ap.add_argument("--beyond", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -201,7 +299,11 @@ def main() -> int:
     record["gpu"] = gpu
     print(json.dumps(record), flush=True)
     if args.wide:
-        print(json.dumps(dict(wide(args.reps), gpu=gpu)), flush=True)
+        print(json.dumps(dict(wide(args.reps), root=args.root, gpu=gpu)), flush=True)
+    if args.ranks:
+        print(json.dumps(dict(ranks_sweep(args.reps), root=args.root, gpu=gpu)), flush=True)
+    if args.beyond:
+        print(json.dumps(dict(beyond(), root=args.root, gpu=gpu)), flush=True)
     return 0
 
 
