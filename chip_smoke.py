@@ -8,7 +8,7 @@ Phases, each printed as it runs; any failure exits non-zero:
 2. build: the CUDA kernels (K1-K4 in csrc/fb.cu, S1's sweep and chase
    in csrc/sampling_dp.cu) and the host k-mer engine, from this checkout,
    one compiler per source, all at once.
-   The four end-to-end workloads below are simulated meanwhile, in
+   The five end-to-end workloads below are simulated meanwhile, in
    four worker processes, once each into build/smoke_inputs/;
 3. kernel vs plain on the card, with the times of both (float32,
    rtol=2e-4, atol=1e-7 unless bit-identical): K1/K2 against the plain
@@ -36,9 +36,12 @@ Phases, each printed as it runs; any failure exits non-zero:
    must give the same bits, and a batch of B=3 chains at P=89 with
    padding (all-zero E after one chain's is_last, and one chain all
    padding) goes through K3/K4 against the plain versions too. K3/K4's
-   wide tier (P > 128) is held against the plain versions at B=2,
+   cluster tier (128 < P <= 471: a thread-block cluster of CTAs a chain,
+   the state in registers) is held against the plain versions at B=2,
    N=512, P=465 (mixed A, entry carries drawn positive), two launches
-   bit-identical, and timed. K2 runs its one-warp tier at P <= 32 (the
+   bit-identical, and timed, each kernel's cudaOccupancyMaxActiveClusters
+   reading printed first; so is the one-CTA wide tier past it at B=1,
+   N=16, P=1025. K2 runs its one-warp tier at P <= 32 (the
    bench shape at A=2 printed beside the time of the kernel it
    replaced) and its 256-thread tier at 32 < P <= 128. Each
    kernel's bound (hmm/bounds.py: bytes over 3.35 TB/s or operations
@@ -89,16 +92,22 @@ Phases, each printed as it runs; any failure exits non-zero:
    and ``sampling -x 15`` (a panel VCF of 15 + 1 haplotypes, a paths
    TSV, and the same paths through the checkpointed scan under a forced
    budget); then ``genotype -f -a 200`` (11 path subsets of 200 paths:
-   dispatch cuda_generic, K3/K4's wide tier, concordance >= 0.98), its
-   launches counted alone, then once more under torch.profiler (same
-   VCF body; the wide tier's device time); then the wide tier held
-   against the plain versions and timed at the chunk shape (B, chunk,
-   P=200) that run took, with drawn columns;
+   dispatch cuda_generic, K3/K4's cluster tier alone, concordance >=
+   0.98), its launches counted alone, then once more under
+   torch.profiler (same VCF body; the cluster tier's device time); then
+   the cluster tier held against the plain versions and timed at the
+   chunk shape (B, chunk, P=200) that run took, with drawn columns;
 8. widest panel: one 1 Mb chromosome, 3202 samples (the 1000 Genomes
    high-coverage callset's) = 6405 paths, 12x 150 bp reads, seed 19;
-   ``index`` and ``sampling -x 15`` (S1's shared-memory sweep; the first
+   ``index`` and ``sampling -x 15`` (S1's cluster sweep; the first
    greedy path equal to the plain DP's, S1 timed on its inputs; a panel
-   VCF of 15 + 1 haplotypes and a paths TSV).
+   VCF of 15 + 1 haplotypes and a paths TSV);
+9. wide-subsets panel: one 0.2 Mb chromosome, 300 samples = 601 paths,
+   12x 150 bp reads, seed 29; ``index`` and ``genotype -f -a 600`` (two
+   subsets of 600 paths, past what a cluster holds: dispatch
+   cuda_generic, K3/K4's one-CTA wide tier alone, concordance >= 0.98),
+   its launches counted alone; then the wide tier held against the plain
+   versions and timed at the chunk shape that run took.
 
 Each end-to-end path, and the chromosome beyond one card, runs with
 every kernel's launch count set to 0 just before it and read just
@@ -166,10 +175,13 @@ GENERIC_SHAPES = [(1, 1 << 17, 89, 32, True, 0), (2, 8192, 89, 32, True, 2048),
                   (32, 4096, 32, 32, False, 0)]
 # (B, N, P, padded chain, padding from) of the padding check
 PADDED_SHAPE = (3, 2048, 89, 2, 1500)
-# K3/K4's wide tier (P > 128), with the 97/2/1% mix at A=16: (B, N, P,
-# K). The large panel's `genotype -f -a 200` chunk shape is checked after
-# that run (check_wide with the shape its walk recorded).
-WIDE_SHAPES = [(2, 512, 465, 32)]
+# K3/K4 past 128 paths, with the 97/2/1% mix at A=16: (B, N, P, K). The
+# cluster tier at HPRC release 2's 464 haplotypes and the reference, and
+# the one-CTA wide tier past it on a short chunk. The large panel's
+# `genotype -f -a 200` chunk shape (the cluster tier) and the wide-subsets
+# panel's `genotype -f -a 600` one (the wide tier) are checked after those
+# runs (check_wide with the shape each walk recorded).
+WIDE_SHAPES = [(2, 512, 465, 32), (1, 16, 1025, 32)]
 # path subsets of `genotype -f -a` on the large panel
 LARGE_SUBSET = 200
 # the two routes timed on the same columns with no forced chunk: the
@@ -193,6 +205,12 @@ LARGE_PANEL = dict(mb=2.0, chroms=1, samples=1024, distance=150, seed=17,
 # samples = 6405 paths with the reference, cut to 1 Mb
 WIDEST_PANEL = dict(mb=1.0, chroms=1, samples=3202, distance=150, seed=19,
                     vector_genotypes=True)
+# path subsets past what a cluster of CTAs holds (K3/K4's one-CTA wide
+# tier): `genotype -f -a WIDE_SUBSET` on 300 samples = 601 paths, cut to
+# 0.2 Mb
+WIDE_SUBSET_PANEL = dict(mb=0.2, chroms=1, samples=300, distance=150, seed=29,
+                         vector_genotypes=True)
+WIDE_SUBSET = 600
 
 
 def phase(name):
@@ -674,8 +692,7 @@ def check_beyond_card(device, gpu):
         out["paths"], out["best"] = sampling.viterbi_iteration_segmented(
             source, C, N, P, segment, device)
 
-    for k in kernels().values():
-        k.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     wall, busy, by_name = profile_device(scan)
     paths, best = out.pop("paths"), out.pop("best")
@@ -906,12 +923,14 @@ def check_padding(device):
 
 
 def check_wide(device, gpu, shapes):
-    """K3/K4's wide tier against their plain versions at every (B, N, P,
-    K) of ``shapes``, on the same inputs (K4 takes the kernel's alphas),
-    with entry carries that are not ones and zeros (each chain's alpha0
-    and beta0 drawn positive), timed beside their bounds; compared a
-    chain at a time, so that the comparisons' temporaries stay small
-    beside a chunk that fills the card. Returns the largest absolute
+    """K3/K4 past 128 paths against their plain versions at every (B, N,
+    P, K) of ``shapes``, on the same inputs (K4 takes the kernel's
+    alphas), with entry carries that are not ones and zeros (each chain's
+    alpha0 and beta0 drawn positive), timed beside their bounds; compared
+    a chain at a time, so that the comparisons' temporaries stay small
+    beside a chunk that fills the card. Each shape's tier and launch are
+    printed first, and on the cluster tier each kernel's
+    cudaOccupancyMaxActiveClusters reading. Returns the largest absolute
     errors and the times at shapes[0]."""
     import torch
 
@@ -922,6 +941,18 @@ def check_wide(device, gpu, shapes):
     g = torch.Generator(device=device)
     g.manual_seed(43)
     for B, N, P, K in shapes:
+        tier = fb_kernels.tier(P, B)
+        ranks, threads, smem = fb_kernels.generic_launch(P, B)
+        occupancy = ""
+        if tier == "cluster":
+            fits = {name: fb_kernels.cluster_fits(P, B, backward)
+                    for name, backward in (("K3", False), ("K4", True))}
+            occupancy = (f", cudaOccupancyMaxActiveClusters K3 {fits['K3']} / K4 "
+                         f"{fits['K4']} clusters of {ranks} at once")
+            if min(fits.values()) < 1:
+                raise AssertionError(f"no cluster of {ranks} CTAs fits the card at P={P}")
+        print(f"  B={B} N={N} P={P}: K3/K4's {tier} tier, {ranks} CTA(s) a chain of "
+              f"{threads} threads and {smem} shared bytes{occupancy}", flush=True)
         cols = generic_columns(B, N, P, K, True, seed=23, device=device)
         E = fb_generic.bucketed_state_emissions(cols).reshape(B, N, P, P)
         u = fb_generic.factor_trans(cols.trans).contiguous()
@@ -946,23 +977,24 @@ def check_wide(device, gpu, shapes):
         e4, low = 0.0, float("inf")
         for b in range(B):
             e_b, low_b = posterior_error(p_k[b], p_p[b],
-                                         f"wide K4 at B={B} N={N} P={P}, chain {b}")
+                                         f"K4 at B={B} N={N} P={P}, chain {b}")
             e4, low = max(e4, e_b), min(low, low_b)
         torch.testing.assert_close(b_k, b_p, rtol=RTOL, atol=ATOL)
         e4 = max(e4, float((b_k - b_p).abs().max()))
         del p_p
-        same_bits(fb_kernels.forward_e(E, u, alpha0), (a_k, c_k), f"wide K3 at P={P}")
-        same_bits(fb_kernels.backward_e(*args), (p_k, b_k), f"wide K4 at P={P}")
+        same_bits(fb_kernels.forward_e(E, u, alpha0), (a_k, c_k), f"K3 at P={P}")
+        same_bits(fb_kernels.backward_e(*args), (p_k, b_k), f"K4 at P={P}")
         err["K3"], err["K4"] = max(err["K3"], e3), max(err["K4"], e4)
         t = {"K3": cuda_ms(lambda: fb_kernels.forward_e(E, u, alpha0), 3),
              "K3_plain": k3_plain,
              "K4": cuda_ms(lambda: fb_kernels.backward_e(*args), 3), "K4_plain": k4_plain,
              "K3_work": bounds.k3(B, N, P), "K3_cols": N,
              "K4_work": bounds.k4(B, N, P), "K4_cols": N,
-             "shape": f"B={B} N={N} P={P}"}
+             "shape": f"B={B} N={N} P={P}", "tier": tier, "ranks": ranks,
+             "threads": threads, "smem": smem}
         main = main or t
         shape = f"B={B} N={N} P={P} K={K} A=16 mixed 2/4/16"
-        print(f"  wide tier {shape}, entry carries drawn: ok (K3 max_abs_err {e3:.3e}; "
+        print(f"  {tier} tier {shape}, entry carries drawn: ok (K3 max_abs_err {e3:.3e}; "
               f"K4 posteriors divided by their column sums and beta_out max_abs_err "
               f"{e4:.3e}, smallest column sum {low:.3e}); two launches bit-identical")
         print(f"  times {shape} [{gpu}]: K3 {t['K3']:.3f} ms, plain {k3_plain:.3f} ms; "
@@ -1178,11 +1210,10 @@ def run_e2e(casedir: str, gpu: str):
 
     outpref = os.path.join(casedir, "out")
     batches = []
-    for k in kernels().values():
-        k.launches = 0
+    reset_launches()
     with batches_kept(batches):
         wall = _run_single(casedir, outpref)
-    launches = {name: k.launches for name, k in kernels().items()}
+    launches = launch_counts()
     if batch.last_dispatch != "cuda_fused":
         raise AssertionError(f"dispatch was {batch.last_dispatch}, not cuda_fused")
     fused = [cols for cols, route in batches if route == "cuda_fused"]
@@ -1298,8 +1329,7 @@ def run_sv_index_genotype(casedir: str, gpu: str):
             nr_jellyfish_threads=2, nr_core_threads=2, device="cuda",
         )
 
-    for k in kernels().values():
-        k.launches = 0
+    reset_launches()
     fb_generic.last_walk = (0, 0, 0)
     t0 = time.monotonic()
     commands.run_index_command(
@@ -1312,7 +1342,7 @@ def run_sv_index_genotype(casedir: str, gpu: str):
     genotype(outpref)
     torch.cuda.synchronize()
     genotype_wall = time.monotonic() - t0
-    launches = {name: k.launches for name, k in kernels().items()}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     genotype_phases = dict(timer.last_phases)
     # one chromosome, so the HMM's one run is its only chunked walk
@@ -1506,10 +1536,10 @@ def run_large_panel(casedir: str, gpu: str, device: str = "cuda"):
     (:func:`check_sampled_panel`); the same records sampled through
     sample_panels_batched with a budget that forces the checkpointed scan
     give the same paths. Then ``genotype -f -a LARGE_SUBSET`` (path
-    subsets past the fused kernels: dispatch cuda_generic, K3/K4's wide
-    tier; concordance >= 0.98), with the launch counts set to 0 just
-    before it, then once more under torch.profiler (same VCF body; the
-    wide tier's device time). Returns the launch counts of the three
+    subsets past the fused kernels: dispatch cuda_generic, K3/K4's
+    cluster tier and no other; concordance >= 0.98), with the launch
+    counts set to 0 just before it, then once more under torch.profiler
+    (same VCF body; the cluster tier's device time). Returns the launch counts of the three
     commands, S1's largest difference from the plain DP and times, the
     launch counts of the subset run and the (B, N, P, K) of its chunks."""
     from pangenie_tpu_torch import commands
@@ -1522,8 +1552,7 @@ def run_large_panel(casedir: str, gpu: str, device: str = "cuda"):
     reads = os.path.join(casedir, "reads.fa")
     captured, walls = {}, {}
     command = timed_commands(walls)
-    for k in kernels().values():
-        k.launches = 0
+    reset_launches()
     command("index", lambda: commands.run_index_command(
         os.path.join(casedir, "ref.fa"), os.path.join(casedir, "panel.vcf"), 31, prefix,
         nr_jellyfish_threads=2))
@@ -1540,7 +1569,7 @@ def run_large_panel(casedir: str, gpu: str, device: str = "cuda"):
         command("sampling -x 15", lambda: commands.run_sampling(
             prefix, reads, os.path.join(casedir, "sampled"), 2, 2, panel_size=15,
             device=device))
-    launches = {name: k.launches for name, k in kernels().items()}
+    launches = launch_counts()
     for name in ("K1", "K2", "S1", "S1_CHASE"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the large panel's path")
@@ -1566,9 +1595,8 @@ def run_large_panel(casedir: str, gpu: str, device: str = "cuda"):
     if segmented != captured["paths"]:
         raise AssertionError("the checkpointed route sampled other paths")
 
-    # path subsets past the fused kernels' 128: the wide K3/K4, counted alone
-    for k in kernels().values():
-        k.launches = 0
+    # path subsets past the fused kernels' 128: K3/K4's cluster tier, counted alone
+    reset_launches()
     fb_generic.last_walk = (0, 0, 0)
     subsets = f"genotype -f -a {LARGE_SUBSET}"
     chunks = []
@@ -1588,18 +1616,19 @@ def run_large_panel(casedir: str, gpu: str, device: str = "cuda"):
 
     with patched(fb_generic, "pick_chunk", chunk_kept):
         command(subsets, lambda: genotype_subsets("out_subsets"))
-    subset_launches = {name: k.launches for name, k in kernels().items()}
+    subset_launches = launch_counts()
     walk = fb_generic.last_walk
     if len(chunks) != 1:
         raise AssertionError(f"{subsets}: {len(chunks)} chunked walks, not 1")
-    # the shape each wide-tier launch but the last of each pass took
+    # the shape each K3/K4 launch but the last of each pass took
     subset_shape = (walk[0], min(chunks[0], walk[1]), LARGE_SUBSET, 32)
     if batch.last_dispatch != "cuda_generic":
         raise AssertionError(f"{subsets}: dispatch was {batch.last_dispatch}, "
                              f"not cuda_generic")
     for name in ("K3", "K4"):
-        if subset_launches[name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched by {subsets}")
+        if subset_launches[f"{name} cluster"] <= 0 or subset_launches[f"{name} wide"]:
+            raise AssertionError(f"{subsets} did not take {name}'s cluster tier alone: "
+                                 f"{subset_launches}")
     subset_result = genotype_concordance(os.path.join(casedir, "out_subsets_genotyping.vcf"),
                                          os.path.join(casedir, "truth.vcf"))
 
@@ -1615,7 +1644,7 @@ def run_large_panel(casedir: str, gpu: str, device: str = "cuda"):
     print(f"  genotype -f batches (B, N, P, A) and routes: {shapes}")
     print(f"  {subsets} [{gpu}]: wall {walls[subsets][0]:.2f} s, dispatch "
           f"{batch.last_dispatch} over (B, N, chunks) {walk} in chunks of "
-          f"{chunks[0]} (K3/K4's wide tier at P={LARGE_SUBSET}), concordance "
+          f"{chunks[0]} (K3/K4's cluster tier at P={LARGE_SUBSET}), concordance "
           f"{subset_result.concordance:.5f} over {subset_result.total} variants, "
           f"launches {subset_launches}")
     print_walls(walls)
@@ -1629,10 +1658,10 @@ def run_large_panel(casedir: str, gpu: str, device: str = "cuda"):
             os.path.join(casedir, "out_subsets_genotyping.vcf")):
         raise AssertionError(f"the profiled {subsets} VCF differs from the first run's")
     print_profile(subsets, wall, busy, by_name, gpu)
-    wide = {k: sum(dt for name, (dt, _n) in by_name.items() if f"fbe_{k}_wide" in name)
+    tier = {k: sum(dt for name, (dt, _n) in by_name.items() if f"fbe_{k}_cluster" in name)
             for k in ("forward", "backward")}
-    print(f"  {subsets} device time: K3's wide tier {wide['forward']:.3f} s, K4's "
-          f"{wide['backward']:.3f} s of {busy:.3f} s busy; HMM phase wall "
+    print(f"  {subsets} device time: K3's cluster tier {tier['forward']:.3f} s, K4's "
+          f"{tier['backward']:.3f} s of {busy:.3f} s busy; HMM phase wall "
           f"{timer.last_phases.get('genotyping (HMM)', float('nan')):.2f} s", flush=True)
     return launches, err, t, subset_launches, subset_shape
 
@@ -1650,8 +1679,7 @@ def run_widest_panel(casedir: str, gpu: str, device: str = "cuda"):
     prefix = os.path.join(casedir, "index")
     captured, walls = {}, {}
     command = timed_commands(walls)
-    for k in kernels().values():
-        k.launches = 0
+    reset_launches()
     command("index", lambda: commands.run_index_command(
         os.path.join(casedir, "ref.fa"), os.path.join(casedir, "panel.vcf"), 31, prefix,
         nr_jellyfish_threads=2))
@@ -1659,7 +1687,7 @@ def run_widest_panel(casedir: str, gpu: str, device: str = "cuda"):
         command("sampling -x 15", lambda: commands.run_sampling(
             prefix, os.path.join(casedir, "reads.fa"), os.path.join(casedir, "sampled"), 2, 2,
             panel_size=15, device=device))
-    launches = {name: k.launches for name, k in kernels().items()}
+    launches = launch_counts()
     for name in ("S1", "S1_CHASE"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the widest panel's path")
@@ -1676,11 +1704,89 @@ def run_widest_panel(casedir: str, gpu: str, device: str = "cuda"):
     return launches, err, t
 
 
+def run_wide_subsets(casedir: str, gpu: str, device: str = "cuda"):
+    """``index`` and ``genotype -f -a WIDE_SUBSET`` on CUDA over the
+    wide-subsets panel (601 paths in two subsets of 600, past what a
+    cluster of CTAs holds: dispatch cuda_generic, K3/K4's one-CTA wide
+    tier and no other; concordance >= 0.98), the launch counts set to 0
+    just before ``genotype``. Returns its launch counts and the (B, N, P,
+    K) of its chunks."""
+    from pangenie_tpu_torch import commands
+    from pangenie_tpu_torch.eval.concordance import genotype_concordance
+    from pangenie_tpu_torch.hmm import batch, fb_generic
+    from pangenie_tpu_torch.panel.sampling import reset_global_rand
+
+    prefix = os.path.join(casedir, "index")
+    walls = {}
+    command = timed_commands(walls)
+    command("index", lambda: commands.run_index_command(
+        os.path.join(casedir, "ref.fa"), os.path.join(casedir, "panel.vcf"), 31, prefix,
+        nr_jellyfish_threads=2))
+    subsets = f"genotype -f -a {WIDE_SUBSET}"
+    chunks = []
+    pick_chunk = fb_generic.pick_chunk
+
+    def chunk_kept(*args):
+        chunks.append(pick_chunk(*args))
+        return chunks[-1]
+
+    reset_launches()
+    fb_generic.last_walk = (0, 0, 0)
+    reset_global_rand()
+    with patched(fb_generic, "pick_chunk", chunk_kept):
+        command(subsets, lambda: commands.run_genotype_command(
+            prefix, os.path.join(casedir, "reads.fa"), os.path.join(casedir, "out"),
+            nr_jellyfish_threads=2, nr_core_threads=2, sampling_size=WIDE_SUBSET,
+            device=device))
+    launches = launch_counts()
+    walk = fb_generic.last_walk
+    if batch.last_dispatch != "cuda_generic":
+        raise AssertionError(f"{subsets}: dispatch was {batch.last_dispatch}")
+    for name in ("K3", "K4"):
+        if launches[f"{name} wide"] <= 0 or launches[f"{name} cluster"]:
+            raise AssertionError(f"{subsets} did not take {name}'s wide tier alone: "
+                                 f"{launches}")
+    result = genotype_concordance(os.path.join(casedir, "out_genotyping.vcf"),
+                                  os.path.join(casedir, "truth.vcf"))
+    with open(os.path.join(casedir, "DONE")) as f:
+        made = f.read().strip()
+    print(f"  wide-subsets panel ({made}) [{gpu}]: "
+          + ", ".join(f"{name} wall {wall:.2f} s" for name, (wall, _p) in walls.items())
+          + f"; dispatch {batch.last_dispatch} over (B, N, chunks) {walk} in chunks of "
+          f"{chunks[0]} (K3/K4's one-CTA wide tier at P={WIDE_SUBSET}), concordance "
+          f"{result.concordance:.5f} over {result.total} variants, launches {launches}",
+          flush=True)
+    print_walls(walls)
+    if result.concordance < 0.98:
+        raise AssertionError(f"{subsets}: concordance {result.concordance} < 0.98")
+    return launches, (walk[0], min(chunks[0], walk[1]), WIDE_SUBSET, 32)
+
+
 def kernels():
     from pangenie_tpu_torch.hmm import fb_kernels, sampling
 
     return {"K1": fb_kernels.K1, "K2": fb_kernels.K2, "K3": fb_kernels.K3,
             "K4": fb_kernels.K4, "S1": sampling.S1, "S1_CHASE": sampling.S1_CHASE}
+
+
+def reset_launches() -> None:
+    """Every kernel's launch count, and K3's and K4's by tier, to 0."""
+    from pangenie_tpu_torch.hmm import fb_kernels
+
+    for k in kernels().values():
+        k.launches = 0
+    for key in fb_kernels.TIER_LAUNCHES:
+        fb_kernels.TIER_LAUNCHES[key] = 0
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count, and K3's and K4's by tier ("K3
+    cluster", ...)."""
+    from pangenie_tpu_torch.hmm import fb_kernels
+
+    counts = {name: k.launches for name, k in kernels().items()}
+    counts.update({f"{k} {t}": n for (k, t), n in fb_kernels.TIER_LAUNCHES.items()})
+    return counts
 
 
 def main() -> int:
@@ -1712,7 +1818,7 @@ def main() -> int:
     try:
         inputs = {name: pool.apply_async(timed_inputs, (params,)) for name, params in (
             ("bench", BENCH), ("sv", SV_PANEL), ("large", LARGE_PANEL),
-            ("widest", WIDEST_PANEL))}
+            ("widest", WIDEST_PANEL), ("wide_subsets", WIDE_SUBSET_PANEL))}
         pool.close()
         return smoke(device, gpu, inputs)
     finally:
@@ -1791,15 +1897,26 @@ def smoke(device, gpu, inputs) -> int:
     (large_launches, large_err, large_times, subset_launches,
      subset_shape) = run_large_panel(large_dir, gpu)
 
-    phase("K3/K4's wide tier at the chunk shape of genotype -f -a "
+    phase("K3/K4's cluster tier at the chunk shape of genotype -f -a "
           f"{LARGE_SUBSET}: {subset_shape}")
     torch.cuda.empty_cache()
-    w_err, w_times = check_wide(device, gpu, [subset_shape])
+    c_err, c_times = check_wide(device, gpu, [subset_shape])
 
     phase("widest panel: index + sampling at 6405 paths")
     widest_dir, seconds = inputs["widest"].get()
     print(f"  widest panel inputs ({WIDEST_PANEL}) simulated in {seconds:.1f} s", flush=True)
     widest_launches, widest_err, widest_times = run_widest_panel(widest_dir, gpu)
+
+    phase(f"wide-subsets panel: index + genotype -f -a {WIDE_SUBSET} at 601 paths")
+    wide_dir, seconds = inputs["wide_subsets"].get()
+    print(f"  wide-subsets panel inputs ({WIDE_SUBSET_PANEL}) simulated in {seconds:.1f} s",
+          flush=True)
+    wide_launches, wide_shape = run_wide_subsets(wide_dir, gpu)
+
+    phase(f"K3/K4's one-CTA wide tier at the chunk shape of genotype -f -a {WIDE_SUBSET}: "
+          f"{wide_shape}")
+    torch.cuda.empty_cache()
+    w_err, w_times = check_wide(device, gpu, [wide_shape])
     print(f"  smoke wall {time.monotonic() - t0_smoke:.1f} s", flush=True)
 
     def entry(name, source, replaces, n, e, t, key):
@@ -1830,12 +1947,22 @@ def smoke(device, gpu, inputs) -> int:
               g_err["K3"], g_times, "K3"),
         entry("fbe_backward (K4)", fb_src, f"{pallas}:333", sv_launches["K4"],
               g_err["K4"], g_times, "K4"),
-        dict(entry("fbe_forward wide tier (K3 past 128 paths: 1024 threads, state in "
-                   "global memory)", fb_src, f"{pallas}:307", subset_launches["K3"],
-                   w_err["K3"], w_times, "K3"), at=w_times["shape"]),
-        dict(entry("fbe_backward wide tier (K4 past 128 paths: 1024 threads, state in "
-                   "global memory)", fb_src, f"{pallas}:333", subset_launches["K4"],
-                   w_err["K4"], w_times, "K4"), at=w_times["shape"]),
+        dict(entry(f"fbe_forward cluster tier (K3 past 128 paths: fbe_forward_cluster_kernel, "
+                   f"a cluster of {c_times['ranks']} CTAs a chain, the state in registers, "
+                   f"partials pushed by st.async)", fb_src, f"{pallas}:307",
+                   subset_launches["K3 cluster"], c_err["K3"], c_times, "K3"),
+             at=c_times["shape"], cluster_ctas=c_times["ranks"], threads=c_times["threads"]),
+        dict(entry(f"fbe_backward cluster tier (K4 past 128 paths: "
+                   f"fbe_backward_cluster_kernel, a cluster of {c_times['ranks']} CTAs a "
+                   f"chain, the state in registers, partials pushed by st.async)", fb_src,
+                   f"{pallas}:333", subset_launches["K4 cluster"], c_err["K4"], c_times, "K4"),
+             at=c_times["shape"], cluster_ctas=c_times["ranks"], threads=c_times["threads"]),
+        dict(entry("fbe_forward wide tier (K3 past what a cluster holds: one CTA of 1024 "
+                   "threads, state in global memory)", fb_src, f"{pallas}:307",
+                   wide_launches["K3 wide"], w_err["K3"], w_times, "K3"), at=w_times["shape"]),
+        dict(entry("fbe_backward wide tier (K4 past what a cluster holds: one CTA of 1024 "
+                   "threads, state in global memory)", fb_src, f"{pallas}:333",
+                   wide_launches["K4 wide"], w_err["K4"], w_times, "K4"), at=w_times["shape"]),
         entry("viterbi_iteration (S1: sweep and chase)", s1_src,
               "pangenie_tpu/hmm/sampling.py:174", launches["S1"], s1_err, s1_times, "S1"),
         entry("backtrace chase (S1)", s1_src, "pangenie_tpu/hmm/sampling.py:232",

@@ -6,12 +6,15 @@
 //   K3 fbe_forward_kernel, K4 fbe_backward_kernel: the same sweeps on
 //      precomputed [P, P] state emissions, with entry carries so that a
 //      chain runs in N-chunks (the generic route: any A, any length, any
-//      P; past 128 paths fbe_forward_wide_kernel / fbe_backward_wide_kernel).
+//      P; past 128 paths fbe_forward_cluster_kernel /
+//      fbe_backward_cluster_kernel, and past what a cluster holds
+//      fbe_forward_wide_kernel / fbe_backward_wide_kernel).
 //
 // Tiers by P: K1 takes P <= 128; K2 runs fb_backward_warp_kernel (one
 // warp a chain) up to P = 32 and fb_backward_kernel up to 128; K3/K4 keep
-// the state in registers up to 128 and in global memory beyond (their
-// sections below).
+// the state in one CTA's registers up to 128, in the registers of a
+// thread-block cluster of CTAs a chain up to 471 (fbe_cluster_layout),
+// and in global memory beyond (their sections below).
 //
 // Replaces: pangenie_tpu/hmm/pallas_fb.py:_fwd_kernel (K1), :_bwd_kernel
 // (K2), driven there by forward_backward_batch_pallas, and
@@ -26,8 +29,10 @@
 // column's inputs — not bandwidth (K1 at P=16: 1 KB of alpha written per
 // column) or arithmetic. K3/K4 also stream E, alpha and the raw
 // posteriors through global memory: 63 KB (K3) and 95 KB (K4) per column
-// at P=89, from one SM. Parallelism comes only from the batch: one CTA
-// per chain, so B=1 (a long chromosome's chunk) occupies 1 of 132 SMs.
+// at P=89, from one SM. Up to 128 paths parallelism comes only from the
+// batch: one CTA per chain, so B=1 (a long chromosome's chunk) occupies 1
+// of 132 SMs; past 128 paths a chain's rows spread over a cluster of up
+// to 16 CTAs, whose merge of the column sums then joins the chain.
 //
 // K1 and K2's 256-thread tier: the whole [P, P] f32 state stays in
 // shared memory for the entire sweep (row pitch P+1 so the per-row
@@ -94,6 +99,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cluster.cuh"
 #include "cp_async.cuh"
 
 #define FB_THREADS 256
@@ -733,31 +739,523 @@ fbe_backward_kernel(const float* __restrict__ alphas, const float* __restrict__ 
     cp_async_wait<0>();
 }
 
-// ---- K3/K4's wide tier: P > FB_MAX_PATHS ----
+// ---- K3/K4's cluster tier: 128 < P <= the widest band a cluster holds ----
 //
-// A [P, P] state past 128 paths does not fit the registers (nor, past
-// about 230 paths, one SM's shared memory), so it lives in global memory,
-// where L2 holds it up to about P = 3,000: K3 keeps it in its own alphas
-// output (column n-1 unnormalized until column n reads it back, then
-// normalized in place), K4 its helper g in a [P, P] scratch of the chain.
-// The scratch also holds two buffers each of row sums and column sums
-// (the sums of the column being read and of the one being written).
-// 32 warps own the rows (w + 32 r) and take the columns in tiles of
-// FBE_WIDE_TILE, lane l holding columns l + 32 k of a tile: a cell is
-// owned by the same thread in every pass, so a thread reads back only
-// what it wrote itself. Row sums are warp shuffles, summed tile after
-// tile by the owning warp; column sums go through one tile of per-warp
-// partials in shared memory, four threads a column; the totals are
-// each warp's, summed by every thread in the same order. Two barriers a
-// tile, none between a cell's read and its write. The arithmetic is the
-// register tiers' (the factored mix; K3 folds 1 / s into the next column,
-// K4 forms its helper from beta = cur / s with s known before cur, see
-// fbe_total; the uniform state where s <= 0); sums in a fixed order, so a
-// launch repeats its bits. Speed is not this tier's aim: at P=200 a column takes
-// ~35 us (tools/fbe_times.py --wide), some 20-30 GB/s from one SM with
-// one row of loads in flight a warp, and 64 registers a thread at 1024
-// threads spill a few words. A thread-block cluster per chain, with more
-// rows in flight, is the design that would make it fast.
+// Past 128 paths one CTA's registers no longer hold the [P, P] state, so a
+// chain runs on a thread-block cluster of K CTAs (fbe_cluster_layout: K =
+// FBE_CLUSTER_RANKS, halved while the chains' CTAs outnumber the SMs the
+// card holds in clusters at once, and never below the fewest whose band
+// fits, up to FBE_MAX_RANKS), each on its own SM with its share of the
+// state in registers:
+//
+// - Rank k owns the rows [k P / K, (k + 1) P / K) of the state, a band of
+//   floor(P / K) or ceil(P / K) rows. Warp w of its W owns the band's rows
+//   w + W r (r < RW) and lane l the columns l + 32 c (c < NCM), as in the
+//   register tiers, so a thread owns the same cells in every column. K3's
+//   carry and K4's helper g never leave the registers, and no global
+//   scratch is needed. At most FBE_CLUSTER_CELLS cells a thread, so 64
+//   registers a thread hold them at 1024 threads (K4 also holds alpha a
+//   column ahead there).
+// - Row sums stay in the band: a warp shuffle. Column sums and the total
+//   need every band: each warp writes its column partials and its total
+//   to a stage in shared memory; after a block barrier four threads a
+//   group of four columns sum the warps' partials in a fixed order and
+//   push the band's message (P column partials, the band total, padding
+//   to float4s) into every rank's shared memory by st.async, into slots
+//   of the column's parity, completing the bytes on that rank's mbarrier
+//   of the parity (csrc/cluster.cuh, as S1's cluster sweep merges). Each
+//   rank then waits once on its own mbarrier, with no cluster barrier,
+//   and sums the K messages in rank order, so every rank holds the same
+//   bits of the column sums and the total, and a launch repeats its bits.
+//   A rank pushes into a parity's slots again two columns later, after
+//   the next column's wait, which needs every rank's next push, issued
+//   after that rank has read this column's slots.
+// - The E band of a column is contiguous (rows are stored in order): it
+//   is copied FBE_CLUSTER_RING columns ahead into a shared-memory ring by
+//   16-byte cp.async, each column at its global offset modulo 16 bytes as
+//   in the register tiers, the column's scalars in the slot's header. K4
+//   loads its alpha band into registers a column ahead (a ring slot for
+//   it too would not fit beside E at P=465; in the register tiers the
+//   register load was the faster, tools/k4_alpha_ring.py).
+// - K3 writes alpha_{n-1} once, already normalized, from registers during
+//   column n, and rank 0 writes c_fwd; K4 writes the raw posteriors once,
+//   and each rank its band of beta_out.
+// - The arithmetic is the register tiers': the factored mix; K3 folds
+//   1 / s into the next column's mix; K4 forms its helper from beta = cur
+//   / s with s known before cur (fbe_total, fbe_bwd_scale: fault F4's
+//   repair); the uniform state where s <= 0; is_last re-seeds with ones.
+// - Two block barriers and one mbarrier wait a column, against the wide
+//   tier's two barriers a tile of 256 columns on one SM and its state
+//   read back from global memory.
+// - Measured (tools/fbe_times.py, an NVIDIA H100 80GB HBM3 at 700 W): at
+//   genotype -a 200's chunk shape (B=11 N=4,941 P=200, clusters of 8)
+//   2.83 / 3.31 us a column, 13.1x / 10.4x the one-CTA wide tier; at B=2
+//   N=512 P=465 (clusters of 16) 7.40 / 8.08 us, 22x / 19x. The merge is
+//   a third of a column at P=200 and half of one at P=465 (--ablate: 1.0
+//   and 3.8 us of K3's); a merge in two hops (a reduce-scatter to each
+//   float4 group's owner, then an all-gather of the sums: K times fewer
+//   bytes pushed, two waits) took 3.19 / 3.64 us at P=200 and 6.31 /
+//   11.39 at P=465, so the single push stays.
+
+// clusters of 16 CTAs where the card holds them at once: at B=2 N=2048
+// P=200 K3/K4 took 2.672 / 2.946 us a column against 8 CTAs' 2.827 /
+// 3.339; at B=11 (176 CTAs, some SMs two) 3.534 / 4.021 against 8 CTAs'
+// 2.834 / 3.306, and at B=22 4 CTAs beat 8 in two waves (3.688 / 6.246
+// against 5.720 / 6.711): tools/fbe_times.py --ranks, an NVIDIA H100
+// 80GB HBM3 at 700 W
+#ifndef FBE_CLUSTER_RANKS
+#define FBE_CLUSTER_RANKS 16
+#endif
+#define FBE_MAX_RANKS 16
+#define FBE_CLUSTER_RING 2
+#define FBE_CLUSTER_CELLS 16
+#define FBE_CLUSTER_WARPS 32
+// the CTAs of the clusters an H100 holds at once where a CTA takes its SM
+// (17-32 warps of 64 registers): cudaOccupancyMaxActiveClusters reads 15
+// clusters of 8 CTAs and 7 of 16, so 112 in clusters of 16 (at 13 warps
+// two CTAs share an SM: 14 of 16; tools/fbe_times.py --wide prints it)
+#ifndef FBE_SMS
+#define FBE_SMS 112
+#endif
+static_assert((FBE_CLUSTER_RANKS & (FBE_CLUSTER_RANKS - 1)) == 0 && FBE_CLUSTER_RANKS >= 1 &&
+                  FBE_CLUSTER_RANKS <= FBE_MAX_RANKS,
+              "FBE_CLUSTER_RANKS is a power of two up to FBE_MAX_RANKS");
+// one H100 block's dynamic shared memory
+#define FBE_SMEM_BYTES 232448
+
+// A band of `floats` floats at any misalignment, in float4s
+__host__ __device__ __forceinline__ int fbe_span_floats(int floats) {
+    return (floats + 3 + 3) & ~3;
+}
+
+// A rank's message: P column partials, the band total at P, padding to
+// float4s.
+__host__ __device__ __forceinline__ int fbc_msg(int P) { return (P + 1 + 3) & ~3; }
+
+// The cluster tier's layout at P paths in clusters of `ranks`: the most
+// rows a band has, rows a warp (rw), column slots a lane (ncm: 8 up to
+// 256 paths, else 16) and warps a CTA.
+struct FbcLayout {
+    int ranks, rows, rw, ncm, warps;
+};
+
+// Shared memory of the layout (fb_kernels.generic_launch mirrors it): two
+// mbarriers; the messages, [2 parities][ranks][msg]; their sums [msg];
+// the warps' stage [warps][msg]; the E ring of FBE_CLUSTER_RING slots of
+// a header and a band.
+__host__ __device__ __forceinline__ size_t fbc_smem(int P, const FbcLayout& l) {
+    return 16 + sizeof(float) * ((size_t)(2 * l.ranks + 1 + l.warps) * fbc_msg(P)
+                                 + (size_t)FBE_CLUSTER_RING
+                                       * (FBE_HEADER + fbe_span_floats(l.rows * P)));
+}
+
+// Whether a cluster of `ranks` CTAs holds P paths: a band in at most
+// FBE_CLUSTER_CELLS cells a thread of at most FBE_CLUSTER_WARPS warps,
+// and its shared memory in one block's.
+__host__ __device__ __forceinline__ bool fbc_layout(int P, int ranks, FbcLayout& l) {
+    l.ranks = ranks;
+    l.rows = (P + ranks - 1) / ranks;
+    l.ncm = P <= 256 ? 8 : 16;
+    l.rw = (l.rows + FBE_CLUSTER_WARPS - 1) / FBE_CLUSTER_WARPS;
+    l.warps = (l.rows + l.rw - 1) / l.rw;
+    return ranks >= 1 && ranks <= FBE_MAX_RANKS && 32 * l.ncm >= P
+        && l.rw * l.ncm <= FBE_CLUSTER_CELLS && fbc_smem(P, l) <= FBE_SMEM_BYTES;
+}
+
+// The rule, past FB_MAX_PATHS: clusters of FBE_CLUSTER_RANKS CTAs, halved
+// while the B chains' CTAs outnumber the FBE_SMS the card holds in
+// clusters at once, but never below the fewest (a power of two) whose
+// band fits; false where not even FBE_MAX_RANKS CTAs hold P (the wide
+// tier takes it).
+static bool fbe_cluster_layout(int P, int B, FbcLayout& l) {
+    if (P <= FB_MAX_PATHS) return false;
+    int least = 1;
+    while (least <= FBE_MAX_RANKS && !fbc_layout(P, least, l)) least *= 2;
+    if (least > FBE_MAX_RANKS) return false;
+    int k = FBE_CLUSTER_RANKS > least ? FBE_CLUSTER_RANKS : least;
+    while (k > least && (long)B * k > FBE_SMS) k /= 2;
+    return fbc_layout(P, k, l);
+}
+
+// Offsets (in floats, from fbe_shm) of the cluster tier's shared memory;
+// the two mbarriers take floats 0-3.
+struct FbcSmem {
+    int parts, col, stage, ring, msg, slot_pitch;
+};
+
+__device__ __forceinline__ FbcSmem fbc_layout_smem(int P, int ranks, int rows, int warps) {
+    FbcSmem s;
+    s.msg = fbc_msg(P);
+    s.parts = 4;
+    s.col = s.parts + 2 * ranks * s.msg;
+    s.stage = s.col + s.msg;
+    s.ring = s.stage + warps * s.msg;
+    s.slot_pitch = FBE_HEADER + fbe_span_floats(rows * P);
+    return s;
+}
+
+// The cells of one thread in its rank's band: band rows w + W r (r < RW),
+// columns lane + 32 c (c < NCM); `rows` is this band's.
+template <int RW, int NCM>
+struct BandCells {
+    int P, W, w, lane, rows;
+    __device__ BandCells(int P_, int rows_)
+        : P(P_), W(blockDim.x >> 5), w(threadIdx.x >> 5), lane(threadIdx.x & 31),
+          rows(rows_) {}
+    __device__ __forceinline__ bool row_ok(int r) const { return w + W * r < rows; }
+    __device__ __forceinline__ bool ok(int r, int c) const {
+        return row_ok(r) && lane + 32 * c < P;
+    }
+    // the cell's offset in the band (and from the band's first cell in a column)
+    __device__ __forceinline__ int at(int r, int c) const {
+        return (w + W * r) * P + lane + 32 * c;
+    }
+};
+
+// The band's sums of v, no barrier: its row sums into R (every lane of
+// the warp gets them), the warp's column partials and its total (at P;
+// zeros up to the message's end) into its row of the stage.
+template <int RW, int NCM>
+__device__ __forceinline__ void fbc_reduce_warp(const float (&v)[RW][NCM], float (&R)[RW],
+                                                const BandCells<RW, NCM>& c, const FbcSmem& s) {
+    float* stage = fbe_shm + s.stage + c.w * s.msg;
+    float tot = 0.f;
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+        float x = 0.f;
+        if (c.row_ok(r)) {   // the same for the whole warp
+#pragma unroll
+            for (int k = 0; k < NCM; ++k) x += v[r][k];
+            x = warp_sum(x);
+        }
+        R[r] = x;
+        tot += x;
+    }
+#pragma unroll
+    for (int k = 0; k < NCM; ++k) {
+        const int q = c.lane + 32 * k;
+        float x = 0.f;
+#pragma unroll
+        for (int r = 0; r < RW; ++r) x += v[r][k];
+        if (q < c.P) stage[q] = x;
+    }
+    if (c.lane < s.msg - c.P) stage[c.P + c.lane] = c.lane == 0 ? tot : 0.f;
+}
+
+// After a barrier that publishes the stage: the band's message, summed
+// over the warps in a fixed order (four threads a float4 group, each over
+// every fourth warp, then two shuffles), pushed into slot `rank` of
+// parity `parity` in every rank's shared memory (st.async, completing 16
+// bytes a push on that rank's mbarrier of the parity). Thread 0 arms this
+// rank's mbarrier with the bytes of the K messages it will receive.
+__device__ __forceinline__ void fbc_push(const FbcSmem& s, unsigned rank, int ranks,
+                                         int parity) {
+    const int groups = s.msg >> 2, warps = blockDim.x >> 5;
+    const float4* stage = reinterpret_cast<const float4*>(fbe_shm + s.stage);
+    uint4* slot = reinterpret_cast<uint4*>(fbe_shm + s.parts)
+                  + (size_t)(parity * ranks + (int)rank) * groups;
+    uint64_t* bar = reinterpret_cast<uint64_t*>(fbe_shm) + parity;
+    if (threadIdx.x == 0) mbar_expect(bar, 16u * ranks * groups);
+    for (int t = threadIdx.x; t < 4 * groups; t += blockDim.x) {
+        const int g = t >> 2, j = t & 3;
+        const unsigned quad = 0xfu << (threadIdx.x & 28);
+        float4 x = {0.f, 0.f, 0.f, 0.f};
+        for (int w = j; w < warps; w += 4) {
+            const float4 v = stage[w * groups + g];
+            x.x += v.x;
+            x.y += v.y;
+            x.z += v.z;
+            x.w += v.w;
+        }
+#pragma unroll
+        for (int o = 1; o <= 2; o <<= 1) {
+            x.x += __shfl_xor_sync(quad, x.x, o);
+            x.y += __shfl_xor_sync(quad, x.y, o);
+            x.z += __shfl_xor_sync(quad, x.z, o);
+            x.w += __shfl_xor_sync(quad, x.w, o);
+        }
+        const uint4 bits = make_uint4(__float_as_uint(x.x), __float_as_uint(x.y),
+                                      __float_as_uint(x.z), __float_as_uint(x.w));
+        for (int k = j; k < ranks; k += 4) cluster_push4(slot + g, (unsigned)k, bits, bar);
+    }
+}
+
+// Waits for the K messages of parity `parity` on this rank's own mbarrier
+// and sums them in rank order into s.col (column sums, the total at P).
+__device__ __forceinline__ void fbc_merge(const FbcSmem& s, int P, int ranks, int parity,
+                                          unsigned& phases) {
+    uint64_t* bar = reinterpret_cast<uint64_t*>(fbe_shm) + parity;
+    mbar_wait(bar, (phases >> parity) & 1);
+    phases ^= 1u << parity;
+    const float* part = fbe_shm + s.parts + (size_t)parity * ranks * s.msg;
+    for (int q = threadIdx.x; q <= P; q += blockDim.x) {
+        float x = 0.f;
+        for (int k = 0; k < ranks; ++k) x += part[k * s.msg + q];
+        fbe_shm[s.col + q] = x;
+    }
+}
+
+// Thread 0 sets up the two mbarriers; no rank pushes before every rank's
+// are set up.
+__device__ __forceinline__ void fbc_start() {
+    if (threadIdx.x == 0) {
+        mbar_init(reinterpret_cast<uint64_t*>(fbe_shm));
+        mbar_init(reinterpret_cast<uint64_t*>(fbe_shm) + 1);
+    }
+    cluster_arrive();
+    cluster_wait();
+}
+
+// One step of the chain after the cells: the band's sums published, the
+// slot just read handed to `refill`, the cluster's message of the step's
+// parity pushed and merged, the ring's next column waited for, all
+// published by the second barrier.
+template <int RW, int NCM, typename F>
+__device__ __forceinline__ void fbc_step(const float (&v)[RW][NCM], float (&R)[RW],
+                                         const BandCells<RW, NCM>& c, const FbcSmem& s,
+                                         unsigned rank, int ranks, int step, unsigned& phases,
+                                         F&& refill) {
+    fbc_reduce_warp(v, R, c, s);
+    __syncthreads();
+    refill();
+    cp_async_commit();
+    fbc_push(s, rank, ranks, step & 1);
+    fbc_merge(s, c.P, ranks, step & 1, phases);
+    cp_async_wait<FBE_CLUSTER_RING - 1>();
+    __syncthreads();
+}
+
+template <int RW, int NCM>
+__global__ void __launch_bounds__(32 * FBE_CLUSTER_WARPS, 1)
+fbe_forward_cluster_kernel(const float* __restrict__ E, const float* __restrict__ u,
+                           const float* __restrict__ alpha0, float* __restrict__ alphas,
+                           float* __restrict__ c_fwd, int N, int P, int ranks) {
+    constexpr int D = FBE_CLUSTER_RING;
+    const unsigned rank = cluster_rank();
+    const int b = blockIdx.x / ranks, t = threadIdx.x, last_t = blockDim.x - 1;
+    const int i0 = (int)rank * P / ranks, rows = ((int)rank + 1) * P / ranks - i0;
+    const BandCells<RW, NCM> c(P, rows);
+    const FbcSmem s = fbc_layout_smem(P, ranks, (P + ranks - 1) / ranks, blockDim.x >> 5);
+    const size_t PP = (size_t)P * P, band = (size_t)i0 * P;
+    const int L = rows * P;
+    const float uniform = 1.0f / (float)PP, row_uniform = (float)P * uniform;
+    const float* e_b = E + (size_t)b * N * PP + band;
+    const float* u_b = u + (size_t)b * N * 3;
+    float* alpha_b = alphas + (size_t)b * N * PP + band;
+
+    // column m's band into its slot, u in the header
+    auto fetch = [&](int m, int slot) {
+        float* hdr = fbe_shm + s.ring + slot * s.slot_pitch;
+        fetch_column(hdr + FBE_HEADER, e_b + (size_t)m * PP, L);
+        if (t == last_t)
+            for (int j = 0; j < 3; ++j) cp_async4(hdr + j, u_b + 3 * m + j);
+    };
+    for (int j = 0; j < D; ++j) {                         // columns 0 .. D-1
+        if (j < N) fetch(j, j);
+        cp_async_commit();
+    }
+    fbc_start();
+    unsigned phases = 0;
+    // a: the carry, unnormalized (alpha_{n-1} = a * inv); R its row sums,
+    // s.col its column sums, H its total
+    float a[RW][NCM], R[RW];
+#pragma unroll
+    for (int r = 0; r < RW; ++r)
+#pragma unroll
+        for (int k = 0; k < NCM; ++k)
+            a[r][k] = c.ok(r, k) ? alpha0[(size_t)b * PP + band + c.at(r, k)] : 0.f;
+    // step 0: the entry carry's sums (it mixes as it is); column 0 arrives
+    fbc_step(a, R, c, s, rank, ranks, 0, phases, [] {});
+    float H = fbe_shm[s.col + P], inv = 1.f;
+    bool uni = false;                  // the carry is the uniform state
+    int slot = 0;
+
+    for (int n = 0; n < N; ++n) {
+        const float* hdr = fbe_shm + s.ring + slot * s.slot_pitch;
+        const float* e = hdr + FBE_HEADER + misalign(e_b + (size_t)n * PP);
+        const float u0 = hdr[0], u1 = hdr[1], hh = hdr[2] * H;
+        float* prev = alpha_b + (size_t)(n > 0 ? n - 1 : 0) * PP;
+#pragma unroll
+        for (int k = 0; k < NCM; ++k) {
+            const int q = c.lane + 32 * k;
+            const float ck = uni ? row_uniform : (q < P ? fbe_shm[s.col + q] : 0.f);
+#pragma unroll
+            for (int r = 0; r < RW; ++r) {
+                const bool ok = c.ok(r, k);
+                const int i = c.at(r, k);
+                const float x = a[r][k];
+                if (n > 0 && ok) prev[i] = x * inv;      // alpha_{n-1}
+                const float ev = ok ? e[i] : 0.f;
+                a[r][k] = inv * (u0 * x + u1 * (R[r] + ck) + hh) * ev;
+            }
+        }
+        // every thread is done with the slot once the stage is published:
+        // column n + D takes it
+        fbc_step(a, R, c, s, rank, ranks, n + 1, phases, [&] {
+            if (n + D < N) fetch(n + D, slot);
+        });
+        slot = slot + 1 == D ? 0 : slot + 1;
+        const float tot = fbe_shm[s.col + P];
+        if (rank == 0 && t == 0) c_fwd[(size_t)b * N + n] = tot > 0.f ? tot : 1.f;
+        uni = !(tot > 0.f);
+        inv = uni ? 1.f : 1.f / tot;
+        H = uni ? 1.f : tot;
+        if (uni) {
+#pragma unroll
+            for (int r = 0; r < RW; ++r) {
+                R[r] = row_uniform;
+#pragma unroll
+                for (int k = 0; k < NCM; ++k) a[r][k] = c.ok(r, k) ? uniform : 0.f;
+            }
+        }
+    }
+    float* last_col = alpha_b + (size_t)(N - 1) * PP;
+#pragma unroll
+    for (int r = 0; r < RW; ++r)
+#pragma unroll
+        for (int k = 0; k < NCM; ++k)
+            if (c.ok(r, k)) last_col[c.at(r, k)] = a[r][k] * inv;
+    cp_async_wait<0>();
+    // no rank leaves while another may still push into it
+    cluster_arrive();
+    cluster_wait();
+}
+
+template <int RW, int NCM>
+__global__ void __launch_bounds__(32 * FBE_CLUSTER_WARPS, 1)
+fbe_backward_cluster_kernel(const float* __restrict__ alphas, const float* __restrict__ c_fwd,
+                            const float* __restrict__ E, const float* __restrict__ u,
+                            const float* __restrict__ e_after,
+                            const float* __restrict__ u_after, const int* __restrict__ is_last,
+                            const float* __restrict__ beta0, float* __restrict__ posts,
+                            float* __restrict__ beta_out, int N, int P, int ranks) {
+    constexpr int D = FBE_CLUSTER_RING;
+    const unsigned rank = cluster_rank();
+    const int b = blockIdx.x / ranks, t = threadIdx.x, last_t = blockDim.x - 1;
+    const int i0 = (int)rank * P / ranks, rows = ((int)rank + 1) * P / ranks - i0;
+    const BandCells<RW, NCM> c(P, rows);
+    const FbcSmem s = fbc_layout_smem(P, ranks, (P + ranks - 1) / ranks, blockDim.x >> 5);
+    const size_t PP = (size_t)P * P, band = (size_t)i0 * P;
+    const int L = rows * P;
+    const float uniform = 1.0f / (float)PP;
+    const float* e_b = E + (size_t)b * N * PP + band;
+    const float* u_b = u + (size_t)b * N * 3;
+    const float* alpha_b = alphas + (size_t)b * N * PP + band;
+    const float* cf_b = c_fwd + (size_t)b * N;
+    const int* last_b = is_last + (size_t)b * N;
+    float* post_b = posts + (size_t)b * N * PP + band;
+
+    // column m's band into its slot; u, c_fwd, is_last in the header
+    auto fetch = [&](int m, int slot) {
+        float* hdr = fbe_shm + s.ring + slot * s.slot_pitch;
+        fetch_column(hdr + FBE_HEADER, e_b + (size_t)m * PP, L);
+        if (t == last_t) {
+            for (int j = 0; j < 3; ++j) cp_async4(hdr + j, u_b + 3 * m + j);
+            cp_async4(hdr + 3, cf_b + m);
+            cp_async4(hdr + 4, last_b + m);
+        }
+    };
+    for (int j = 0; j < D; ++j) {                         // columns N-1 .. N-D
+        if (j < N) fetch(N - 1 - j, j);
+        cp_async_commit();
+    }
+    fbc_start();
+    unsigned phases = 0;
+    // g: the helper of the column ahead (its beta times its E); R its row
+    // sums, s.col its column sums, H its total. a: alpha of the column
+    // being computed, loaded a column ahead.
+    float g[RW][NCM], a[RW][NCM], R[RW];
+#pragma unroll
+    for (int r = 0; r < RW; ++r)
+#pragma unroll
+        for (int k = 0; k < NCM; ++k) {
+            const bool ok = c.ok(r, k);
+            const size_t i = (size_t)b * PP + band + c.at(r, k);
+            g[r][k] = ok ? beta0[i] * e_after[i] : 0.f;
+            a[r][k] = ok ? alpha_b[(size_t)(N - 1) * PP + c.at(r, k)] : 0.f;
+        }
+    // step 0: the helper of the column after the chunk; column N-1 arrives
+    fbc_step(g, R, c, s, rank, ranks, 0, phases, [] {});
+    float H = fbe_shm[s.col + P];                       // beta0 is normalized
+    float u0 = u_after[(size_t)b * 3], u1 = u_after[(size_t)b * 3 + 1],
+          u2 = u_after[(size_t)b * 3 + 2];
+    BwdScale k0;                       // column 0's, for beta_out
+    int slot = 0;
+
+    for (int n = N - 1; n >= 0; --n) {
+        const float* hdr = fbe_shm + s.ring + slot * s.slot_pitch;
+        const float* e = hdr + FBE_HEADER + misalign(e_b + (size_t)n * PP);
+        const bool last = ((const int*)hdr)[4] != 0;
+        // the total of cur, known before it (fbe_total), and beta = cur / s
+        const BwdScale ks = fbe_bwd_scale(last, H, u0, u1, u2, P, hdr[3], uniform);
+        k0 = ks;
+        const float* a_next = alpha_b + (size_t)(n > 0 ? n - 1 : 0) * PP;
+        float* post = post_b + (size_t)n * PP;
+#pragma unroll
+        for (int k = 0; k < NCM; ++k) {
+            const int q = c.lane + 32 * k;
+            const float ck = q < P ? fbe_shm[s.col + q] : 0.f;
+#pragma unroll
+            for (int r = 0; r < RW; ++r) {
+                const bool ok = c.ok(r, k);
+                const int i = c.at(r, k);
+                // is_last re-seeds the sweep with ones (src/hmm.cpp:321-324);
+                // cur * sc (BwdScale)
+                float cur = last ? 1.f : ks.u0s * g[r][k] + ks.u1s * (R[r] + ck) + ks.hs;
+                cur = ok ? cur : 0.f;
+                // the raw posterior takes the un-normalized cur
+                if (ok) post[i] = a[r][k] * cur * ks.cfs;
+                // at column 0, a keeps cur * sc for beta_out
+                a[r][k] = n > 0 ? (ok ? a_next[i] : 0.f) : cur;
+                g[r][k] = cur * ks.inv * (ok ? e[i] : 0.f);
+            }
+        }
+        // column n's u is its predecessor's successor mix (read before the
+        // slot is refilled)
+        const float nu0 = hdr[0], nu1 = hdr[1], nu2 = hdr[2];
+        fbc_step(g, R, c, s, rank, ranks, N - n, phases, [&] {
+            if (n - D >= 0) fetch(n - D, slot);
+        });
+        slot = slot + 1 == D ? 0 : slot + 1;
+        H = fbe_shm[s.col + P];
+        u0 = nu0;
+        u1 = nu1;
+        u2 = nu2;
+    }
+    // this band of the normalized beta after the chunk's first column
+    float* bo = beta_out + (size_t)b * PP + band;
+#pragma unroll
+    for (int r = 0; r < RW; ++r)
+#pragma unroll
+        for (int k = 0; k < NCM; ++k)
+            if (c.ok(r, k)) bo[c.at(r, k)] = a[r][k] * k0.inv;
+    cp_async_wait<0>();
+    // no rank leaves while another may still push into it
+    cluster_arrive();
+    cluster_wait();
+}
+
+// ---- K3/K4's wide tier: P past what a cluster holds ----
+//
+// Past the cluster tier (P > 471: no public panel) the [P, P] state lives
+// in global memory, where L2 holds it up to about P = 3,000: K3 keeps it
+// in its own alphas output (column n-1 unnormalized until column n reads
+// it back, then normalized in place), K4 its helper g in a [P, P] scratch
+// of the chain. The scratch also holds two buffers each of row sums and
+// column sums (the sums of the column being read and of the one being
+// written). One CTA a chain: 32 warps own the rows (w + 32 r) and take the
+// columns in tiles of FBE_WIDE_TILE, lane l holding columns l + 32 k of a
+// tile: a cell is owned by the same thread in every pass, so a thread
+// reads back only what it wrote itself. Row sums are warp shuffles,
+// summed tile after tile by the owning warp; column sums go through one
+// tile of per-warp partials in shared memory, four threads a column; the
+// totals are each warp's, summed by every thread in the same order. Two
+// barriers a tile, none between a cell's read and its write. The
+// arithmetic is the cluster tier's; sums in a fixed order, so a launch
+// repeats its bits. Speed is not this tier's aim: at P=200 a column took
+// ~35 us (tools/fbe_times.py --wide, before the cluster tier took P=200),
+// some 20-30 GB/s from one SM with one row of loads in flight a warp, and
+// 64 registers a thread at 1024 threads spill a few words.
 
 #define FBE_WIDE_WARPS 32
 #define FBE_WIDE_TILE 256
@@ -1231,14 +1729,104 @@ static int launch(Kernel kernel, int B, int threads, size_t smem, void* stream,
     return (int)cudaGetLastError();
 }
 
-// K3/K4's launch as fb_kernels.generic_launch derives it: up to
-// FB_MAX_PATHS, FBE_WARPS warps and fbe_smem bytes; beyond, the wide
-// tier's FBE_WIDE_WARPS warps and fbe_wide_smem bytes, and its scratch.
-static bool fbe_config_ok(int P, int threads, int smem, const float* scratch) {
-    if (P > FB_MAX_PATHS)
-        return threads == 32 * FBE_WIDE_WARPS && (size_t)smem == fbe_wide_smem()
-            && scratch != nullptr;
-    return P >= 1 && threads == 32 * FBE_WARPS && (size_t)smem == fbe_smem(P);
+// A cluster launch of `blocks` CTAs in clusters of `ranks`, once it has
+// opted in to `smem` bytes and cudaOccupancyMaxActiveClusters says one
+// such cluster fits the card; else cudaErrorLaunchOutOfResources, and
+// nothing runs. With `fits` given, only that reading is written there.
+template <typename... Params, typename... Args>
+static int launch_cluster(void (*kernel)(Params...), int blocks, int ranks, int threads,
+                          size_t smem, void* stream, int* fits, Args... args) {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = ranks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t config = {};
+    config.gridDim.x = blocks;
+    config.gridDim.y = config.gridDim.z = 1;
+    config.blockDim.x = threads;
+    config.blockDim.y = config.blockDim.z = 1;
+    config.dynamicSmemBytes = smem;
+    config.stream = (cudaStream_t)stream;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        (int)smem);
+    if (!err && ranks > 8)
+        err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err) return err;
+    int clusters = 0;
+    err = (int)cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+    if (err) return err;
+    if (fits) {
+        *fits = clusters;
+        return 0;
+    }
+    if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
+    err = (int)cudaLaunchKernelEx(&config, kernel, args...);
+    if (err) return err;
+    return (int)cudaGetLastError();
+}
+
+// K3/K4's launch for B chains of P paths (fb_kernels.generic_launch
+// mirrors it): up to FB_MAX_PATHS one CTA of FBE_WARPS warps and
+// fbe_smem bytes; then the cluster tier's layout (fbe_cluster_layout,
+// fbc_smem; no scratch); beyond it one CTA of the wide tier's
+// FBE_WIDE_WARPS warps and fbe_wide_smem bytes, and its scratch.
+struct FbeLaunch {
+    bool cluster;
+    int ranks, threads;
+    size_t smem;
+};
+
+static FbeLaunch fbe_launch(int P, int B) {
+    FbcLayout l;
+    if (fbe_cluster_layout(P, B, l)) return {true, l.ranks, 32 * l.warps, fbc_smem(P, l)};
+    if (P > FB_MAX_PATHS) return {false, 1, 32 * FBE_WIDE_WARPS, fbe_wide_smem()};
+    return {false, 1, 32 * FBE_WARPS, fbe_smem(P)};
+}
+
+static bool fbe_config_ok(int P, int B, int ranks, int threads, int smem,
+                          const float* scratch) {
+    if (P < 1 || B < 1) return false;
+    const FbeLaunch want = fbe_launch(P, B);
+    return ranks == want.ranks && threads == want.threads && (size_t)smem == want.smem
+        && (P <= FB_MAX_PATHS || want.cluster || scratch != nullptr);
+}
+
+// (RW, NCM) of every cluster-tier instance: rows a warp and column slots
+// a lane, at most FBE_CLUSTER_CELLS cells a thread
+#define FBC_INSTANCES(X) X(1, 8) X(2, 8) X(1, 16)
+
+// The cluster tier's K3 and K4 for P paths in B chains: launched (fits
+// null) or only their cudaOccupancyMaxActiveClusters reading written to
+// `fits`.
+static int fbe_forward_cluster(const FbcLayout& l, int* fits, const float* E, const float* u,
+                               const float* alpha0, float* alphas, float* c_fwd, int B, int N,
+                               int P, void* stream) {
+#define FBC_FORWARD(RW, NCM)                                                                  \
+    if (l.rw == RW && l.ncm == NCM)                                                           \
+        return launch_cluster(fbe_forward_cluster_kernel<RW, NCM>, B * l.ranks, l.ranks,      \
+                              32 * l.warps, fbc_smem(P, l), stream, fits, E, u, alpha0, alphas, \
+                              c_fwd, N, P, l.ranks);
+    FBC_INSTANCES(FBC_FORWARD)
+#undef FBC_FORWARD
+    return (int)cudaErrorInvalidValue;
+}
+
+static int fbe_backward_cluster(const FbcLayout& l, int* fits, const float* alphas,
+                                const float* c_fwd, const float* E, const float* u,
+                                const float* e_after, const float* u_after, const int* is_last,
+                                const float* beta0, float* posts, float* beta_out, int B, int N,
+                                int P, void* stream) {
+#define FBC_BACKWARD(RW, NCM)                                                                 \
+    if (l.rw == RW && l.ncm == NCM)                                                           \
+        return launch_cluster(fbe_backward_cluster_kernel<RW, NCM>, B * l.ranks, l.ranks,     \
+                              32 * l.warps, fbc_smem(P, l), stream, fits, alphas, c_fwd, E, u, \
+                              e_after, u_after, is_last, beta0, posts, beta_out, N, P, l.ranks);
+    FBC_INSTANCES(FBC_BACKWARD)
+#undef FBC_BACKWARD
+    return (int)cudaErrorInvalidValue;
 }
 
 // (RW, NC) of every register-tier instance: RW = ceil(P / FBE_WARPS)
@@ -1293,8 +1881,11 @@ extern "C" int pg_fb_backward(const float* alphas, const float* c_fwd,
 
 extern "C" int pg_fbe_forward(const float* E, const float* u, const float* alpha0,
                               float* alphas, float* c_fwd, float* scratch, int B, int N,
-                              int P, int threads, int smem, void* stream) {
-    if (!fbe_config_ok(P, threads, smem, scratch)) return (int)cudaErrorInvalidValue;
+                              int P, int ranks, int threads, int smem, void* stream) {
+    if (!fbe_config_ok(P, B, ranks, threads, smem, scratch)) return (int)cudaErrorInvalidValue;
+    FbcLayout l;
+    if (fbe_cluster_layout(P, B, l))
+        return fbe_forward_cluster(l, nullptr, E, u, alpha0, alphas, c_fwd, B, N, P, stream);
     if (P > FB_MAX_PATHS)
         return launch(fbe_forward_wide_kernel, B, threads, smem, stream,
                       E, u, alpha0, alphas, c_fwd, scratch, N, P);
@@ -1312,9 +1903,13 @@ extern "C" int pg_fbe_backward(const float* alphas, const float* c_fwd,
                                const float* E, const float* u, const float* e_after,
                                const float* u_after, const int* is_last,
                                const float* beta0, float* posts, float* beta_out,
-                               float* scratch, int B, int N, int P, int threads,
+                               float* scratch, int B, int N, int P, int ranks, int threads,
                                int smem, void* stream) {
-    if (!fbe_config_ok(P, threads, smem, scratch)) return (int)cudaErrorInvalidValue;
+    if (!fbe_config_ok(P, B, ranks, threads, smem, scratch)) return (int)cudaErrorInvalidValue;
+    FbcLayout l;
+    if (fbe_cluster_layout(P, B, l))
+        return fbe_backward_cluster(l, nullptr, alphas, c_fwd, E, u, e_after, u_after, is_last,
+                                    beta0, posts, beta_out, B, N, P, stream);
     if (P > FB_MAX_PATHS)
         return launch(fbe_backward_wide_kernel, B, threads, smem, stream,
                       alphas, c_fwd, E, u, e_after, u_after, is_last, beta0, posts,
@@ -1328,4 +1923,28 @@ extern "C" int pg_fbe_backward(const float* alphas, const float* c_fwd,
     FBE_INSTANCES(FBE_BACKWARD)
 #undef FBE_BACKWARD
     return (int)cudaErrorInvalidValue;
+}
+
+// The clusters of K3's (K4's, `backward`) cluster-tier instance for P
+// paths in B chains that fit the card at once, by
+// cudaOccupancyMaxActiveClusters, into `clusters`; 0 where P does not
+// take the cluster tier.
+extern "C" int pg_fbe_cluster_fits(int P, int B, int backward, int* clusters) {
+    FbcLayout l;
+    *clusters = 0;
+    if (!fbe_cluster_layout(P, B, l)) return 0;
+    return backward ? fbe_backward_cluster(l, clusters, nullptr, nullptr, nullptr, nullptr,
+                                           nullptr, nullptr, nullptr, nullptr, nullptr,
+                                           nullptr, B, 1, P, nullptr)
+                    : fbe_forward_cluster(l, clusters, nullptr, nullptr, nullptr, nullptr,
+                                          nullptr, B, 1, P, nullptr);
+}
+
+// K3/K4's launch for B chains of P paths into out[0..2]: CTAs a chain,
+// threads, dynamic shared bytes (the numbers fbe_config_ok takes).
+extern "C" void pg_fbe_launch(int P, int B, int* out) {
+    const FbeLaunch l = fbe_launch(P, B);
+    out[0] = l.ranks;
+    out[1] = l.threads;
+    out[2] = (int)l.smem;
 }

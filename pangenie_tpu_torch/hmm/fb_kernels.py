@@ -12,13 +12,16 @@ scratch; the kernels allocate nothing.
 
 K1/K2 take at most ``MAX_PATHS`` paths; ``batch.use_generic`` sends
 every batch with more to K3/K4, which take any P: up to ``MAX_PATHS``
-with the [P, P] state in registers, beyond it on the wide tier, whose
-state lives in global memory (``wide_scratch``).
+with the [P, P] state in one CTA's registers, then in the registers of
+a thread-block cluster of CTAs a chain (``cluster_layout``, up to 471
+paths), beyond it on the wide tier, whose state lives in global memory
+(``wide_scratch``).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -36,9 +39,9 @@ K2 = CudaKernel(
     "fb", "pg_fb_backward", "fb", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
 )
 # kernel K3: replaces pangenie_tpu/hmm/pallas_fb.py:_fwd_kernel_e
-K3 = CudaKernel("fb", "pg_fbe_forward", "fb", [_P] * 6 + [_I] * 5 + [_P])
+K3 = CudaKernel("fb", "pg_fbe_forward", "fb", [_P] * 6 + [_I] * 6 + [_P])
 # kernel K4: replaces pangenie_tpu/hmm/pallas_fb.py:_bwd_kernel_e
-K4 = CudaKernel("fb", "pg_fbe_backward", "fb", [_P] * 11 + [_I] * 5 + [_P])
+K4 = CudaKernel("fb", "pg_fbe_backward", "fb", [_P] * 11 + [_I] * 6 + [_P])
 
 # K1 (and K2 above 32 paths): a CTA's 256 threads compute the P row sums
 # and P column sums in parallel; K3/K4's register tiers give each of 16
@@ -52,33 +55,132 @@ SMEM_BYTES = 232_448
 WARPS = 16
 RING = 2
 _HEADER = 8
-# K3/K4's wide tier (P > MAX_PATHS, FBE_WIDE_* in csrc/fb.cu): 32 warps
-# own the rows, and the columns go through in tiles of WIDE_TILE, each
-# lane holding WIDE_TILE / 32 of a row
+# K3/K4's cluster tier (FBE_CLUSTER_* in csrc/fb.cu): clusters of
+# CLUSTER_RANKS CTAs a chain (the source's FBE_CLUSTER_RANKS: a library
+# built with another, as tools/fbe_times.py --ranks builds them, is
+# driven with this set to match), halved while B chains' CTAs outnumber
+# the SMS (FBE_SMS) that an H100 holds in clusters at once, never below
+# the fewest whose band fits and at most MAX_RANKS; at most
+# CLUSTER_CELLS cells a thread of at most CLUSTER_WARPS warps; an E ring
+# of CLUSTER_RING slots
+CLUSTER_RANKS = 16
+MAX_RANKS = 16
+CLUSTER_CELLS = 16
+CLUSTER_WARPS = 32
+CLUSTER_RING = 2
+SMS = 112
+# K3/K4's wide tier (past the cluster tier, FBE_WIDE_* in csrc/fb.cu):
+# 32 warps own the rows, and the columns go through in tiles of
+# WIDE_TILE, each lane holding WIDE_TILE / 32 of a row
 WIDE_WARPS = 32
 WIDE_TILE = 256
 
 
-def generic_launch(P: int):
-    """(threads, dynamic shared bytes) of K3/K4 at P paths (mirrors
-    fbe_smem and fbe_wide_smem in csrc/fb.cu). Up to MAX_PATHS: WARPS
-    warps; a ring of RING slots, a staging column and the reduction
-    scratch. A column is held at any 16-byte misalignment; the column
-    partials' pitch is P rounded up to 8 mod 32. Beyond: WIDE_WARPS
-    warps, one tile of column partials and the warps' totals of two
-    columns, whatever P."""
+class ClusterLayout(NamedTuple):
+    """A cluster of ``ranks`` CTAs a chain: the most rows a band has,
+    rows a warp, column slots a lane, warps a CTA, shared bytes."""
+    ranks: int
+    rows: int
+    rows_per_warp: int
+    columns_per_lane: int
+    warps: int
+    smem: int
+
+
+def _cluster_fit(P: int, ranks: int):
+    """The layout of P paths in clusters of ``ranks`` (mirrors fbc_layout
+    and fbc_smem), or None where a band does not fit: at most
+    CLUSTER_CELLS cells a thread of at most CLUSTER_WARPS warps, and the
+    shared memory (two mbarriers; the messages of two parities, P column
+    partials and the band total in float4s, from every rank; their sums;
+    each warp's stage of a message; the E ring of CLUSTER_RING slots of a
+    header and a band at any 16-byte misalignment) within one block's."""
+    rows = -(-P // ranks)
+    per_lane = 8 if P <= 256 else 16
+    per_warp = -(-rows // CLUSTER_WARPS)
+    warps = -(-rows // per_warp)
+    msg = (P + 4) // 4 * 4
+    band = (rows * P + 6) // 4 * 4
+    smem = 16 + 4 * ((2 * ranks + 1 + warps) * msg + CLUSTER_RING * (_HEADER + band))
+    if 32 * per_lane < P or per_warp * per_lane > CLUSTER_CELLS or smem > SMEM_BYTES:
+        return None
+    return ClusterLayout(ranks, rows, per_warp, per_lane, warps, smem)
+
+
+def cluster_layout(P: int, B: int) -> Optional[ClusterLayout]:
+    """K3/K4's cluster-tier layout for B chains of P paths, None where P
+    does not take that tier (mirrors fbe_cluster_layout in csrc/fb.cu):
+    past MAX_PATHS, CLUSTER_RANKS CTAs a chain, halved while the chains'
+    CTAs outnumber the SMS the card holds in clusters at once, never
+    below the fewest (a power of two) whose band fits; None where not
+    even MAX_RANKS hold P."""
+    if P <= MAX_PATHS:
+        return None
+    least = 1
+    while least <= MAX_RANKS and _cluster_fit(P, least) is None:
+        least *= 2
+    if least > MAX_RANKS:
+        return None
+    k = max(CLUSTER_RANKS, least)
+    while k > least and B * k > SMS:
+        k //= 2
+    return _cluster_fit(P, k)
+
+
+def generic_launch(P: int, B: int):
+    """(CTAs a chain, threads, dynamic shared bytes) of K3/K4 for B
+    chains of P paths (mirrors fbe_config_ok in csrc/fb.cu). Up to
+    MAX_PATHS one CTA of WARPS warps; a ring of RING slots, a staging
+    column and the reduction scratch. A column is held at any 16-byte
+    misalignment; the column partials' pitch is P rounded up to 8 mod
+    32. Then the cluster tier (:func:`cluster_layout`). Beyond it one CTA
+    of WIDE_WARPS warps, one tile of column partials and the warps'
+    totals of two columns, whatever P."""
+    cluster = cluster_layout(P, B)
+    if cluster is not None:
+        return cluster.ranks, 32 * cluster.warps, cluster.smem
     if P > MAX_PATHS:
-        return 32 * WIDE_WARPS, 4 * (WIDE_WARPS * WIDE_TILE + 2 * 32)
+        return 1, 32 * WIDE_WARPS, 4 * (WIDE_WARPS * WIDE_TILE + 2 * 32)
     column = (P * P + 6) // 4 * 4
     scratch = 4 * (column + WARPS * (P + (8 - P) % 32) + P + 34)
-    return 32 * WARPS, scratch + RING * 4 * (_HEADER + column)
+    return 1, 32 * WARPS, scratch + RING * 4 * (_HEADER + column)
+
+
+def tier(P: int, B: int) -> str:
+    """K3/K4's tier for B chains of P paths: "register" (one CTA a chain,
+    the state in registers), "cluster" (a cluster of CTAs a chain) or
+    "wide" (one CTA a chain, the state in global memory)."""
+    if P <= MAX_PATHS:
+        return "register"
+    return "cluster" if cluster_layout(P, B) is not None else "wide"
+
+
+# K3's and K4's launches by tier, grown beside each kernel's own count
+# where it launches (chip_smoke.py reads which tier a run took)
+TIER_LAUNCHES = {(kernel, t): 0 for kernel in ("K3", "K4")
+                 for t in ("register", "cluster", "wide")}
+
+
+def cluster_fits(P: int, B: int, backward: bool,
+                 kernel: Optional[CudaKernel] = None) -> int:
+    """cudaOccupancyMaxActiveClusters of K3's (K4's) cluster-tier
+    instance for B chains of P paths on the current card, from the
+    library of ``kernel`` (default K3's); 0 where P does not take the
+    cluster tier."""
+    fits = ctypes.c_int(0)
+    fn = (kernel or K3).lib().pg_fbe_cluster_fits
+    fn.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+    code = fn(P, B, int(backward), ctypes.byref(fits))
+    if code:
+        raise RuntimeError(f"pg_fbe_cluster_fits: CUDA error {code}")
+    return fits.value
 
 
 def wide_scratch(B: int, P: int, backward: bool, device) -> torch.Tensor:
     """The wide tier's state in global memory, per chain: two buffers of
     row sums and two of column sums, and for K4 the helper [P, P]. An
-    empty tensor where P takes a register tier."""
-    if P <= MAX_PATHS:
+    empty tensor where P takes a register tier or the cluster tier."""
+    if tier(P, B) != "wide":
         return torch.empty((0,), dtype=torch.float32, device=device)
     return torch.empty((B, 4 * P + (P * P if backward else 0)), dtype=torch.float32,
                        device=device)
@@ -169,8 +271,9 @@ def forward_e(E, u, alpha0):
     if B and n:
         scratch = wide_scratch(B, P, False, dev)
         K3(E.data_ptr(), u.data_ptr(), alpha0.data_ptr(), alphas.data_ptr(),
-           c_fwd.data_ptr(), scratch.data_ptr(), B, n, P, *generic_launch(P),
+           c_fwd.data_ptr(), scratch.data_ptr(), B, n, P, *generic_launch(P, B),
            launch_stream(dev))
+        TIER_LAUNCHES[("K3", tier(P, B))] += 1
     return alphas, c_fwd
 
 
@@ -197,7 +300,8 @@ def backward_e(alphas, c_fwd, E, u, E_after, u_after, is_last, beta0):
         K4(alphas.data_ptr(), c_fwd.data_ptr(), E.data_ptr(), u.data_ptr(),
            E_after.data_ptr(), u_after.data_ptr(), last.data_ptr(),
            beta0.data_ptr(), posts.data_ptr(), beta_out.data_ptr(),
-           scratch.data_ptr(), B, n, P, *generic_launch(P), launch_stream(dev))
+           scratch.data_ptr(), B, n, P, *generic_launch(P, B), launch_stream(dev))
+        TIER_LAUNCHES[("K4", tier(P, B))] += 1
     else:
         beta_out.copy_(beta0)
     return posts, beta_out

@@ -396,12 +396,12 @@ def test_fused_kernels_reject_more_than_128_paths(cuda):
 
 
 @pytest.mark.parametrize("B", [1, 3])
-@pytest.mark.parametrize("P", [129, 200, 256, 465, 1025])
+@pytest.mark.parametrize("P", [129, 200, 256, 465, 471, 472, 1025])
 def test_wide_generic_kernels_match_plain(cuda, P, B):
-    """K3/K4's wide tier (P > 128) against their plain versions on the
-    edge inputs (entry carries, is_last inside the chunk, an all-zero E
-    column, padding; B = 1 keeps the first chain), and two launches give
-    the same bits."""
+    """K3/K4 past 128 paths (the cluster tier up to 471, the one-CTA wide
+    tier beyond) against their plain versions on the edge inputs (entry
+    carries, is_last inside the chunk, an all-zero E column, padding; B =
+    1 keeps the first chain), and two launches give the same bits."""
     inputs = _edge_inputs(P, 7, cuda)
     E, u, alpha0, e_after, u_after, is_last, beta0 = (x[:B].contiguous() for x in inputs)
     launches = _generic_launches()
@@ -423,10 +423,68 @@ def test_wide_generic_kernels_match_plain(cuda, P, B):
     assert (k3 - launches[0], k4 - launches[1]) == (2, 2)
 
 
+def _kernel_names(fn):
+    """The names of the CUDA kernels fn() launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()}
+
+
+def test_200_paths_launch_the_cluster_kernels(cuda):
+    """At P=200, the paths of ``genotype -a 200``'s chunks, K3/K4 launch
+    their cluster-tier kernels (clusters of 16 CTAs, which the card holds
+    at once for B=3) and not the one-CTA wide tier."""
+    E, u, alpha0, e_after, u_after, is_last, beta0 = _edge_inputs(200, 7, cuda)
+    assert fb_kernels.generic_launch(200, 3)[0] == 16
+    for backward in (False, True):
+        assert fb_kernels.cluster_fits(200, 3, backward) >= 3
+
+    def both():
+        a, c = fb_kernels.forward_e(E, u, alpha0)
+        fb_kernels.backward_e(a, c, E, u, e_after, u_after, is_last, beta0)
+
+    names = _kernel_names(both)
+    for kernel in ("fbe_forward_cluster_kernel", "fbe_backward_cluster_kernel"):
+        assert any(kernel in name for name in names), names
+    assert not any("wide_kernel" in name for name in names), names
+
+
+@pytest.mark.parametrize("P,ranks", [(200, 4), (129, 8), (200, 8)])
+def test_generic_cluster_sizes(cuda, monkeypatch, P, ranks):
+    """The clusters of the source built with FBE_CLUSTER_RANKS = ranks,
+    as tools/fbe_times.py --ranks times them (4 CTAs of 2 rows a warp,
+    8 CTAs of uneven bands), against the plain versions on the edge
+    inputs, and the same bits twice."""
+    monkeypatch.setattr(fb_kernels, "CLUSTER_RANKS", ranks)
+    defines = {"FBE_CLUSTER_RANKS": ranks}
+    monkeypatch.setattr(fb_kernels, "K3", _build.CudaKernel(
+        "fb", "pg_fbe_forward", "fb", fb_kernels.K3._argtypes, defines=defines))
+    monkeypatch.setattr(fb_kernels, "K4", _build.CudaKernel(
+        "fb", "pg_fbe_backward", "fb", fb_kernels.K4._argtypes, defines=defines))
+    assert fb_kernels.generic_launch(P, 3)[0] == ranks
+    E, u, alpha0, e_after, u_after, is_last, beta0 = _edge_inputs(P, 9, cuda)
+    a_k, c_k = fb_kernels.forward_e(E, u, alpha0)
+    a_p, c_p = fb_generic.forward_e_plain(E, u, alpha0)
+    torch.testing.assert_close(a_k, a_p, rtol=2e-4, atol=1e-7)
+    torch.testing.assert_close(c_k, c_p, rtol=2e-4, atol=1e-7)
+    args = (a_k, c_k, E, u, e_after, u_after, is_last, beta0)
+    p_k, b_k = fb_kernels.backward_e(*args)
+    p_p, b_p = fb_generic.backward_e_plain(*args)
+    _posteriors_close_or_zero(p_k, p_p)
+    torch.testing.assert_close(b_k, b_p, rtol=2e-4, atol=1e-7)
+    assert torch.equal(fb_kernels.forward_e(E, u, alpha0)[0], a_k)
+    assert torch.equal(fb_kernels.backward_e(*args)[0], p_k)
+    assert (fb_kernels.K3.launches, fb_kernels.K4.launches) == (2, 2)
+
+
 def test_route_takes_200_paths_on_the_card(cuda):
     """What ``genotype -a 200`` hands the forward-backward: a batch of 200
-    paths goes to the generic route on the card (cuda_generic, the wide
-    tier) without raising, and agrees with the same route on the CPU."""
+    paths goes to the generic route on the card (cuda_generic, K3/K4's
+    cluster tier) without raising, and agrees with the same route on the
+    CPU."""
     from pangenie_tpu_torch.hmm import batch
 
     B, N, P = 2, 40, 200

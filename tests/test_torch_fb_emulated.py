@@ -1,18 +1,24 @@
 """Kernels K2, K3 and K4 of ``pangenie_tpu_torch/csrc/fb.cu`` run on the
 CPU by an emulator of the CUDA threads, against their plain versions:
-K3/K4's register tiers and their wide tier (P > 128, the state in a
-global scratch), K2's one-warp tier (P <= 32, A <= 8) and its CTA tier.
+K3/K4's register tiers, their cluster tier (128 < P <= 471: a
+thread-block cluster of CTAs a chain, the state in registers, the column
+sums merged by pushes into every rank's shared memory) and their wide
+tier past it (one CTA, the state in a global scratch), K2's one-warp tier
+(P <= 32, A <= 8) and its CTA tier.
 
 The kernel source is compiled with g++ against the headers of
-``tests/cuda_emulator/``, which stand in for ``cuda_runtime.h`` and
-``csrc/cp_async.cuh``: a cp.async is a plain copy (a 16-byte one must be
-16-byte aligned), the dynamic shared memory is one array, and the one
-textual substitution makes a launch run every thread of every block as
-a fiber. So the kernels' own indexing, barriers, lane-masked shuffles
-and ring and staging layout run as written, one block at a time; their
-timing and the asynchrony of the copies are not modelled.
-``tests/test_torch_cuda_kernels.py`` holds the real kernels against the
-same inputs on the card.
+``tests/cuda_emulator/``, which stand in for ``cuda_runtime.h``,
+``csrc/cp_async.cuh`` and ``csrc/cluster.cuh``: a cp.async is a plain
+copy (a 16-byte one must be 16-byte aligned), a block's dynamic shared
+memory is one array, and the one textual substitution makes a launch run
+every thread of every block as a fiber; the cluster launch
+(``cudaLaunchKernelEx``) runs through the emulator's own, the K blocks of
+a cluster together, with the cluster barrier, the mbarriers and the
+pushes into another block's shared memory. So the kernels' own indexing,
+barriers, lane-masked shuffles, ring and staging layout and cluster
+merge run as written; their timing and the asynchrony of the copies are
+not modelled. ``tests/test_torch_cuda_kernels.py`` holds the real
+kernels against the same inputs on the card.
 """
 
 import ctypes
@@ -45,33 +51,55 @@ def _emulated_source(src: str) -> str:
         "if (emu_run(B, threads, smem, [&]() { kernel(args...); }))"
         " return (int)cudaErrorInvalidValue;", src)
     assert n == 1, "the launch in csrc/fb.cu changed"
+    assert src.count("cudaLaunchKernelEx(") == 1, "the cluster launch changed"
     return src
 
 
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    """csrc/fb.cu built against the emulator, its K3/K4 entry points bound."""
-    out = tmp_path_factory.mktemp("fb_emulated")
+def _build_emulated(out, defines=()):
+    """csrc/fb.cu built against the emulator into ``out`` (with the -D
+    macros ``defines``), its K2-K4 entry points bound."""
     src = out / "fb_emulated.cpp"
     with open(os.path.join(_build.CUDA_SRC_DIR, "fb.cu")) as f:
         src.write_text(_emulated_source(f.read()))
     lib = out / "libfb_emulated.so"
     subprocess.run(
         ["g++", "-std=c++17", "-O1", "-shared", "-fPIC", "-Wno-unknown-pragmas",
-         "-I", os.path.join(HERE, "cuda_emulator"), "-o", str(lib),
-         os.path.join(HERE, "cuda_emulator", "emu.cpp"), str(src)],
+         *(f"-D{d}" for d in defines), "-I", os.path.join(HERE, "cuda_emulator"),
+         "-o", str(lib), os.path.join(HERE, "cuda_emulator", "emu.cpp"), str(src)],
         check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(lib))
     lib.pg_fbe_forward.argtypes = fb_kernels.K3._argtypes
     lib.pg_fbe_backward.argtypes = fb_kernels.K4._argtypes
     lib.pg_fb_backward.argtypes = fb_kernels.K2._argtypes
     lib.pg_fb_backward_threads.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.pg_fbe_launch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.pg_fbe_launch.restype = None
+    lib.pg_fbe_cluster_fits.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     return lib
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """csrc/fb.cu built against the emulator, its K2-K4 entry points bound."""
+    return _build_emulated(tmp_path_factory.mktemp("fb_emulated"))
+
+
+@pytest.fixture(scope="module")
+def emulated_ranks(tmp_path_factory):
+    """The emulated library built with FBE_CLUSTER_RANKS = k, by k."""
+    libs = {}
+
+    def get(k):
+        if k not in libs:
+            libs[k] = _build_emulated(tmp_path_factory.mktemp(f"fb_emulated_{k}"),
+                                      [f"FBE_CLUSTER_RANKS={k}"])
+        return libs[k]
+    return get
 
 
 def _scratch(B, P, backward):
     """The wide tier's scratch, NaN-filled so that a read before a write
-    shows (empty where P takes a register tier)."""
+    shows (empty where P takes a register tier or the cluster tier)."""
     return fb_kernels.wide_scratch(B, P, backward, "cpu").fill_(float("nan"))
 
 
@@ -82,7 +110,7 @@ def _forward(lib, E, u, alpha0):
     scratch = _scratch(B, P, False)
     assert lib.pg_fbe_forward(E.data_ptr(), u.data_ptr(), alpha0.data_ptr(),
                               alphas.data_ptr(), c_fwd.data_ptr(), scratch.data_ptr(),
-                              B, n, P, *fb_kernels.generic_launch(P), None) == 0
+                              B, n, P, *fb_kernels.generic_launch(P, B), None) == 0
     return alphas, c_fwd
 
 
@@ -96,8 +124,29 @@ def _backward(lib, alphas, c_fwd, E, u, e_after, u_after, is_last, beta0):
                                u.data_ptr(), e_after.data_ptr(), u_after.data_ptr(),
                                last.data_ptr(), beta0.data_ptr(), posts.data_ptr(),
                                beta_out.data_ptr(), scratch.data_ptr(), B, n, P,
-                               *fb_kernels.generic_launch(P), None) == 0
+                               *fb_kernels.generic_launch(P, B), None) == 0
     return posts, beta_out
+
+
+def _assert_generic_match_plain(lib, inputs):
+    """K3 and K4 (on K3's alphas) through ``lib`` against their plain
+    versions at the card's tolerance (posteriors that are exactly 0 in
+    the plain version, 0 in the kernel's too), and two launches of each
+    give the same bits."""
+    E, u, alpha0, e_after, u_after, is_last, beta0 = inputs
+    a_k, c_k = _forward(lib, E, u, alpha0)
+    a_p, c_p = fb_generic.forward_e_plain(E, u, alpha0)
+    torch.testing.assert_close(a_k, a_p, rtol=2e-4, atol=1e-7)
+    torch.testing.assert_close(c_k, c_p, rtol=2e-4, atol=1e-7)
+    args = (a_k, c_k, E, u, e_after, u_after, is_last, beta0)
+    p_k, b_k = _backward(lib, *args)
+    p_p, b_p = fb_generic.backward_e_plain(*args)
+    _posteriors_close_or_zero(p_k, p_p)
+    torch.testing.assert_close(b_k, b_p, rtol=2e-4, atol=1e-7)
+    a_2, c_2 = _forward(lib, E, u, alpha0)
+    p_2, b_2 = _backward(lib, *args)
+    assert torch.equal(a_2, a_k) and torch.equal(c_2, c_k)
+    assert torch.equal(p_2, p_k) and torch.equal(b_2, b_k)
 
 
 @pytest.mark.parametrize("P,n", [(1, 9), (17, 1), (33, 9), (89, 7), (113, 4)])
@@ -107,20 +156,7 @@ def test_emulated_generic_kernels_match_plain(emulated, P, n):
     close to the plain versions at the card's tolerance, and two
     launches give the same bits. The columns start at every 16-byte
     misalignment (P^2 odd)."""
-    E, u, alpha0, e_after, u_after, is_last, beta0 = _edge_inputs(P, n, "cpu")
-    a_k, c_k = _forward(emulated, E, u, alpha0)
-    a_p, c_p = fb_generic.forward_e_plain(E, u, alpha0)
-    torch.testing.assert_close(a_k, a_p, rtol=2e-4, atol=1e-7)
-    torch.testing.assert_close(c_k, c_p, rtol=2e-4, atol=1e-7)
-    args = (a_k, c_k, E, u, e_after, u_after, is_last, beta0)
-    p_k, b_k = _backward(emulated, *args)
-    p_p, b_p = fb_generic.backward_e_plain(*args)
-    _posteriors_close_or_zero(p_k, p_p)
-    torch.testing.assert_close(b_k, b_p, rtol=2e-4, atol=1e-7)
-    a_2, c_2 = _forward(emulated, E, u, alpha0)
-    p_2, b_2 = _backward(emulated, *args)
-    assert torch.equal(a_2, a_k) and torch.equal(c_2, c_k)
-    assert torch.equal(p_2, p_k) and torch.equal(b_2, b_k)
+    _assert_generic_match_plain(emulated, _edge_inputs(P, n, "cpu"))
 
 
 def test_emulated_kernels_with_a_ring_of_two(emulated):
@@ -140,50 +176,137 @@ def test_emulated_kernels_with_a_ring_of_two(emulated):
 
 
 def test_emulated_launch_rejects_another_layout(emulated):
-    """fbe_config_ok refuses shared-memory sizes that do not match the
-    kernel's layout (the wrapper passes generic_launch's)."""
-    E, u, alpha0 = torch.ones((1, 2, 8, 8)), torch.zeros((1, 2, 3)), torch.ones((1, 8, 8))
-    out, c = torch.empty_like(E), torch.empty((1, 2))
-    threads, smem = fb_kernels.generic_launch(8)
+    """fbe_config_ok refuses launches that do not match the kernel's
+    layout (the wrapper passes generic_launch's): other shared-memory
+    sizes, threads or CTAs a chain, on a register tier, on the cluster
+    tier, and the wide tier without its scratch."""
+    def code(P, launch, scratch=None):
+        E, u, alpha0 = torch.ones((1, 2, P, P)), torch.zeros((1, 2, 3)), torch.ones((1, P, P))
+        out, c = torch.empty_like(E), torch.empty((1, 2))
+        return emulated.pg_fbe_forward(E.data_ptr(), u.data_ptr(), alpha0.data_ptr(),
+                                       out.data_ptr(), c.data_ptr(), scratch, 1, 2, P,
+                                       *launch, None)
+
+    ranks, threads, smem = fb_kernels.generic_launch(8, 1)
     one_slot = 4 * (8 + 68)                 # header + a P=8 column at any misalignment
-    for bad in ((threads, smem + 4), (threads, smem - one_slot), (threads // 2, smem)):
-        code = emulated.pg_fbe_forward(E.data_ptr(), u.data_ptr(), alpha0.data_ptr(),
-                                       out.data_ptr(), c.data_ptr(), None, 1, 2, 8, *bad,
-                                       None)
-        assert code != 0
+    for bad in ((ranks, threads, smem + 4), (ranks, threads, smem - one_slot),
+                (ranks, threads // 2, smem), (2, threads, smem)):
+        assert code(8, bad) != 0
+    ranks, threads, smem = fb_kernels.generic_launch(200, 1)
+    assert ranks == 16
+    for bad in ((8, threads, smem), (ranks, threads + 32, smem), (ranks, threads, smem + 16),
+                (1, 1024, 33_024)):
+        assert code(200, bad) != 0
+    assert code(472, fb_kernels.generic_launch(472, 1)) != 0     # no scratch
 
 
-@pytest.mark.parametrize("P,n", [(129, 7), (200, 3), (257, 3)])
+@pytest.mark.parametrize("P,n", [(129, 7), (200, 3), (257, 3), (465, 2)])
 def test_emulated_wide_tier_matches_plain(emulated, P, n):
-    """K3/K4's wide tier (32 warps, the state in global memory, columns
-    in tiles of 256: P = 257 takes two) on the edge inputs of the register
-    tiers: entry carries alpha0 and beta0 that are not ones or zeros,
-    is_last inside the chunk, an all-zero E column (the state turns
-    uniform), padding and an all-padding chain; two launches give the
-    same bits."""
-    assert fb_kernels.generic_launch(P) == (1024, 4 * (32 * 256 + 64))
-    E, u, alpha0, e_after, u_after, is_last, beta0 = _edge_inputs(P, n, "cpu")
-    a_k, c_k = _forward(emulated, E, u, alpha0)
-    a_p, c_p = fb_generic.forward_e_plain(E, u, alpha0)
-    torch.testing.assert_close(a_k, a_p, rtol=2e-4, atol=1e-7)
-    torch.testing.assert_close(c_k, c_p, rtol=2e-4, atol=1e-7)
-    args = (a_k, c_k, E, u, e_after, u_after, is_last, beta0)
-    p_k, b_k = _backward(emulated, *args)
-    p_p, b_p = fb_generic.backward_e_plain(*args)
-    _posteriors_close_or_zero(p_k, p_p)
-    torch.testing.assert_close(b_k, b_p, rtol=2e-4, atol=1e-7)
-    a_2, c_2 = _forward(emulated, E, u, alpha0)
-    p_2, b_2 = _backward(emulated, *args)
-    assert torch.equal(a_2, a_k) and torch.equal(c_2, c_k)
-    assert torch.equal(p_2, p_k) and torch.equal(b_2, b_k)
+    """K3/K4 past 128 paths, on the cluster tier (clusters of 16 CTAs for
+    B=3, each rank a band of rows: 8 or 9 at P=129; the column sums
+    merged through every rank's shared memory), on the edge inputs of the
+    register tiers: entry carries alpha0 and beta0 that are not ones or
+    zeros, is_last inside the chunk, an all-zero E column (the state
+    turns uniform), padding and an all-padding chain; two launches give
+    the same bits."""
+    layout = fb_kernels.cluster_layout(P, 3)
+    assert layout.ranks == 16
+    assert fb_kernels.generic_launch(P, 3) == (layout.ranks, 32 * layout.warps, layout.smem)
+    assert fb_kernels.wide_scratch(3, P, True, "cpu").numel() == 0
+    _assert_generic_match_plain(emulated, _edge_inputs(P, n, "cpu"))
+
+
+def test_emulated_one_cta_wide_tier_past_the_cluster_tier(emulated):
+    """Past what a cluster of 16 CTAs holds (P = 472) K3/K4 run their
+    one-CTA wide tier (1024 threads, the state in a global scratch, the
+    columns in tiles of 256: two tiles), on the edge inputs."""
+    P = 472
+    assert fb_kernels.cluster_layout(P - 1, 3) is not None
+    assert fb_kernels.cluster_layout(P, 3) is None
+    assert fb_kernels.generic_launch(P, 3) == (1, 1024, 4 * (32 * 256 + 64))
+    _assert_generic_match_plain(emulated, _edge_inputs(P, 2, "cpu"))
+
+
+def _band_inputs(P, n, ranks, seed):
+    """K3/K4 inputs of B=2 chains that lean on the last rank's band (rows
+    [(ranks - 1) P / ranks, P)): its E is 1000x the others' (the largest
+    column partials), a column of chain 0 and one of chain 1 have E only
+    there (their totals come from that rank alone), chain 0 has an
+    all-zero E column (the uniform state) and is_last inside the chunk;
+    entry carries drawn positive."""
+    B = 2
+    rng = np.random.default_rng(seed)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.random(shape).astype(np.float32))
+
+    E, alpha0, beta0, e_after = rand(B, n, P, P), rand(B, P, P), rand(B, P, P), rand(B, P, P)
+    lo = (ranks - 1) * P // ranks
+    E[:, :, lo:] *= 1000.0
+    E[0, 1, :lo] = 0.0
+    E[1, n - 2, :lo] = 0.0
+    E[0, 3] = 0.0
+    u = fb_generic.factor_trans(rand(B, n, 3) * 0.1).contiguous()
+    u_after = rand(B, 3) * 0.1
+    is_last = torch.zeros((B, n), dtype=torch.bool)
+    is_last[0, n - 2] = True
+    return E, u, alpha0 + 0.5, e_after, u_after, is_last, beta0 + 0.5
+
+
+@pytest.mark.parametrize("P,k,ranks", [
+    (129, 8, 8),         # uneven bands: 16 and 17 rows
+    (129, 4, 4),         # 2 rows a warp
+    (200, 4, 4),
+    (256, 4, 4),         # 32 warps of 2 rows
+    (200, 8, 8),
+    (200, 2, 4),         # 2 CTAs do not hold a band: the fewest that do
+    (300, 4, 16),
+])
+def test_emulated_cluster_sizes(emulated_ranks, monkeypatch, P, k, ranks):
+    """The clusters of the source built with FBE_CLUSTER_RANKS = k, as
+    tools/fbe_times.py --ranks times them (fb_kernels.CLUSTER_RANKS set
+    to match), on inputs that put the largest column partials, the only
+    E of a column, an all-zero E column and is_last in the last rank's
+    band's reach: the plain versions' results, and the same bits twice."""
+    monkeypatch.setattr(fb_kernels, "CLUSTER_RANKS", k)
+    assert fb_kernels.cluster_layout(P, 2).ranks == ranks
+    _assert_generic_match_plain(emulated_ranks(k), _band_inputs(P, 6, ranks, seed=P + k))
+
+
+@pytest.mark.parametrize("P", [129, 257])
+def test_emulated_cluster_last_band(emulated, P):
+    """The library's own clusters (16 CTAs; bands of 8 and 9 rows at
+    P=129) on the inputs that lean on the last rank's band."""
+    ranks = fb_kernels.cluster_layout(P, 2).ranks
+    _assert_generic_match_plain(emulated, _band_inputs(P, 6, ranks, seed=P))
+
+
+@pytest.mark.parametrize("k", [2, 4, 8, 16])
+def test_emulated_launch_layout_matches_the_rule(emulated, emulated_ranks, monkeypatch, k):
+    """fb_kernels.generic_launch is csrc/fb.cu's rule (pg_fbe_launch) for
+    every P up to 1,100 and at 6,405, for batches that fill the card and
+    batches past it, in the library built with FBE_CLUSTER_RANKS = k; the
+    cluster tier's occupancy reading is 0 where P does not take it."""
+    lib = emulated if k == fb_kernels.CLUSTER_RANKS else emulated_ranks(k)
+    monkeypatch.setattr(fb_kernels, "CLUSTER_RANKS", k)
+    out = (ctypes.c_int * 3)()
+    for B in (1, 2, 11, 17, 34, 40):
+        for P in [*range(1, 1101), 6405]:
+            lib.pg_fbe_launch(P, B, out)
+            assert tuple(out) == fb_kernels.generic_launch(P, B), (P, B)
+    fits = ctypes.c_int(-1)
+    for P, want in ((128, 0), (200, 132 // fb_kernels.generic_launch(200, 1)[0]), (472, 0)):
+        assert lib.pg_fbe_cluster_fits(P, 1, 1, ctypes.byref(fits)) == 0
+        assert fits.value == want
 
 
 def test_emulated_wide_tier_in_the_chunked_route(emulated, monkeypatch):
     """fb_generic.forward_backward_chunked at P = 130 in chunks of 4
-    columns, through the emulated wide K3/K4 (each chunk's carries are
-    the kernels' own outputs), against the same route with the plain
-    versions."""
+    columns, through the emulated K3/K4 past 128 paths (each chunk's
+    carries are the kernels' own outputs), against the same route with
+    the plain versions."""
     B, N, P, chunk = 2, 10, 130, 4
+    assert fb_kernels.cluster_layout(P, B) is not None
     want, want_corr = fb_generic.forward_backward_chunked(
         _generic_columns(B, N, P, "cpu"), chunk=chunk)
     monkeypatch.setattr(fb_kernels, "forward_e",
@@ -246,10 +369,10 @@ def test_emulated_k2_after_tiny_emissions(emulated, P, A):
     _kept_columns_close(_k2(emulated, *inputs), backward_plain(*inputs))
 
 
-@pytest.mark.parametrize("P", [16, 129])
+@pytest.mark.parametrize("P", [16, 129, 257])
 def test_emulated_generic_kernels_after_tiny_emissions(emulated, P):
-    """K4's register and wide tiers where two columns' emissions are near
-    1e-25, against backward_e_plain on K3's alphas."""
+    """K4's register and cluster tiers (16 CTAs) where two columns'
+    emissions are near 1e-25, against backward_e_plain on K3's alphas."""
     E, u, alpha0, e_after, u_after, is_last, beta0 = _edge_inputs(P, 9, "cpu")
     E = _tiny_columns(E, 0, 1)
     a, c = _forward(emulated, E, u, alpha0)

@@ -75,16 +75,22 @@ def test_generic_bytes_match_the_plain_versions_tensors():
         alphas, c_fwd, E, u, e_after, u_after, last, beta0, posts, beta_out)
 
 
-# P=89: a column of 7,924 floats (P^2 + 3, rounded up to float4s), the
-# partials' pitch 104; 4 x (2 x (8 + 7,924) + 7,924 + 16 x 104 + 89 + 34)
-# past 128 paths the wide tier: 1024 threads, one tile of 32 x 256 column
-# partials and 2 x 32 warp totals, 4 x (8,192 + 64) bytes at any P
+# (CTAs a chain, threads, shared bytes) for B=11 chains. P=89: a column
+# of 7,924 floats (P^2 + 3, rounded up to float4s), the partials' pitch
+# 104; 4 x (2 x (8 + 7,924) + 7,924 + 16 x 104 + 89 + 34). P=129: 8 CTAs,
+# bands of 17 rows, one warp a row: 16 + 4 x ((2 x 8 + 1 + 17) x 132 + 2 x
+# (8 + 2,196)). P=200: 8 CTAs of 25 warps, 16 + 4 x (42 x 204 + 2 x (8 +
+# 5,004)). P=465: 16 CTAs of 30 warps, 16 + 4 x (63 x 468 + 2 x (8 +
+# 13,956)). Past 471 paths the wide tier: 1024 threads, one tile of 32 x
+# 256 column partials and 2 x 32 warp totals, 4 x (8,192 + 64) bytes at
+# any P
 @pytest.mark.parametrize("P,launch", [
-    (1, (512, 764)), (16, (512, 5_944)), (89, (512, 102_300)),
-    (128, (512, 206_072)), (129, (1024, 33_024)), (6405, (1024, 33_024)),
+    (1, (1, 512, 764)), (16, (1, 512, 5_944)), (89, (1, 512, 102_300)),
+    (128, (1, 512, 206_072)), (129, (8, 544, 35_600)), (6405, (1, 1024, 33_024)),
+    (200, (8, 800, 74_384)), (465, (16, 960, 229_664)), (472, (1, 1024, 33_024)),
 ])
 def test_generic_launch_at_known_path_counts(P, launch):
-    assert fb_kernels.generic_launch(P) == launch
+    assert fb_kernels.generic_launch(P, 11) == launch
 
 
 def test_generic_launch_fits_every_path_count():
@@ -93,7 +99,8 @@ def test_generic_launch_fits_every_path_count():
     shared memory."""
     assert fb_kernels.RING == 2
     for P in range(1, fb_kernels.MAX_PATHS + 1):
-        threads, smem = fb_kernels.generic_launch(P)
+        ranks, threads, smem = fb_kernels.generic_launch(P, 1)
+        assert ranks == 1
         assert threads == 32 * fb_kernels.WARPS == 512
         column = P * P + 3 + (-(P * P + 3)) % 4          # float4s
         pitch = P + (8 - P) % 32
@@ -243,20 +250,57 @@ def test_segment_columns_fit_the_budget():
 
 def test_generic_launch_past_128_paths():
     """For P = 129..1,024 and at 6,405 (the 1000 Genomes panel's paths):
-    the wide tier's 32 warps and fixed shared memory, within one H100
-    block's; its scratch holds two buffers each of row and column sums,
-    and for K4 the [P, P] helper, per chain; the register tiers take
-    none."""
+    up to 471 paths the cluster tier, for B=11 clusters of 8 CTAs up to
+    256 paths and of 16 beyond, each CTA a band of floor(P / K) or ceil(P / K) rows
+    in at most 16 cells a thread (one warp a row, lanes over 8 or 16
+    column slots), its shared memory within one H100 block's and no
+    scratch; past it the wide tier's 32 warps and fixed shared memory,
+    and its scratch of two buffers each of row and column sums, and for
+    K4 the [P, P] helper, per chain; the register tiers take none."""
     for P in [*range(fb_kernels.MAX_PATHS + 1, 1025), 6405]:
-        threads, smem = fb_kernels.generic_launch(P)
-        assert threads == 32 * fb_kernels.WIDE_WARPS == 1024
-        assert smem == 4 * (fb_kernels.WIDE_WARPS * fb_kernels.WIDE_TILE + 2 * 32)
+        ranks, threads, smem = fb_kernels.generic_launch(P, 11)
+        layout = fb_kernels.cluster_layout(P, 11)
         assert smem <= fb_kernels.SMEM_BYTES
-        assert threads == 4 * fb_kernels.WIDE_TILE    # four threads a tile column
-    for P in (129, 6405):
+        if P <= 471:
+            assert ranks == (8 if P <= 256 else 16) == layout.ranks
+            assert layout.rows == -(-P // ranks) <= 32
+            assert layout.rows_per_warp == 1 and threads == 32 * layout.rows
+            assert layout.columns_per_lane == (8 if P <= 256 else 16) >= P / 32
+            assert smem == layout.smem
+            assert fb_kernels.wide_scratch(11, P, True, "cpu").numel() == 0
+        else:
+            assert layout is None
+            assert (ranks, threads) == (1, 32 * fb_kernels.WIDE_WARPS) == (1, 1024)
+            assert smem == 4 * (fb_kernels.WIDE_WARPS * fb_kernels.WIDE_TILE + 2 * 32)
+            assert threads == 4 * fb_kernels.WIDE_TILE    # four threads a tile column
+    for P in (472, 6405):
         assert fb_kernels.wide_scratch(3, P, False, "cpu").shape == (3, 4 * P)
         assert fb_kernels.wide_scratch(3, P, True, "cpu").shape == (3, 4 * P + P * P)
     assert fb_kernels.wide_scratch(3, 128, True, "cpu").numel() == 0
+
+
+@pytest.mark.parametrize("P,B,ranks", [
+    (200, 1, 16), (200, 7, 16), (200, 8, 8), (200, 11, 8), (200, 14, 8), (200, 15, 4),
+    (200, 28, 4), (200, 29, 4), (200, 400, 4), (129, 15, 4), (256, 40, 4), (257, 2, 16),
+    (465, 2, 16), (465, 20, 16),
+])
+def test_cluster_ranks_by_batch(P, B, ranks):
+    """The rule's CTAs a chain: CLUSTER_RANKS (16), halved while B
+    chains' CTAs would outnumber the 112 SMs an H100 holds in clusters at
+    once, never below the fewest whose band fits 16 cells a thread (4 up
+    to 256 paths, 16 beyond)."""
+    assert fb_kernels.cluster_layout(P, B).ranks == ranks
+
+
+@pytest.mark.parametrize("k,ranks", [(1, (4, 16)), (2, (4, 16)), (4, (4, 16)),
+                                     (8, (8, 16))])
+def test_cluster_ranks_of_other_builds(monkeypatch, k, ranks):
+    """A library built with FBE_CLUSTER_RANKS = k (tools/fbe_times.py
+    --ranks) takes k CTAs a chain where a band fits, else the fewest that
+    hold one: at P = 200 and 465, B=2."""
+    monkeypatch.setattr(fb_kernels, "CLUSTER_RANKS", k)
+    assert (fb_kernels.cluster_layout(200, 2).ranks,
+            fb_kernels.cluster_layout(465, 2).ranks) == ranks
 
 
 def test_k2_bytes_match_the_tensors_it_takes():

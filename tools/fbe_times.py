@@ -1,6 +1,6 @@
-"""Times kernels K3/K4 at two of chip_smoke.py's shapes on one NVIDIA GPU.
+"""Times kernels K3/K4 at chip_smoke.py's shapes on one NVIDIA GPU.
 
-    python3 tools/fbe_times.py [--root DIR] [--reps 3] [--wide]
+    python3 tools/fbe_times.py [--root DIR] [--reps 3] [--wide] [--ranks] [--ablate]
 
 Builds the inputs as chip_smoke.py does (seed 17, K=32, A=16): the SV
 path's first chunk (B=1, N=131,072, P=89, with 97/2/1% of the columns
@@ -10,15 +10,39 @@ P=32, all columns at A=16). Times ``fb_kernels.forward_e`` (K3) and
 launches after a warm-up. ``--root`` imports ``pangenie_tpu_torch`` from
 another checkout (default: the one holding this script), so two versions
 can be timed in turns on one card. Prints one JSON line per shape, with
-the card's name and power limit and the bytes/s achieved (the bytes of
-the tensors each kernel takes and returns). Exits non-zero without a
-GPU.
+the card's name and power limit, the bytes/s achieved (the bytes of the
+tensors each kernel takes and returns), us a column and each kernel's
+bound (``hmm/bounds.py``). Exits non-zero without a GPU.
 
-``--wide`` times K3/K4's wide tier instead (P > 128: one CTA of 1024
-threads a chain, the state in global memory) at B=2, N=2048, P=200 and
-at chip_smoke.py's B=2, N=512, P=465, K=32, with the 97/2/1% allele mix
-(chip_smoke.py also times it at the chunk shape of its `genotype -f -a
-200` run).
+``--wide`` times K3/K4 past 128 paths instead, with the 97/2/1% allele
+mix: at the chunk shape of chip_smoke.py's ``genotype -f -a 200`` run
+(B=11, N=4,941, P=200), at B=2, N=2048, P=200, at chip_smoke.py's B=2,
+N=512, P=465 and at the cluster tier's edges (B=2, P = 129, 256, 257 at
+N=1024 and 471 at N=512), each line with the layout the checkout's
+``generic_launch`` gives (CTAs a chain, threads, shared bytes) and, where
+it has a cluster tier, each kernel's cudaOccupancyMaxActiveClusters
+reading for that layout.
+
+``--ranks`` (with ``--wide``'s shapes and B=22, N=1024, P=200, a batch
+past what the card holds in clusters of 8 at once) times the cluster
+tier's sizes against each other, in turns (each build twice, the order
+reversed the second time): it builds ``csrc/fb.cu`` with
+``-DFBE_CLUSTER_RANKS=k`` for k = 2, 4 and 8 (16 is the library's own),
+and with ``-DFBE_SMS=100000`` (the batch never halves the clusters),
+all at once, and drives each with ``fb_kernels.CLUSTER_RANKS`` (and
+``SMS``) set to match. Each build must give the library's results
+(alphas and c_fwd within rtol 2e-4, atol 1e-7). A build whose rule
+takes the layout of one already timed (fewer CTAs do not hold a band of
+P paths in registers, or the batch halves them) is left out; each line
+names the layout it took.
+
+``--ablate`` builds textual cuts of the cluster tier in csrc/fb.cu
+(ABLATIONS, into build/tools/fbe_ablations/, all at once) and times K3
+and K4 from each, in turns and back, at the ``-a 200`` chunk shape and at
+P=465: what a column costs without the cluster merge, without the E
+stream, without the output stream, and with neither stream. A cut
+computes another function; only the full source is held to the
+library's results.
 """
 
 from __future__ import annotations
@@ -31,8 +55,36 @@ import sys
 
 # (B, N, P, K, mixed allele counts)
 SHAPES = [(1, 1 << 17, 89, 32, True), (32, 4096, 32, 32, False)]
-# the wide tier at P = 200 and 465
-WIDE_SHAPES = [(2, 2048, 200, 32, True), (2, 512, 465, 32, True)]
+# past 128 paths: genotype -f -a 200's chunk shape in chip_smoke.py's
+# large panel, a short batch at P=200, P=465, and the cluster tier's
+# edges (its first P, the last of 8 column slots a lane, the first of
+# 16, its last, at which the parent's one-CTA tier is timed too)
+WIDE_SHAPES = [(11, 4941, 200, 32, True), (2, 2048, 200, 32, True), (2, 512, 465, 32, True)]
+EDGE_SHAPES = [(2, 1024, 129, 32, True), (2, 1024, 256, 32, True), (2, 1024, 257, 32, True),
+               (2, 512, 471, 32, True)]
+# --ranks: the builds (FBE_CLUSTER_RANKS, FBE_SMS; None: the library's
+# own) and the shapes they are timed at
+RANK_BUILDS = [(2, None), (4, None), (8, None), (16, None), (8, 100_000), (16, 100_000)]
+RANK_SHAPES = WIDE_SHAPES + [(22, 1024, 200, 32, True)]
+# --ablate: name: [(text in csrc/fb.cu, what replaces it)], each text there once
+_FETCHES = [("phases, [&] {\n            if (n + D < N) fetch(n + D, slot);", "phases, [&] {"),
+            ("phases, [&] {\n            if (n - D >= 0) fetch(n - D, slot);", "phases, [&] {")]
+_STORES = [("if (n > 0 && ok) prev[i] = x * inv;      // alpha_{n-1}", ""),
+           ("if (ok) post[i] = a[r][k] * cur * ks.cfs;", ""),
+           ("a[r][k] = n > 0 ? (ok ? a_next[i] : 0.f) : cur;", "a[r][k] = cur;")]
+ABLATIONS = {
+    # the push of the band's message and the wait for the cluster's
+    # (the column sums and the total stay those of the step before)
+    "no_merge": [("    fbc_push(s, rank, ranks, step & 1);\n"
+                  "    fbc_merge(s, c.P, ranks, step & 1, phases);\n", "")],
+    # the copies of the E band a ring's depth ahead (the ring keeps the
+    # first columns)
+    "no_fetch": _FETCHES,
+    # K3's alphas and K4's posteriors, and K4's alpha loads
+    "no_store": _STORES,
+    "no_streams": _FETCHES + _STORES,
+}
+ABLATE_SHAPES = [WIDE_SHAPES[0], WIDE_SHAPES[2]]
 
 
 def gpu_line() -> str:
@@ -81,12 +133,223 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def layout(B, P) -> dict:
+    """The checkout's launch for B chains of P paths and, on its cluster
+    tier, each kernel's occupancy reading (a checkout from before the
+    cluster tier has neither)."""
+    from pangenie_tpu_torch.hmm import fb_kernels
+
+    if not hasattr(fb_kernels, "cluster_layout"):
+        return {}
+    out = {"launch": fb_kernels.generic_launch(P, B)}
+    if fb_kernels.cluster_layout(P, B) is not None:
+        out["clusters_at_once"] = {name: fb_kernels.cluster_fits(P, B, backward)
+                                   for name, backward in (("K3", False), ("K4", True))}
+    return out
+
+
+def time_shape(B, N, P, K, mixed, reps) -> dict:
+    import torch
+
+    from pangenie_tpu_torch.hmm import bounds, fb_kernels
+
+    dev = torch.device("cuda", 0)
+    E, u, ones, zeros, u_after, last = generic_inputs(B, N, P, K, mixed, dev)
+    alphas, c_fwd = fb_kernels.forward_e(E, u, ones)
+    bwd = (alphas, c_fwd, E, u, zeros, u_after, last, zeros)
+    posts, beta_out = fb_kernels.backward_e(*bwd)
+    k3 = cuda_ms(lambda: fb_kernels.forward_e(E, u, ones), reps)
+    k4 = cuda_ms(lambda: fb_kernels.backward_e(*bwd), reps)
+    b3 = nbytes(E, u, ones, alphas, c_fwd)
+    b4 = nbytes(*bwd, posts, beta_out)
+    record = {
+        "shape": {"B": B, "N": N, "P": P}, **layout(B, P),
+        "K3_ms": k3, "K4_ms": k4,
+        "K3_us_per_column": k3 * 1e3 / N, "K4_us_per_column": k4 * 1e3 / N,
+        "K3_bound_ms": bounds.k3(B, N, P).bound()[0],
+        "K4_bound_ms": bounds.k4(B, N, P).bound()[0],
+        "K3_GB_per_s": b3 / k3 / 1e6, "K4_GB_per_s": b4 / k4 / 1e6,
+    }
+    del E, u, alphas, c_fwd, bwd, posts, beta_out
+    torch.cuda.empty_cache()
+    return record
+
+
+def ranks_sweep(reps: int) -> dict:
+    """K3/K4 per RANK_BUILDS build at RANK_SHAPES, each timed twice in
+    turns, the order reversed the second time; every build's K3 must
+    give the library's alphas and c_fwd."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from pangenie_tpu_torch import _build
+    from pangenie_tpu_torch.hmm import fb_kernels
+
+    def defines(k, sms):
+        return {"FBE_CLUSTER_RANKS": k, **({"FBE_SMS": sms} if sms else {})}
+
+    builds = {}
+    for k, sms in RANK_BUILDS:
+        if k == fb_kernels.CLUSTER_RANKS and sms is None:
+            builds[(k, sms)] = (fb_kernels.K3, fb_kernels.K4)
+        else:
+            builds[(k, sms)] = tuple(
+                _build.CudaKernel("fb", symbol, "fb", kernel._argtypes, defines=defines(k, sms))
+                for symbol, kernel in (("pg_fbe_forward", fb_kernels.K3),
+                                       ("pg_fbe_backward", fb_kernels.K4)))
+    with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc a build, all at once
+        list(pool.map(lambda kernels: kernels[0].lib(), builds.values()))
+
+    saved = (fb_kernels.K3, fb_kernels.K4, fb_kernels.CLUSTER_RANKS, fb_kernels.SMS)
+
+    def use(key):
+        k, sms = key
+        fb_kernels.K3, fb_kernels.K4 = builds[key]
+        fb_kernels.CLUSTER_RANKS = k
+        fb_kernels.SMS = sms or saved[3]
+
+    dev = torch.device("cuda", 0)
+    record = {}
+    try:
+        for B, N, P, K, mixed in RANK_SHAPES:
+            E, u, ones, zeros, u_after, last = generic_inputs(B, N, P, K, mixed, dev)
+            use((saved[2], None))
+            want = fb_kernels.forward_e(E, u, ones)
+            keys, runs = [], {}
+            for key in RANK_BUILDS:
+                use(key)
+                launch = fb_kernels.generic_launch(P, B)
+                if any(runs[o]["launch"] == launch for o in keys):
+                    continue                    # the layout of a build already timed
+                alphas, c_fwd = fb_kernels.forward_e(E, u, ones)
+                torch.testing.assert_close(alphas, want[0], rtol=2e-4, atol=1e-7)
+                torch.testing.assert_close(c_fwd, want[1], rtol=2e-4, atol=1e-7)
+                keys.append(key)
+                runs[key] = {"ranks": launch[0], "launch": launch,
+                             "clusters_at_once": fb_kernels.cluster_fits(
+                                 P, B, False, kernel=fb_kernels.K3),
+                             "K3_ms": [], "K4_ms": []}
+                del alphas, c_fwd
+            bwd = (want[0], want[1], E, u, zeros, u_after, last, zeros)
+            for order in (keys, keys[::-1]):
+                for key in order:
+                    use(key)
+                    runs[key]["K3_ms"].append(
+                        cuda_ms(lambda: fb_kernels.forward_e(E, u, ones), reps))
+                    runs[key]["K4_ms"].append(cuda_ms(lambda: fb_kernels.backward_e(*bwd), reps))
+            record[f"B={B} N={N} P={P}"] = {
+                f"FBE_CLUSTER_RANKS={k}" + (f" FBE_SMS={sms}" if sms else ""): dict(
+                    runs[(k, sms)],
+                    K3_us_per_column=[t * 1e3 / N for t in runs[(k, sms)]["K3_ms"]],
+                    K4_us_per_column=[t * 1e3 / N for t in runs[(k, sms)]["K4_ms"]])
+                for k, sms in keys}
+            del E, u, want, bwd
+            torch.cuda.empty_cache()
+    finally:
+        fb_kernels.K3, fb_kernels.K4, fb_kernels.CLUSTER_RANKS, fb_kernels.SMS = saved
+    return record
+
+
+def ablations(reps: int) -> list:
+    """K3/K4's cluster tier from csrc/fb.cu as it is ("full") and from
+    each ABLATIONS cut, built with nvcc at once, timed at ABLATE_SHAPES in
+    turns and back (the launch the library's rule gives)."""
+    import ctypes
+
+    import torch
+
+    from pangenie_tpu_torch import _build
+    from pangenie_tpu_torch.hmm import fb_kernels
+
+    out_dir = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "build", "tools", "fbe_ablations")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(_build.CUDA_SRC_DIR, "fb.cu")) as f:
+        source = f.read()
+    procs = {}
+    for name, cuts in [("full", []), *ABLATIONS.items()]:
+        text = source
+        for old, new in cuts:
+            if text.count(old) != 1:
+                raise RuntimeError(f"ablation {name}: {old!r} is not in csrc/fb.cu once")
+            text = text.replace(old, new)
+        src = os.path.join(out_dir, f"fb_{name}.cu")
+        with open(src, "w") as f:
+            f.write(text)
+        lib = os.path.join(out_dir, f"libfb_{name}.so")
+        procs[name] = (lib, subprocess.Popen(
+            [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-shared", "-Xcompiler", "-fPIC", "-I", _build.CUDA_SRC_DIR,
+             "-o", lib, src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for name, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"building the {name} cut failed:\n{log}")
+        so = ctypes.CDLL(lib)
+        fns[name] = []
+        for symbol, kernel in (("pg_fbe_forward", fb_kernels.K3),
+                               ("pg_fbe_backward", fb_kernels.K4)):
+            fn = getattr(so, symbol)
+            fn.argtypes = kernel._argtypes
+            fn.restype = ctypes.c_int
+            fns[name].append(fn)
+
+    def checked(fn):
+        def call(*args):
+            code = fn(*args)
+            if code:
+                raise RuntimeError(f"launch: CUDA error {code}")
+        return call
+
+    dev = torch.device("cuda", 0)
+    stream = torch.cuda.current_stream().cuda_stream
+    records = []
+    for B, N, P, K, mixed in ABLATE_SHAPES:
+        E, u, ones, zeros, u_after, last = generic_inputs(B, N, P, K, mixed, dev)
+        last32 = last.to(torch.int32).contiguous()
+        want = fb_kernels.forward_e(E, u, ones)
+        launch = fb_kernels.generic_launch(P, B)
+        alphas = torch.empty_like(E)
+        c_fwd = torch.empty((B, N), device=dev)
+        posts = torch.empty_like(E)
+        beta_out = torch.empty((B, P, P), device=dev)
+        null = torch.empty((0,), device=dev)
+
+        def k3(name):
+            checked(fns[name][0])(E.data_ptr(), u.data_ptr(), ones.data_ptr(),
+                                  alphas.data_ptr(), c_fwd.data_ptr(), null.data_ptr(), B, N,
+                                  P, *launch, stream)
+
+        def k4(name):
+            checked(fns[name][1])(want[0].data_ptr(), want[1].data_ptr(), E.data_ptr(),
+                                  u.data_ptr(), zeros.data_ptr(), u_after.data_ptr(),
+                                  last32.data_ptr(), zeros.data_ptr(), posts.data_ptr(),
+                                  beta_out.data_ptr(), null.data_ptr(), B, N, P, *launch,
+                                  stream)
+
+        k3("full")
+        torch.testing.assert_close(alphas, want[0], rtol=2e-4, atol=1e-7)
+        record = {"shape": {"B": B, "N": N, "P": P}, "launch": launch}
+        for name in [*fns, *reversed(list(fns))]:       # in turns, and back
+            for key, fn in (("K3", k3), ("K4", k4)):
+                ms = cuda_ms(lambda: fn(name), reps)
+                record.setdefault(f"{name}_{key}_us_per_column", []).append(ms * 1e3 / N)
+        records.append(record)
+        del E, u, want, alphas, posts
+        torch.cuda.empty_cache()
+    return records
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--wide", action="store_true")
+    ap.add_argument("--ranks", action="store_true")
+    ap.add_argument("--ablate", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -95,28 +358,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no GPU: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
-    from pangenie_tpu_torch.hmm import fb_kernels
-
     gpu = gpu_line()
-    dev = torch.device("cuda", 0)
-    for B, N, P, K, mixed in WIDE_SHAPES if args.wide else SHAPES:
-        E, u, ones, zeros, u_after, last = generic_inputs(B, N, P, K, mixed, dev)
-        alphas, c_fwd = fb_kernels.forward_e(E, u, ones)
-        bwd = (alphas, c_fwd, E, u, zeros, u_after, last, zeros)
-        posts, beta_out = fb_kernels.backward_e(*bwd)
-        k3 = cuda_ms(lambda: fb_kernels.forward_e(E, u, ones), args.reps)
-        k4 = cuda_ms(lambda: fb_kernels.backward_e(*bwd), args.reps)
-        b3 = nbytes(E, u, ones, alphas, c_fwd)
-        b4 = nbytes(*bwd, posts, beta_out)
-        print(json.dumps({
-            "root": args.root, "shape": {"B": B, "N": N, "P": P},
-            "K3_ms": k3, "K4_ms": k4,
-            "K3_us_per_column": k3 * 1e3 / N, "K4_us_per_column": k4 * 1e3 / N,
-            "K3_GB_per_s": b3 / k3 / 1e6, "K4_GB_per_s": b4 / k4 / 1e6,
-            "gpu": gpu,
-        }), flush=True)
-        del E, u, alphas, c_fwd, bwd, posts, beta_out
-        torch.cuda.empty_cache()
+    if args.ranks:
+        print(json.dumps({"ranks": ranks_sweep(args.reps), "root": args.root, "gpu": gpu}),
+              flush=True)
+        return 0
+    if args.ablate:
+        for record in ablations(args.reps):
+            print(json.dumps({**record, "gpu": gpu}), flush=True)
+        return 0
+    for shape in WIDE_SHAPES + EDGE_SHAPES if args.wide else SHAPES:
+        print(json.dumps({"root": args.root, **time_shape(*shape, args.reps), "gpu": gpu}),
+              flush=True)
     return 0
 
 
