@@ -40,8 +40,11 @@ Phases, each printed as it runs; any failure exits non-zero:
    the state in registers) is held against the plain versions at B=2,
    N=512, P=465 (mixed A, entry carries drawn positive), two launches
    bit-identical, and timed, each kernel's cudaOccupancyMaxActiveClusters
-   reading printed first; so is the one-CTA wide tier past it at B=1,
-   N=16, P=1025. K2 runs its one-warp tier at P <= 32 (the
+   reading printed first; so is the grid tier past it (P > 471: a
+   cooperative grid of CTAs a chain, the column sums merged through L2)
+   at B=1, N=16, P=1025 and at B=1, N=64, P=2049 (the band in shared
+   memory), each with its CTAs a chain, where the band lives and the
+   CTAs the card holds at once. K2 runs its one-warp tier at P <= 32 (the
    bench shape at A=2 printed beside the time of the kernel it
    replaced) and its 256-thread tier at 32 < P <= 128. Each
    kernel's bound (hmm/bounds.py: bytes over 3.35 TB/s or operations
@@ -105,8 +108,8 @@ Phases, each printed as it runs; any failure exits non-zero:
 9. wide-subsets panel: one 0.2 Mb chromosome, 300 samples = 601 paths,
    12x 150 bp reads, seed 29; ``index`` and ``genotype -f -a 600`` (two
    subsets of 600 paths, past what a cluster holds: dispatch
-   cuda_generic, K3/K4's one-CTA wide tier alone, concordance >= 0.98),
-   its launches counted alone; then the wide tier held against the plain
+   cuda_generic, K3/K4's grid tier alone, concordance >= 0.98), its
+   launches counted alone; then the grid tier held against the plain
    versions and timed at the chunk shape that run took.
 
 Each end-to-end path, and the chromosome beyond one card, runs with
@@ -177,11 +180,13 @@ GENERIC_SHAPES = [(1, 1 << 17, 89, 32, True, 0), (2, 8192, 89, 32, True, 2048),
 PADDED_SHAPE = (3, 2048, 89, 2, 1500)
 # K3/K4 past 128 paths, with the 97/2/1% mix at A=16: (B, N, P, K). The
 # cluster tier at HPRC release 2's 464 haplotypes and the reference, and
-# the one-CTA wide tier past it on a short chunk. The large panel's
-# `genotype -f -a 200` chunk shape (the cluster tier) and the wide-subsets
-# panel's `genotype -f -a 600` one (the wide tier) are checked after those
-# runs (check_wide with the shape each walk recorded).
-WIDE_SHAPES = [(2, 512, 465, 32), (1, 16, 1025, 32)]
+# the grid tier past it on short chunks: its band in registers at P=1025,
+# in shared memory at the large panel's 2049 paths genotyped unsampled.
+# The large panel's `genotype -f -a 200` chunk shape (the cluster tier)
+# and the wide-subsets panel's `genotype -f -a 600` one (the grid tier)
+# are checked after those runs (check_wide with the shape each walk
+# recorded).
+WIDE_SHAPES = [(2, 512, 465, 32), (1, 16, 1025, 32), (1, 64, 2049, 32)]
 # path subsets of `genotype -f -a` on the large panel
 LARGE_SUBSET = 200
 # the two routes timed on the same columns with no forced chunk: the
@@ -205,9 +210,8 @@ LARGE_PANEL = dict(mb=2.0, chroms=1, samples=1024, distance=150, seed=17,
 # samples = 6405 paths with the reference, cut to 1 Mb
 WIDEST_PANEL = dict(mb=1.0, chroms=1, samples=3202, distance=150, seed=19,
                     vector_genotypes=True)
-# path subsets past what a cluster of CTAs holds (K3/K4's one-CTA wide
-# tier): `genotype -f -a WIDE_SUBSET` on 300 samples = 601 paths, cut to
-# 0.2 Mb
+# path subsets past what a cluster of CTAs holds (K3/K4's grid tier):
+# `genotype -f -a WIDE_SUBSET` on 300 samples = 601 paths, cut to 0.2 Mb
 WIDE_SUBSET_PANEL = dict(mb=0.2, chroms=1, samples=300, distance=150, seed=29,
                          vector_genotypes=True)
 WIDE_SUBSET = 600
@@ -929,9 +933,11 @@ def check_wide(device, gpu, shapes):
     alpha0 and beta0 drawn positive), timed beside their bounds; compared
     a chain at a time, so that the comparisons' temporaries stay small
     beside a chunk that fills the card. Each shape's tier and launch are
-    printed first, and on the cluster tier each kernel's
-    cudaOccupancyMaxActiveClusters reading. Returns the largest absolute
-    errors and the times at shapes[0]."""
+    printed first, on the cluster tier each kernel's
+    cudaOccupancyMaxActiveClusters reading, on the grid tier its CTAs a
+    chain, where the band lives, the merge's hops and the CTAs the card
+    holds at once. Returns the largest absolute errors and the times at
+    shapes[0]."""
     import torch
 
     from pangenie_tpu_torch.hmm import bounds, fb_generic, fb_kernels
@@ -951,6 +957,15 @@ def check_wide(device, gpu, shapes):
                          f"{fits['K4']} clusters of {ranks} at once")
             if min(fits.values()) < 1:
                 raise AssertionError(f"no cluster of {ranks} CTAs fits the card at P={P}")
+        grid = None
+        if tier == "grid":
+            capacity = fb_kernels.grid_capacity()
+            grid = fb_kernels.grid_layout(P, B, capacity)
+            occupancy = (f", the band ({grid.rows} rows at most) in "
+                         f"{fb_kernels.STORES[grid.store]}, {grid.rows_per_warp} rows a warp of "
+                         f"{grid.columns_per_lane} column slots a lane, merged in {grid.hops} "
+                         f"hop(s); the card holds {capacity} such CTAs at once "
+                         f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs)")
         print(f"  B={B} N={N} P={P}: K3/K4's {tier} tier, {ranks} CTA(s) a chain of "
               f"{threads} threads and {smem} shared bytes{occupancy}", flush=True)
         cols = generic_columns(B, N, P, K, True, seed=23, device=device)
@@ -991,7 +1006,9 @@ def check_wide(device, gpu, shapes):
              "K3_work": bounds.k3(B, N, P), "K3_cols": N,
              "K4_work": bounds.k4(B, N, P), "K4_cols": N,
              "shape": f"B={B} N={N} P={P}", "tier": tier, "ranks": ranks,
-             "threads": threads, "smem": smem}
+             "threads": threads, "smem": smem,
+             "store": fb_kernels.STORES[grid.store] if grid else None,
+             "hops": grid.hops if grid else None}
         main = main or t
         shape = f"B={B} N={N} P={P} K={K} A=16 mixed 2/4/16"
         print(f"  {tier} tier {shape}, entry carries drawn: ok (K3 max_abs_err {e3:.3e}; "
@@ -1626,7 +1643,7 @@ def run_large_panel(casedir: str, gpu: str, device: str = "cuda"):
         raise AssertionError(f"{subsets}: dispatch was {batch.last_dispatch}, "
                              f"not cuda_generic")
     for name in ("K3", "K4"):
-        if subset_launches[f"{name} cluster"] <= 0 or subset_launches[f"{name} wide"]:
+        if subset_launches[f"{name} cluster"] <= 0 or subset_launches[f"{name} grid"]:
             raise AssertionError(f"{subsets} did not take {name}'s cluster tier alone: "
                                  f"{subset_launches}")
     subset_result = genotype_concordance(os.path.join(casedir, "out_subsets_genotyping.vcf"),
@@ -1707,10 +1724,10 @@ def run_widest_panel(casedir: str, gpu: str, device: str = "cuda"):
 def run_wide_subsets(casedir: str, gpu: str, device: str = "cuda"):
     """``index`` and ``genotype -f -a WIDE_SUBSET`` on CUDA over the
     wide-subsets panel (601 paths in two subsets of 600, past what a
-    cluster of CTAs holds: dispatch cuda_generic, K3/K4's one-CTA wide
-    tier and no other; concordance >= 0.98), the launch counts set to 0
-    just before ``genotype``. Returns its launch counts and the (B, N, P,
-    K) of its chunks."""
+    cluster of CTAs holds: dispatch cuda_generic, K3/K4's grid tier and
+    no other; concordance >= 0.98), the launch counts set to 0 just
+    before ``genotype``. Returns its launch counts and the (B, N, P, K)
+    of its chunks."""
     from pangenie_tpu_torch import commands
     from pangenie_tpu_torch.eval.concordance import genotype_concordance
     from pangenie_tpu_torch.hmm import batch, fb_generic
@@ -1743,8 +1760,9 @@ def run_wide_subsets(casedir: str, gpu: str, device: str = "cuda"):
     if batch.last_dispatch != "cuda_generic":
         raise AssertionError(f"{subsets}: dispatch was {batch.last_dispatch}")
     for name in ("K3", "K4"):
-        if launches[f"{name} wide"] <= 0 or launches[f"{name} cluster"]:
-            raise AssertionError(f"{subsets} did not take {name}'s wide tier alone: "
+        if (launches[f"{name} grid"] <= 0 or launches[f"{name} cluster"]
+                or launches[f"{name} register"]):
+            raise AssertionError(f"{subsets} did not take {name}'s grid tier alone: "
                                  f"{launches}")
     result = genotype_concordance(os.path.join(casedir, "out_genotyping.vcf"),
                                   os.path.join(casedir, "truth.vcf"))
@@ -1753,7 +1771,7 @@ def run_wide_subsets(casedir: str, gpu: str, device: str = "cuda"):
     print(f"  wide-subsets panel ({made}) [{gpu}]: "
           + ", ".join(f"{name} wall {wall:.2f} s" for name, (wall, _p) in walls.items())
           + f"; dispatch {batch.last_dispatch} over (B, N, chunks) {walk} in chunks of "
-          f"{chunks[0]} (K3/K4's one-CTA wide tier at P={WIDE_SUBSET}), concordance "
+          f"{chunks[0]} (K3/K4's grid tier at P={WIDE_SUBSET}), concordance "
           f"{result.concordance:.5f} over {result.total} variants, launches {launches}",
           flush=True)
     print_walls(walls)
@@ -1913,7 +1931,7 @@ def smoke(device, gpu, inputs) -> int:
           flush=True)
     wide_launches, wide_shape = run_wide_subsets(wide_dir, gpu)
 
-    phase(f"K3/K4's one-CTA wide tier at the chunk shape of genotype -f -a {WIDE_SUBSET}: "
+    phase(f"K3/K4's grid tier at the chunk shape of genotype -f -a {WIDE_SUBSET}: "
           f"{wide_shape}")
     torch.cuda.empty_cache()
     w_err, w_times = check_wide(device, gpu, [wide_shape])
@@ -1957,12 +1975,18 @@ def smoke(device, gpu, inputs) -> int:
                    f"chain, the state in registers, partials pushed by st.async)", fb_src,
                    f"{pallas}:333", subset_launches["K4 cluster"], c_err["K4"], c_times, "K4"),
              at=c_times["shape"], cluster_ctas=c_times["ranks"], threads=c_times["threads"]),
-        dict(entry("fbe_forward wide tier (K3 past what a cluster holds: one CTA of 1024 "
-                   "threads, state in global memory)", fb_src, f"{pallas}:307",
-                   wide_launches["K3 wide"], w_err["K3"], w_times, "K3"), at=w_times["shape"]),
-        dict(entry("fbe_backward wide tier (K4 past what a cluster holds: one CTA of 1024 "
-                   "threads, state in global memory)", fb_src, f"{pallas}:333",
-                   wide_launches["K4 wide"], w_err["K4"], w_times, "K4"), at=w_times["shape"]),
+        dict(entry(f"fbe_forward grid tier (K3 past what a cluster holds: "
+                   f"fbe_forward_grid_kernel, {w_times['ranks']} CTAs a chain, the band in "
+                   f"{w_times['store']}, column sums merged through L2 in {w_times['hops']} "
+                   f"hops)", fb_src, f"{pallas}:307", wide_launches["K3 grid"], w_err["K3"],
+                   w_times, "K3"),
+             at=w_times["shape"], grid_ctas=w_times["ranks"], threads=w_times["threads"]),
+        dict(entry(f"fbe_backward grid tier (K4 past what a cluster holds: "
+                   f"fbe_backward_grid_kernel, {w_times['ranks']} CTAs a chain, the band in "
+                   f"{w_times['store']}, column sums merged through L2 in {w_times['hops']} "
+                   f"hops)", fb_src, f"{pallas}:333", wide_launches["K4 grid"], w_err["K4"],
+                   w_times, "K4"),
+             at=w_times["shape"], grid_ctas=w_times["ranks"], threads=w_times["threads"]),
         entry("viterbi_iteration (S1: sweep and chase)", s1_src,
               "pangenie_tpu/hmm/sampling.py:174", launches["S1"], s1_err, s1_times, "S1"),
         entry("backtrace chase (S1)", s1_src, "pangenie_tpu/hmm/sampling.py:232",

@@ -8,13 +8,15 @@
 //      chain runs in N-chunks (the generic route: any A, any length, any
 //      P; past 128 paths fbe_forward_cluster_kernel /
 //      fbe_backward_cluster_kernel, and past what a cluster holds
-//      fbe_forward_wide_kernel / fbe_backward_wide_kernel).
+//      fbe_forward_grid_kernel / fbe_backward_grid_kernel).
 //
 // Tiers by P: K1 takes P <= 128; K2 runs fb_backward_warp_kernel (one
 // warp a chain) up to P = 32 and fb_backward_kernel up to 128; K3/K4 keep
 // the state in one CTA's registers up to 128, in the registers of a
 // thread-block cluster of CTAs a chain up to 471 (fbe_cluster_layout),
-// and in global memory beyond (their sections below).
+// and beyond on a grid of CTAs a chain that merge through L2, the state
+// in registers, shared or global memory (fbg_layout; their sections
+// below).
 //
 // Replaces: pangenie_tpu/hmm/pallas_fb.py:_fwd_kernel (K1), :_bwd_kernel
 // (K2), driven there by forward_backward_batch_pallas, and
@@ -32,7 +34,8 @@
 // at P=89, from one SM. Up to 128 paths parallelism comes only from the
 // batch: one CTA per chain, so B=1 (a long chromosome's chunk) occupies 1
 // of 132 SMs; past 128 paths a chain's rows spread over a cluster of up
-// to 16 CTAs, whose merge of the column sums then joins the chain.
+// to 16 CTAs, and past 471 over up to every SM, whose merge of the
+// column sums then joins the chain.
 //
 // K1 and K2's 256-thread tier: the whole [P, P] f32 state stays in
 // shared memory for the entire sweep (row pitch P+1 so the per-row
@@ -101,6 +104,11 @@
 
 #include "cluster.cuh"
 #include "cp_async.cuh"
+#include "grid.cuh"
+
+#ifndef PREFETCH_L2
+#define PREFETCH_L2(p) asm volatile("prefetch.global.L2 [%0];" ::"l"(p))
+#endif
 
 #define FB_THREADS 256
 #define FB_WARPS (FB_THREADS / 32)
@@ -784,12 +792,12 @@ fbe_backward_kernel(const float* __restrict__ alphas, const float* __restrict__ 
 //   1 / s into the next column's mix; K4 forms its helper from beta = cur
 //   / s with s known before cur (fbe_total, fbe_bwd_scale: fault F4's
 //   repair); the uniform state where s <= 0; is_last re-seeds with ones.
-// - Two block barriers and one mbarrier wait a column, against the wide
-//   tier's two barriers a tile of 256 columns on one SM and its state
-//   read back from global memory.
+// - Two block barriers and one mbarrier wait a column, against the
+//   one-CTA tier this one replaced: two barriers a tile of 256 columns
+//   on one SM and its state read back from global memory.
 // - Measured (tools/fbe_times.py, an NVIDIA H100 80GB HBM3 at 700 W): at
 //   genotype -a 200's chunk shape (B=11 N=4,941 P=200, clusters of 8)
-//   2.83 / 3.31 us a column, 13.1x / 10.4x the one-CTA wide tier; at B=2
+//   2.83 / 3.31 us a column, 13.1x / 10.4x the one-CTA tier; at B=2
 //   N=512 P=465 (clusters of 16) 7.40 / 8.08 us, 22x / 19x. The merge is
 //   a third of a column at P=200 and half of one at P=465 (--ablate: 1.0
 //   and 3.8 us of K3's); a merge in two hops (a reduce-scatter to each
@@ -865,9 +873,13 @@ __host__ __device__ __forceinline__ bool fbc_layout(int P, int ranks, FbcLayout&
 // The rule, past FB_MAX_PATHS: clusters of FBE_CLUSTER_RANKS CTAs, halved
 // while the B chains' CTAs outnumber the FBE_SMS the card holds in
 // clusters at once, but never below the fewest (a power of two) whose
-// band fits; false where not even FBE_MAX_RANKS CTAs hold P (the wide
-// tier takes it).
+// band fits; false where not even FBE_MAX_RANKS CTAs hold P (the grid
+// tier takes it), and in a build with FBE_GRID_ONLY (the grid tier past
+// 128 paths, which tools/fbe_times.py --wide times beside this tier).
 static bool fbe_cluster_layout(int P, int B, FbcLayout& l) {
+#ifdef FBE_GRID_ONLY
+    return false;
+#endif
     if (P <= FB_MAX_PATHS) return false;
     int least = 1;
     while (least <= FBE_MAX_RANKS && !fbc_layout(P, least, l)) least *= 2;
@@ -1235,203 +1247,665 @@ fbe_backward_cluster_kernel(const float* __restrict__ alphas, const float* __res
     cluster_wait();
 }
 
-// ---- K3/K4's wide tier: P past what a cluster holds ----
+// ---- K3/K4's grid tier: P past what a cluster holds ----
 //
-// Past the cluster tier (P > 471: no public panel) the [P, P] state lives
-// in global memory, where L2 holds it up to about P = 3,000: K3 keeps it
-// in its own alphas output (column n-1 unnormalized until column n reads
-// it back, then normalized in place), K4 its helper g in a [P, P] scratch
-// of the chain. The scratch also holds two buffers each of row sums and
-// column sums (the sums of the column being read and of the one being
-// written). One CTA a chain: 32 warps own the rows (w + 32 r) and take the
-// columns in tiles of FBE_WIDE_TILE, lane l holding columns l + 32 k of a
-// tile: a cell is owned by the same thread in every pass, so a thread
-// reads back only what it wrote itself. Row sums are warp shuffles,
-// summed tile after tile by the owning warp; column sums go through one
-// tile of per-warp partials in shared memory, four threads a column; the
-// totals are each warp's, summed by every thread in the same order. Two
-// barriers a tile, none between a cell's read and its write. The
-// arithmetic is the cluster tier's; sums in a fixed order, so a launch
-// repeats its bits. Speed is not this tier's aim: at P=200 a column took
-// ~35 us (tools/fbe_times.py --wide, before the cluster tier took P=200),
-// some 20-30 GB/s from one SM with one row of loads in flight a warp, and
-// 64 registers a thread at 1024 threads spill a few words.
+// Past the cluster tier (P > 471) a chain's band no longer fits 16 CTAs,
+// and a cluster holds no more. So a chain runs on G CTAs of a cooperative
+// launch, one an SM, that merge through global memory (L2) instead of
+// distributed shared memory: G is the CTAs the card holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor x the SMs: one CTA of up
+// to 1024 threads an SM, 132 on an H100) divided by the B chains, at
+// least 1 and at most P (fbg_layout; fb_kernels.grid_layout mirrors it).
+//
+// - Rank g owns the rows [g P / G, (g + 1) P / G) of the state, a band
+//   contiguous in E, alphas and posts. Warp w is row group q = w / S and
+//   segment s = w % S: it owns the band's rows q + Q r (r < RW) and, lane
+//   l, the columns 32 NCM s + l + 32 c (c < NCM) of them, so a row spans
+//   S warps (past 512 paths the cluster tier's one warp a row would leave
+//   most warps of a band of 4-16 rows idle). A thread owns the same cells
+//   in every column.
+// - The band's state lives where it fits, in this order (fbg_layout
+//   searches Q for the fewest cells a thread): registers, on at most
+//   FBG_REG_WARPS warps of at most FBG_CELLS cells a thread (128
+//   registers: NCM 4, 8 or 16, the templates' instances), with E copied a
+//   ring of FBG_RING columns ahead by 16-byte cp.async as in the cluster
+//   tier and K4's alpha loaded into registers a column ahead; else shared
+//   memory; else global memory, K3 in its alphas output (column n-1
+//   unnormalized until column n reads it back and writes it normalized),
+//   K4 its helper g in a [P, P] scratch of the chain. Outside registers,
+//   on up to FBG_WARPS warps, E and K4's alpha are read from global
+//   memory, prefetched into L2 a column ahead, FBG_BATCH cells' loads at a
+//   time (a ring beside a band in shared memory does not fit: 131 KB a
+//   band at P=2049, G=132).
+// - Row sums stay in the band: each warp's row partial (a shuffle) goes
+//   to shared memory, summed over the S segments in order. The P column
+//   sums and the total cross CTAs every column: each rank sums its row
+//   groups' column partials and its warps' totals in a fixed order into
+//   its message (P partials and the band total), written to global
+//   memory; a block barrier and one thread's arrival with release
+//   semantics on the chain's counter (csrc/grid.cuh) publish it. Where G
+//   (P + 1) floats are few (FBE_GRID_ONE_HOP) every rank then waits for
+//   the G arrivals and sums the G messages in rank order (one hop);
+//   otherwise rank g sums its slice of the P + 1 entries over the G
+//   messages (a warp an entry, its lanes over the ranks, a fixed tree),
+//   writes the sums, arrives a second time, and every rank reads all the
+//   sums once the second G arrivals are in (two hops: about 2 G (P + 1)
+//   floats moved a chain, against G^2 (P + 1) for one hop). Messages and
+//   sums alternate between two parities, so a buffer is written again
+//   only after every rank has passed the next column's wait. Every rank
+//   holds the same bits and a launch repeats its bits; different G sum in
+//   other orders, within the tolerance.
+// - At G = 1 no arrival is needed: the message is the column sums, and
+//   the launch is not cooperative.
+// - The arithmetic is the cluster tier's: the factored mix; K3 folds 1 /
+//   s into the next column's mix; K4 forms its helper from beta = cur /
+//   s with s known before cur (fbe_total, fbe_bwd_scale: fault F4's
+//   repair); the uniform state where s <= 0; is_last re-seeds with ones.
+//   K3 writes alpha once, normalized, and rank 0 c_fwd; K4 writes the raw
+//   posteriors once and each rank its band of beta_out at column 0. The
+//   column's scalars (u, c_fwd, is_last) are loaded a column ahead.
+// - Measured (tools/fbe_grid_merge.py, an NVIDIA H100 80GB HBM3 at 700
+//   W), over a floor of the message written alone: one bare arrival
+//   costs 0.83-1.11 us a column at G = 8-132; two hops 3.3-4.4 us; one
+//   hop 1.3 us at G = 8 but 3.7 / 6.2 at G = 66 and 7.8 / 13.4 at G = 132
+//   (P = 600 / 1025: L2 bandwidth), so two hops past FBE_GRID_ONE_HOP.
+//   K3 / K4 (tools/fbe_times.py --wide and --grid, same card): at
+//   genotype -f -a 600's chunk shape (B=2 N=2048 P=600, 66 CTAs of 15
+//   warps, 16 cells a thread in registers, two hops) 6.7 / 9.2 us a column
+//   against 265.5 / 258.7 for the one-CTA tier this one replaced, of which
+//   the two-hop merge alone is 3.3; one hop forced 8.5 / 11.7; one CTA a
+//   chain (G = 1, the state in global memory) 89 / 113; and at B=2 N=512
+//   P=465 (a build without the cluster tier) 6.0 / 6.5 against the
+//   cluster tier's 7.4 / 8.1. On 32 warps of 64 registers the register
+//   instances spilled hundreds of bytes (K4 12.3 us at -a 600); K4's
+//   alpha a column ahead still spills 208 bytes at 16 cells.
 
-#define FBE_WIDE_WARPS 32
-#define FBE_WIDE_TILE 256
-#define FBE_WIDE_KT (FBE_WIDE_TILE / 32)
+#define FBG_REG 0
+#define FBG_SMEM 1
+#define FBG_GLOBAL 2
+#define FBG_WARPS 32
+#define FBG_REG_WARPS 16
+#define FBG_RING 2
+#define FBG_CELLS 32
+#define FBG_BATCH 8
+// the CTAs the card holds at once; 0: cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// x the SMs (a build with another value runs every chain on fewer CTAs)
+#ifndef FBE_GRID_SMS
+#define FBE_GRID_SMS 0
+#endif
+// one hop where each rank reads at most this many floats of messages,
+// G (P + 1); two hops beyond (the crossover of tools/fbe_grid_merge.py:
+// G ~ 60 at P = 600, ~ 33 at P = 1025)
+#ifndef FBE_GRID_ONE_HOP
+#define FBE_GRID_ONE_HOP 34000
+#endif
 
-// one tile of column partials, and the warps' totals of two columns
-static size_t fbe_wide_smem() {
-    return sizeof(float) * (FBE_WIDE_WARPS * FBE_WIDE_TILE + 2 * 32);
+// The grid tier's layout for P paths on `ctas` CTAs a chain: the most
+// rows a band has, row groups Q and segments S a row (Q S warps), column
+// slots a lane (NCM), rows a warp (RW), where the band's state lives,
+// hops of the merge (0 at one CTA), and whether the partials live in
+// global memory (only where even they do not fit one block's shared
+// memory beside the column sums: one CTA of thousands of paths).
+struct FbgLayout {
+    int ctas, rows, groups, segs, ncm, rw, store, hops, gpart;
+};
+
+__host__ __device__ __forceinline__ int fbg_ceil(long long a, long long b) {
+    return (int)((a + b - 1) / b);
 }
 
-// The sum of the warps' totals wt[0, 32), the same bits in every thread.
-__device__ __forceinline__ float warps_total(const float* wt) {
-    return warp_sum(wt[threadIdx.x & 31]);
+__host__ __device__ __forceinline__ long long fbg_round4(long long x) { return (x + 3) & ~3LL; }
+
+// Floats of the partials: the row groups' column partials [Q][msg], the
+// row partials [S][rows], the row sums [rows].
+__host__ __device__ __forceinline__ long long fbg_part_floats(int P, const FbgLayout& l) {
+    return (long long)l.groups * fbc_msg(P) + fbg_round4((long long)l.segs * l.rows)
+        + fbg_round4(l.rows);
 }
 
-// One pass over a chain's [P, P] cells. cell(c, i, j) returns the new
-// state value of cell (i, j), c = i P + j (it does its own reads and
-// writes). The pass writes the state's row sums to Rn, its column sums
-// to Cn and each warp's total to wt[w], all visible to every thread when
-// it returns.
-template <class Cell>
-__device__ __forceinline__ void wide_pass(int P, Cell cell, float* Rn, float* Cn,
-                                          float* wt) {
-    constexpr int W = FBE_WIDE_WARPS, T = FBE_WIDE_TILE, KT = FBE_WIDE_KT;
-    const int t = threadIdx.x, w = t >> 5, lane = t & 31;
-    float* part = fbe_shm;                       // [W, T]
-    float tot = 0.f;
-    for (int c0 = 0; c0 < P; c0 += T) {
-        float cs[KT];
+// Shared memory (fb_kernels.grid_layout mirrors it): the column sums
+// [msg], the warps' totals [32], the partials (unless in global memory),
+// and the E ring of FBG_RING bands at any 16-byte misalignment (state in
+// registers) or the band's state (shared memory).
+__host__ __device__ __forceinline__ long long fbg_smem(int P, const FbgLayout& l) {
+    long long f = fbc_msg(P) + 32 + (l.gpart ? 0 : fbg_part_floats(P, l));
+    if (l.store == FBG_REG) f += (long long)FBG_RING * fbe_span_floats(l.rows * P);
+    if (l.store == FBG_SMEM) f += fbg_round4((long long)l.rows * P);
+    return (long long)sizeof(float) * f;
+}
+
+// Floats of a chain's scratch (fb_kernels.grid_scratch mirrors it): its
+// counter (16 bytes), the messages [2][G][msg] and sums [2][msg], the
+// ranks' partials where they live in global memory, and K4's helper [P,
+// P] where the state does.
+__host__ __device__ __forceinline__ long long fbg_chain_floats(int P, const FbgLayout& l,
+                                                               bool backward) {
+    long long f = 4 + 2LL * (l.ctas + 1) * fbc_msg(P);
+    if (l.gpart) f += (long long)l.ctas * fbg_part_floats(P, l);
+    if (backward && l.store == FBG_GLOBAL) f += (long long)P * P;
+    return f;
+}
+
+// The rule, past the cluster tier: G = capacity / B CTAs a chain (1 to
+// P), bands of at most ceil(P / G) rows; the band's state in registers
+// where some Q (1 to FBG_REG_WARPS, at most the rows) gives at most
+// FBG_CELLS cells a thread at NCM = 4, 8 or 16, else in shared memory,
+// else in global memory (Q up to FBG_WARPS); within a place the fewest
+// cells a thread, then the fewest rows a warp, then the fewest warps. Q
+// sets NCM: the fewest slots a lane with which (warps / Q) segments span
+// P. False where not even the column sums fit one block's shared memory
+// (P past ~58,000).
+static bool fbg_layout(int P, int B, int capacity, FbgLayout& out) {
+    if (P <= FB_MAX_PATHS || B < 1) return false;
+    int G = capacity / B;
+    G = G < 1 ? 1 : G > P ? P : G;
+    const int rows = fbg_ceil(P, G);
+    const int hops = G == 1 ? 0 : (long long)G * (P + 1) <= FBE_GRID_ONE_HOP ? 1 : 2;
+    bool found = false;
+    for (int store = FBG_REG; store <= FBG_GLOBAL && !found; ++store) {
+        const int warps = store == FBG_REG ? FBG_REG_WARPS : FBG_WARPS;
+        for (int groups = 1; groups <= warps && groups <= rows; ++groups) {
+            int ncm = fbg_ceil(P, 32 * (warps / groups));
+            if (store == FBG_REG) ncm = ncm <= 4 ? 4 : ncm <= 8 ? 8 : ncm <= 16 ? 16 : 0;
+            if (ncm == 0) continue;
+            FbgLayout l = {G, rows, groups, fbg_ceil(P, 32 * ncm), ncm, fbg_ceil(rows, groups),
+                           store, hops, 0};
+            if (store == FBG_REG && l.rw * l.ncm > FBG_CELLS) continue;
+            if (store == FBG_GLOBAL && fbg_smem(P, l) > FBE_SMEM_BYTES) l.gpart = 1;
+            if (fbg_smem(P, l) > FBE_SMEM_BYTES) continue;
+            const long long cells = (long long)l.rw * l.ncm, best = (long long)out.rw * out.ncm;
+            if (!found || cells < best || (cells == best && (l.rw < out.rw || (l.rw == out.rw
+                    && l.groups * l.segs < out.groups * out.segs)))) {
+                out = l;
+                found = true;
+            }
+        }
+    }
+    return found;
+}
+
+// The cells of one thread in its rank's band of `rows` rows.
+struct GridCells {
+    int P, rows, groups, w, q, s, lane, col0;
+    __device__ GridCells(int P_, int rows_, const FbgLayout& l)
+        : P(P_), rows(rows_), groups(l.groups), w(threadIdx.x >> 5), lane(threadIdx.x & 31) {
+        q = w / l.segs;
+        s = w - q * l.segs;
+        col0 = 32 * l.ncm * s + lane;
+    }
+    __device__ __forceinline__ int row(int r) const { return q + groups * r; }
+    __device__ __forceinline__ int col(int k) const { return col0 + 32 * k; }
+};
+
+// Where a rank's buffers are: the column sums and the warps' totals in
+// shared memory, the partials there too (or in global memory), then the E
+// ring or the band's state.
+struct FbgMem {
+    float *col, *wtot, *stage, *rowpart, *rsum, *ring, *state;
+    int msg, slot;
+};
+
+__device__ __forceinline__ FbgMem fbg_mem(int P, const FbgLayout& l, float* gpart) {
+    FbgMem m;
+    m.msg = fbc_msg(P);
+    m.slot = l.store == FBG_REG ? fbe_span_floats(l.rows * P) : 0;
+    float* p = fbe_shm;
+    m.col = p;
+    m.wtot = m.col + m.msg;
+    p = m.wtot + 32;
+    float* part = l.gpart ? gpart : p;
+    m.stage = part;
+    m.rowpart = m.stage + l.groups * m.msg;
+    m.rsum = m.rowpart + fbg_round4((long long)l.segs * l.rows);
+    if (!l.gpart) p = m.rsum + fbg_round4(l.rows);
+    m.ring = m.state = p;
+    return m;
+}
+
+// A chain's scratch: the counter, the messages, the sums, this rank's
+// partials (where in global memory) and K4's helper (where in global
+// memory).
+struct FbgChain {
+    unsigned* counter;
+    float *msgs, *sums, *part, *state;
+};
+
+__device__ __forceinline__ FbgChain fbg_chain(float* scratch, int b, int rank, int P,
+                                              const FbgLayout& l, bool backward) {
+    FbgChain c;
+    float* base = scratch + (size_t)b * fbg_chain_floats(P, l, backward);
+    const int msg = fbc_msg(P);
+    c.counter = reinterpret_cast<unsigned*>(base);
+    c.msgs = base + 4;
+    c.sums = c.msgs + (size_t)2 * l.ctas * msg;
+    float* p = c.sums + (size_t)2 * msg;
+    c.part = p + (size_t)rank * (l.gpart ? fbg_part_floats(P, l) : 0);
+    if (l.gpart) p += (size_t)l.ctas * fbg_part_floats(P, l);
+    c.state = p;
+    return c;
+}
+
+// The pass over a thread's cells in registers (RW x NCM, 0 outside the
+// band): cell(r, k, ok, i, row, j) sets and returns the new value of cell
+// (row, j), band offset i (a row's base plus 32 k, so that each access is
+// a base register and an immediate; used only where ok). Writes the row
+// partials, this warp's column partials into its row group's stage and
+// its total; no barrier.
+template <int RW, int NCM, class Cell>
+__device__ __forceinline__ void fbg_pass_reg(const GridCells& c, const FbgLayout& l,
+                                             const FbgMem& m, Cell&& cell) {
+    float cs[NCM];
 #pragma unroll
-        for (int k = 0; k < KT; ++k) cs[k] = 0.f;
-        for (int i = w; i < P; i += W) {
-            const size_t row = (size_t)i * P;
-            float rsum = 0.f;
+    for (int k = 0; k < NCM; ++k) cs[k] = 0.f;
+    float wt = 0.f;
 #pragma unroll
-            for (int k = 0; k < KT; ++k) {
-                const int j = c0 + lane + 32 * k;
-                if (j < P) {
-                    const float v = cell(row + j, i, j);
-                    rsum += v;
-                    cs[k] += v;
+    for (int r = 0; r < RW; ++r) {
+        const int row = c.row(r);
+        const bool rok = row < c.rows;   // the same for the whole warp
+        const int base = row * c.P + c.col0;
+        float rs = 0.f;
+#pragma unroll
+        for (int k = 0; k < NCM; ++k) {
+            const int j = c.col(k);
+            const bool ok = rok && j < c.P;
+            const float v = cell(r, k, ok, base + 32 * k, row, j);
+            rs += v;
+            cs[k] += v;
+        }
+        if (rok) {
+            rs = warp_sum(rs);
+            if (c.lane == 0) m.rowpart[c.s * l.rows + row] = rs;
+            wt += rs;
+        }
+    }
+    float* stage = m.stage + c.q * m.msg;
+#pragma unroll
+    for (int k = 0; k < NCM; ++k)
+        if (c.col(k) < c.P) stage[c.col(k)] = cs[k];
+    if (c.lane == 0) m.wtot[c.w] = wt;
+}
+
+// What a cell of the memory pass loads (up to three floats).
+struct FbgLoad {
+    float x, y, z;
+};
+
+// The same pass where the state lives in memory, FBG_BATCH cells of a row
+// at a time: load(i) starts the reads of cell i from memory, all the
+// batch's loads at once; cell(v, i, row, j) does the rest and its writes
+// and returns the new value. Column partials are summed in the stage
+// (each entry has one owner), row by row.
+template <class Load, class Cell>
+__device__ __forceinline__ void fbg_pass_mem(const GridCells& c, const FbgLayout& l,
+                                             const FbgMem& m, Load&& load, Cell&& cell) {
+    float* stage = m.stage + c.q * m.msg;
+    float wt = 0.f;
+    for (int r = 0; r < l.rw; ++r) {
+        const int row = c.row(r);
+        if (row >= c.rows) break;        // the same for the whole warp
+        const size_t at = (size_t)row * c.P;
+        float rs = 0.f;
+        for (int k0 = 0; k0 < l.ncm && c.col(k0) < c.P; k0 += FBG_BATCH) {
+            FbgLoad v[FBG_BATCH];
+#pragma unroll
+            for (int u = 0; u < FBG_BATCH; ++u) {
+                const int j = c.col(k0 + u);
+                if (k0 + u < l.ncm && j < c.P) v[u] = load(at + j);
+            }
+#pragma unroll
+            for (int u = 0; u < FBG_BATCH; ++u) {
+                const int j = c.col(k0 + u);
+                if (k0 + u < l.ncm && j < c.P) {
+                    const float y = cell(v[u], at + j, row, j);
+                    rs += y;
+                    stage[j] = r == 0 ? y : stage[j] + y;
                 }
             }
-            rsum = warp_sum(rsum);
-            if (lane == 0) Rn[i] = c0 == 0 ? rsum : Rn[i] + rsum;
-            tot += rsum;
         }
-#pragma unroll
-        for (int k = 0; k < KT; ++k) part[w * T + lane + 32 * k] = cs[k];
-        if (lane == 0) wt[w] = tot;
-        __syncthreads();
-        {   // column c0 + q: four threads, each over every fourth warp
-            const int q = t >> 2, jq = t & 3;
-            const unsigned group = 0xfu << (t & 28);
-            float x = 0.f;
-            for (int v = jq; v < W; v += 4) x += part[v * T + q];
-            x += __shfl_xor_sync(group, x, 1);
-            x += __shfl_xor_sync(group, x, 2);
-            if (jq == 0 && c0 + q < P) Cn[c0 + q] = x;
-        }
-        __syncthreads();
+        rs = warp_sum(rs);
+        if (c.lane == 0) m.rowpart[c.s * l.rows + row] = rs;
+        wt += rs;
     }
+    if (c.q >= c.rows)                   // a row group without rows in this band
+        for (int k = 0; k < l.ncm && c.col(k) < c.P; ++k) stage[c.col(k)] = 0.f;
+    if (c.lane == 0) m.wtot[c.w] = wt;
 }
 
-__global__ void __launch_bounds__(32 * FBE_WIDE_WARPS, 1)
-fbe_forward_wide_kernel(const float* __restrict__ E, const float* __restrict__ u,
-                        const float* __restrict__ alpha0, float* __restrict__ alphas,
-                        float* __restrict__ c_fwd, float* __restrict__ scratch, int N,
-                        int P) {
-    const size_t PP = (size_t)P * P;
-    const int b = blockIdx.x, t = threadIdx.x;
-    const float uniform = 1.0f / (float)PP, row_uniform = (float)P * uniform;
-    const float* e_b = E + (size_t)b * N * PP;
-    const float* u_b = u + (size_t)b * N * 3;
-    const float* a0 = alpha0 + (size_t)b * PP;
-    float* alpha_b = alphas + (size_t)b * N * PP;
-    float* R = scratch + (size_t)b * 4 * P;      // [2, P] row sums
-    float* C = R + 2 * P;                        // [2, P] column sums
-    float* wt = fbe_shm + FBE_WIDE_WARPS * FBE_WIDE_TILE;   // [2, 32]
+// After the barrier that publishes the partials: the band's message (its
+// row groups' column partials summed in order, the warps' totals in order
+// at P) and its row sums (the segments' partials in order); then the
+// chain's column sums and total into m.col, the same bits in every rank:
+// at one CTA the message itself, else through global memory in one or two
+// hops (see above) on parity `step` & 1 of the buffers. Ends without a
+// barrier after the last writes to shared memory.
+__device__ __forceinline__ void fbg_merge(const FbgMem& m, const FbgLayout& l,
+                                          const FbgChain& ch, int P, int rows, int rank,
+                                          unsigned step) {
+    const int t = threadIdx.x, T = blockDim.x, M = P + 1, G = l.ctas;
+    const int warps = T >> 5, w = t >> 5, lane = t & 31, p = (int)(step & 1);
+    float* mine = ch.msgs + ((size_t)p * G + rank) * m.msg;
+    for (int j = t; j < M; j += T) {
+        float x = 0.f;
+        if (j < P)
+            for (int q = 0; q < l.groups; ++q) x += m.stage[q * m.msg + j];
+        else
+            for (int v = 0; v < warps; ++v) x += m.wtot[v];
+        if (G == 1)
+            m.col[j] = x;
+        else
+            grid_store(mine + j, x);
+    }
+    for (int i = t; i < rows; i += T) {
+        float x = 0.f;
+        for (int s = 0; s < l.segs; ++s) x += m.rowpart[s * l.rows + i];
+        m.rsum[i] = x;
+    }
+    if (G == 1) return;
+    __syncthreads();
+    grid_arrive(ch.counter);
+    grid_wait(ch.counter, (unsigned)G * ((unsigned)l.hops * step + 1));
+    const float* msgs = ch.msgs + (size_t)p * G * m.msg;
+    if (l.hops == 1) {
+        for (int j = t; j < M; j += T) {
+            float x = 0.f;
+            for (int k = 0; k < G; ++k) x += grid_load(msgs + (size_t)k * m.msg + j);
+            m.col[j] = x;
+        }
+        return;
+    }
+    float* sums = ch.sums + (size_t)p * m.msg;
+    for (int j = rank * M / G + w; j < (rank + 1) * M / G; j += warps) {
+        float x = 0.f;
+        for (int k = lane; k < G; k += 32) x += grid_load(msgs + (size_t)k * m.msg + j);
+        x = warp_sum(x);
+        if (lane == 0) grid_store(sums + j, x);
+    }
+    __syncthreads();
+    grid_arrive(ch.counter);
+    grid_wait(ch.counter, (unsigned)G * (2 * step + 2));
+    for (int j = t; j < M; j += T) m.col[j] = grid_load(sums + j);
+}
 
-    // pass 0: the entry carry's sums (it mixes as it is)
-    wide_pass(P, [&](size_t c, int, int) { return a0[c]; }, R, C, wt);
-    float H = warps_total(wt), inv = 1.f;
-    bool uni = false;            // the carry is the uniform state
+// The `floats` floats from p on into L2, one 128-byte line a thread at a
+// time (the grid tier's E and alpha a column ahead, where no ring holds
+// them).
+__device__ __forceinline__ void fbg_prefetch(const float* p, size_t floats) {
+    for (size_t o = (size_t)threadIdx.x * 32; o < floats; o += (size_t)blockDim.x * 32)
+        PREFETCH_L2(p + o);
+}
+
+// One step of the chain after the cells: the partials published, the
+// ring slot just read handed to `refill`, the merge of step `step`, the
+// ring's next column waited for, all published by the second barrier.
+template <class F>
+__device__ __forceinline__ void fbg_step(const FbgMem& m, const FbgLayout& l,
+                                         const FbgChain& ch, int P, int rows, int rank,
+                                         unsigned step, F&& refill) {
+    __syncthreads();
+    refill();
+    cp_async_commit();
+    fbg_merge(m, l, ch, P, rows, rank, step);
+    cp_async_wait<FBG_RING - 1>();
+    __syncthreads();
+}
+
+// 128 registers a thread in registers (FBG_REG_WARPS), 64 in memory
+#define FBG_BOUNDS(STORE) __launch_bounds__(32 * ((STORE) == FBG_REG ? FBG_REG_WARPS : FBG_WARPS), 1)
+
+template <int RW, int NCM, int STORE>
+__global__ void FBG_BOUNDS(STORE)
+fbe_forward_grid_kernel(const float* __restrict__ E, const float* __restrict__ u,
+                        const float* __restrict__ alpha0, float* __restrict__ alphas,
+                        float* __restrict__ c_fwd, float* __restrict__ scratch, int N, int P,
+                        FbgLayout l) {
+    constexpr int D = FBG_RING;
+    const int G = l.ctas, b = blockIdx.x / G, rank = blockIdx.x - b * G, t = threadIdx.x;
+    const int i0 = (int)((long long)rank * P / G);
+    const int rows = (int)((long long)(rank + 1) * P / G) - i0;
+    const size_t PP = (size_t)P * P, band = (size_t)i0 * P, L = (size_t)rows * P;
+    const FbgChain ch = fbg_chain(scratch, b, rank, P, l, false);
+    const FbgMem m = fbg_mem(P, l, ch.part);
+    const GridCells c(P, rows, l);
+    const float uniform = 1.0f / (float)PP, row_uniform = (float)P * uniform;
+    const float* e_b = E + (size_t)b * N * PP + band;
+    const float* u_b = u + (size_t)b * N * 3;
+    const float* a0 = alpha0 + (size_t)b * PP + band;
+    float* alpha_b = alphas + (size_t)b * N * PP + band;
+
+    // column `col`'s band into its ring slot (registers), or into L2
+    auto fetch = [&](int col, int slot) {
+        if (STORE == FBG_REG)
+            fetch_column(m.ring + slot * m.slot, e_b + (size_t)col * PP, (int)L);
+        else
+            fbg_prefetch(e_b + (size_t)col * PP, L);
+    };
+    if (STORE == FBG_REG)
+        for (int j = 0; j < D; ++j) {                     // columns 0 .. D-1
+            if (j < N) fetch(j, j);
+            cp_async_commit();
+        }
+    else
+        fetch(0, 0);
+    // a: the carry in registers, unnormalized (alpha_{n-1} = a * inv); in
+    // memory: shared (st) or K3's own alphas (column n-1 until column n)
+    float a[RW > 0 ? RW : 1][NCM];
+    float* st = m.state;
+    // step 0: the entry carry's sums (it mixes as it is); column 0 arrives
+    if constexpr (STORE == FBG_REG) {
+        fbg_pass_reg<RW, NCM>(c, l, m, [&](int r, int k, bool ok, int i, int, int) {
+            a[r][k] = ok ? a0[i] : 0.f;
+            return a[r][k];
+        });
+    } else {
+        fbg_pass_mem(c, l, m, [&](size_t i) { return FbgLoad{a0[i], 0.f, 0.f}; },
+                     [&](const FbgLoad& v, size_t i, int, int) {
+                         if (STORE == FBG_SMEM) st[i] = v.x;
+                         return v.x;
+                     });
+    }
+    fbg_step(m, l, ch, P, rows, rank, 0, [] {});
+    float H = m.col[P], inv = 1.f;
+    bool uni = false;                  // the carry is the uniform state
+    float u0 = u_b[0], u1 = u_b[1], u2 = u_b[2];
+    int slot = 0;
+
     for (int n = 0; n < N; ++n) {
-        // column n reads the sums of pass n (buffer n & 1), writes pass n+1's
-        const int rd = n & 1, wr = rd ^ 1;
-        const float u0 = u_b[3 * n], u1 = u_b[3 * n + 1], hh = u_b[3 * n + 2] * H;
-        const float* Rp = R + rd * P;
-        const float* Cp = C + rd * P;
-        const float* src = n == 0 ? a0 : alpha_b + (size_t)(n - 1) * PP;
+        // the next column's mix, a column ahead
+        const int nn = n + 1 < N ? n + 1 : n;
+        const float nu0 = u_b[3 * nn], nu1 = u_b[3 * nn + 1], nu2 = u_b[3 * nn + 2];
+        const float hh = u2 * H;
         float* prev = alpha_b + (size_t)(n > 0 ? n - 1 : 0) * PP;
-        float* col = alpha_b + (size_t)n * PP;
-        const float* e = e_b + (size_t)n * PP;
-        wide_pass(P, [&](size_t c, int i, int j) {
-            const float x = uni ? uniform : src[c];
-            if (n > 0) prev[c] = uni ? uniform : x * inv;         // alpha_{n-1}
-            const float rs = uni ? row_uniform : Rp[i];
-            const float cs = uni ? row_uniform : Cp[j];
-            const float v = inv * (u0 * x + u1 * (rs + cs) + hh) * e[c];
-            col[c] = v;                                           // unnormalized
-            return v;
-        }, R + wr * P, C + wr * P, wt + 32 * wr);
-        const float tot = warps_total(wt + 32 * wr);
-        if (t == 0) c_fwd[(size_t)b * N + n] = tot > 0.f ? tot : 1.f;
+        if constexpr (STORE == FBG_REG) {
+            const float* e = m.ring + slot * m.slot + misalign(e_b + (size_t)n * PP);
+            fbg_pass_reg<RW, NCM>(c, l, m, [&](int r, int k, bool ok, int i, int row,
+                                               int j) {
+                const float x = uni ? uniform : a[r][k];
+                if (n > 0 && ok) prev[i] = x * inv;          // alpha_{n-1}
+                const float rs = uni ? row_uniform : (ok ? m.rsum[row] : 0.f);
+                const float ck = uni ? row_uniform : (ok ? m.col[j] : 0.f);
+                const float ev = ok ? e[i] : 0.f;
+                a[r][k] = inv * (u0 * x + u1 * (rs + ck) + hh) * ev;
+                return a[r][k];
+            });
+        } else {
+            const float* e = e_b + (size_t)n * PP;
+            const float* src = STORE == FBG_SMEM ? st : n == 0 ? a0 : prev;
+            float* dst = STORE == FBG_SMEM ? st : alpha_b + (size_t)n * PP;
+            fbg_pass_mem(c, l, m, [&](size_t i) { return FbgLoad{src[i], e[i], 0.f}; },
+                         [&](const FbgLoad& v, size_t i, int row, int j) {
+                             const float x = uni ? uniform : v.x;
+                             if (n > 0) prev[i] = x * inv;     // alpha_{n-1}
+                             const float rs = uni ? row_uniform : m.rsum[row];
+                             const float ck = uni ? row_uniform : m.col[j];
+                             const float y = inv * (u0 * x + u1 * (rs + ck) + hh) * v.y;
+                             dst[i] = y;
+                             return y;
+                         });
+        }
+        // every thread is done with the slot once the partials are
+        // published: column n + D takes it (outside registers: column n +
+        // 1 into L2)
+        fbg_step(m, l, ch, P, rows, rank, (unsigned)n + 1, [&] {
+            if (STORE == FBG_REG ? n + D < N : n + 1 < N)
+                fetch(STORE == FBG_REG ? n + D : n + 1, slot);
+        });
+        slot = slot + 1 == D ? 0 : slot + 1;
+        const float tot = m.col[P];
+        if (rank == 0 && t == 0) c_fwd[(size_t)b * N + n] = tot > 0.f ? tot : 1.f;
         uni = !(tot > 0.f);
         inv = uni ? 1.f : 1.f / tot;
         H = uni ? 1.f : tot;
+        u0 = nu0;
+        u1 = nu1;
+        u2 = nu2;
     }
     float* last_col = alpha_b + (size_t)(N - 1) * PP;
-    for (size_t c = t; c < PP; c += blockDim.x)
-        last_col[c] = uni ? uniform : last_col[c] * inv;
+    if constexpr (STORE == FBG_REG) {
+#pragma unroll
+        for (int r = 0; r < RW; ++r)
+#pragma unroll
+            for (int k = 0; k < NCM; ++k)
+                if (c.row(r) < rows && c.col(k) < P)
+                    last_col[(size_t)c.row(r) * P + c.col(k)] = (uni ? uniform : a[r][k]) * inv;
+    } else {
+        const float* src = STORE == FBG_SMEM ? st : last_col;
+        for (int r = 0; r < l.rw && c.row(r) < rows; ++r)
+            for (int k = 0; k < l.ncm && c.col(k) < P; ++k) {
+                const size_t i = (size_t)c.row(r) * P + c.col(k);
+                last_col[i] = (uni ? uniform : src[i]) * inv;
+            }
+    }
+    cp_async_wait<0>();
 }
 
-__global__ void __launch_bounds__(32 * FBE_WIDE_WARPS, 1)
-fbe_backward_wide_kernel(const float* __restrict__ alphas, const float* __restrict__ c_fwd,
+template <int RW, int NCM, int STORE>
+__global__ void FBG_BOUNDS(STORE)
+fbe_backward_grid_kernel(const float* __restrict__ alphas, const float* __restrict__ c_fwd,
                          const float* __restrict__ E, const float* __restrict__ u,
-                         const float* __restrict__ e_after,
-                         const float* __restrict__ u_after, const int* __restrict__ is_last,
-                         const float* __restrict__ beta0, float* __restrict__ posts,
-                         float* __restrict__ beta_out, float* __restrict__ scratch, int N,
-                         int P) {
-    const size_t PP = (size_t)P * P;
-    const int b = blockIdx.x, t = threadIdx.x;
+                         const float* __restrict__ e_after, const float* __restrict__ u_after,
+                         const int* __restrict__ is_last, const float* __restrict__ beta0,
+                         float* __restrict__ posts, float* __restrict__ beta_out,
+                         float* __restrict__ scratch, int N, int P, FbgLayout l) {
+    constexpr int D = FBG_RING;
+    const int G = l.ctas, b = blockIdx.x / G, rank = blockIdx.x - b * G;
+    const int i0 = (int)((long long)rank * P / G);
+    const int rows = (int)((long long)(rank + 1) * P / G) - i0;
+    const size_t PP = (size_t)P * P, band = (size_t)i0 * P, L = (size_t)rows * P;
+    const FbgChain ch = fbg_chain(scratch, b, rank, P, l, true);
+    const FbgMem m = fbg_mem(P, l, ch.part);
+    const GridCells c(P, rows, l);
     const float uniform = 1.0f / (float)PP;
-    const float* e_b = E + (size_t)b * N * PP;
+    const float* e_b = E + (size_t)b * N * PP + band;
     const float* u_b = u + (size_t)b * N * 3;
-    const float* alpha_b = alphas + (size_t)b * N * PP;
-    const float* b0 = beta0 + (size_t)b * PP;
-    const float* ea = e_after + (size_t)b * PP;
-    float* post_b = posts + (size_t)b * N * PP;
-    float* bo = beta_out + (size_t)b * PP;
-    float* R = scratch + (size_t)b * (4 * P + PP);     // [2, P] row sums
-    float* C = R + 2 * P;                              // [2, P] column sums
-    float* G = R + 4 * P;                              // [P, P] the helper g
-    float* wt = fbe_shm + FBE_WIDE_WARPS * FBE_WIDE_TILE;   // [2, 32] totals of g
+    const float* alpha_b = alphas + (size_t)b * N * PP + band;
+    const float* cf_b = c_fwd + (size_t)b * N;
+    const int* last_b = is_last + (size_t)b * N;
+    float* post_b = posts + (size_t)b * N * PP + band;
+    float* bo = beta_out + (size_t)b * PP + band;
+    const float* b0 = beta0 + (size_t)b * PP + band;
+    const float* ea = e_after + (size_t)b * PP + band;
 
-    // pass 0: the helper of the column after the chunk, beta0 * e_after
-    wide_pass(P, [&](size_t c, int, int) {
-        const float v = b0[c] * ea[c];
-        G[c] = v;
-        return v;
-    }, R, C, wt);
-    float H = warps_total(wt);                          // beta0 is normalized
+    // column `col`'s E band into its ring slot (registers), or it and its
+    // alpha into L2
+    auto fetch = [&](int col, int slot) {
+        if (STORE == FBG_REG) {
+            fetch_column(m.ring + slot * m.slot, e_b + (size_t)col * PP, (int)L);
+        } else {
+            fbg_prefetch(e_b + (size_t)col * PP, L);
+            fbg_prefetch(alpha_b + (size_t)col * PP, L);
+        }
+    };
+    if (STORE == FBG_REG)
+        for (int j = 0; j < D; ++j) {                     // columns N-1 .. N-D
+            if (j < N) fetch(N - 1 - j, j);
+            cp_async_commit();
+        }
+    else
+        fetch(N - 1, 0);
+    // g: the helper of the column ahead (its beta times its E), in
+    // registers or in memory (shared, or the chain's [P, P] scratch); a:
+    // in registers, alpha of the column being computed, loaded a column
+    // ahead
+    float g[RW > 0 ? RW : 1][NCM], a[RW > 0 ? RW : 1][NCM];
+    float* gs = STORE == FBG_SMEM ? m.state : ch.state + band;
+    // step 0: the helper of the column after the chunk; column N-1 arrives
+    if constexpr (STORE == FBG_REG) {
+        fbg_pass_reg<RW, NCM>(c, l, m, [&](int r, int k, bool ok, int i, int, int) {
+            g[r][k] = ok ? b0[i] * ea[i] : 0.f;
+            a[r][k] = ok ? alpha_b[(size_t)(N - 1) * PP + i] : 0.f;
+            return g[r][k];
+        });
+    } else {
+        fbg_pass_mem(c, l, m, [&](size_t i) { return FbgLoad{b0[i], ea[i], 0.f}; },
+                     [&](const FbgLoad& v, size_t i, int, int) {
+                         const float y = v.x * v.y;
+                         gs[i] = y;
+                         return y;
+                     });
+    }
+    fbg_step(m, l, ch, P, rows, rank, 0, [] {});
+    float H = m.col[P];                                  // beta0 is normalized
     float u0 = u_after[(size_t)b * 3], u1 = u_after[(size_t)b * 3 + 1],
           u2 = u_after[(size_t)b * 3 + 2];
-    BwdScale ks;
-    for (int n = N - 1, pass = 1; n >= 0; --n, ++pass) {
-        // pass reads the sums of pass - 1
-        const int rd = (pass - 1) & 1, wr = pass & 1;
-        const float* Rp = R + rd * P;
-        const float* Cp = C + rd * P;
-        // is_last re-seeds the sweep with ones (src/hmm.cpp:321-324)
-        const bool last = is_last[(size_t)b * N + n] != 0;
+    float cf = cf_b[N - 1];
+    bool last = last_b[N - 1] != 0;
+    int slot = 0;
+
+    for (int n = N - 1; n >= 0; --n) {
         // the total of cur, known before it (fbe_total), and beta = cur / s
-        ks = fbe_bwd_scale(last, H, u0, u1, u2, P, c_fwd[(size_t)b * N + n], uniform);
-        const float* a_n = alpha_b + (size_t)n * PP;
-        const float* e_n = e_b + (size_t)n * PP;
-        float* p_n = post_b + (size_t)n * PP;
-        wide_pass(P, [&](size_t c, int i, int j) {
-            // cur * sc (BwdScale)
-            const float cur = last ? 1.f : ks.u0s * G[c] + ks.u1s * (Rp[i] + Cp[j]) + ks.hs;
-            p_n[c] = a_n[c] * cur * ks.cfs;    // the raw posterior takes the raw cur
-            if (n == 0) bo[c] = cur;
-            const float g = cur * ks.inv * e_n[c];
-            G[c] = g;
-            return g;
-        }, R + wr * P, C + wr * P, wt + 32 * wr);
-        H = warps_total(wt + 32 * wr);
-        // column n's u is its predecessor's successor mix
-        u0 = u_b[3 * n];
-        u1 = u_b[3 * n + 1];
-        u2 = u_b[3 * n + 2];
+        const BwdScale ks = fbe_bwd_scale(last, H, u0, u1, u2, P, cf, uniform);
+        // column n's u is its predecessor's successor mix; the
+        // predecessor's c_fwd and is_last, a column ahead
+        const int np = n > 0 ? n - 1 : 0;
+        const float nu0 = u_b[3 * n], nu1 = u_b[3 * n + 1], nu2 = u_b[3 * n + 2];
+        const float ncf = cf_b[np];
+        const int nlast = last_b[np];
+        float* post = post_b + (size_t)n * PP;
+        if constexpr (STORE == FBG_REG) {
+            const float* e = m.ring + slot * m.slot + misalign(e_b + (size_t)n * PP);
+            const float* a_next = alpha_b + (size_t)np * PP;
+            fbg_pass_reg<RW, NCM>(c, l, m, [&](int r, int k, bool ok, int i, int row,
+                                               int j) {
+                const float rs = ok ? m.rsum[row] : 0.f, ck = ok ? m.col[j] : 0.f;
+                // is_last re-seeds the sweep with ones (src/hmm.cpp:321-324);
+                // cur * sc (BwdScale)
+                float cur = last ? 1.f : ks.u0s * g[r][k] + ks.u1s * (rs + ck) + ks.hs;
+                cur = ok ? cur : 0.f;
+                // the raw posterior takes the un-normalized cur
+                if (ok) post[i] = a[r][k] * cur * ks.cfs;
+                // the normalized beta after the chunk's first column
+                if (n == 0 && ok) bo[i] = cur * ks.inv;
+                a[r][k] = n > 0 && ok ? a_next[i] : 0.f;
+                g[r][k] = cur * ks.inv * (ok ? e[i] : 0.f);
+                return g[r][k];
+            });
+        } else {
+            const float* e = e_b + (size_t)n * PP;
+            const float* a_n = alpha_b + (size_t)n * PP;
+            fbg_pass_mem(c, l, m, [&](size_t i) { return FbgLoad{gs[i], a_n[i], e[i]}; },
+                         [&](const FbgLoad& v, size_t i, int row, int j) {
+                             const float cur = last ? 1.f
+                                 : ks.u0s * v.x + ks.u1s * (m.rsum[row] + m.col[j]) + ks.hs;
+                             post[i] = v.y * cur * ks.cfs;
+                             if (n == 0) bo[i] = cur * ks.inv;
+                             const float y = cur * ks.inv * v.z;
+                             gs[i] = y;
+                             return y;
+                         });
+        }
+        fbg_step(m, l, ch, P, rows, rank, (unsigned)(N - n), [&] {
+            if (STORE == FBG_REG ? n - D >= 0 : n > 0)
+                fetch(STORE == FBG_REG ? n - D : n - 1, slot);
+        });
+        slot = slot + 1 == D ? 0 : slot + 1;
+        H = m.col[P];
+        u0 = nu0;
+        u1 = nu1;
+        u2 = nu2;
+        cf = ncf;
+        last = nlast != 0;
     }
-    // the normalized beta after the chunk's first column
-    for (size_t c = t; c < PP; c += blockDim.x) bo[c] = bo[c] * ks.inv;
+    cp_async_wait<0>();
 }
 
 // ---- K2 at P <= 32 (and A <= 8): one warp per chain ----
@@ -1729,6 +2203,32 @@ static int launch(Kernel kernel, int B, int threads, size_t smem, void* stream,
     return (int)cudaGetLastError();
 }
 
+// A launch by cudaLaunchKernelEx of `config`; the cudaError_t.
+template <typename... Params, typename... Args>
+static int launch_ex(void (*kernel)(Params...), const cudaLaunchConfig_t& config,
+                     Args... args) {
+    int err = (int)cudaLaunchKernelEx(&config, kernel, args...);
+    if (err) return err;
+    return (int)cudaGetLastError();
+}
+
+// The configuration of `blocks` CTAs of `threads` threads and `smem`
+// dynamic shared bytes on `stream`, with the attribute `attr` (none
+// where null).
+static cudaLaunchConfig_t launch_config(int blocks, int threads, size_t smem, void* stream,
+                                        cudaLaunchAttribute* attr) {
+    cudaLaunchConfig_t config = {};
+    config.gridDim.x = blocks;
+    config.gridDim.y = config.gridDim.z = 1;
+    config.blockDim.x = threads;
+    config.blockDim.y = config.blockDim.z = 1;
+    config.dynamicSmemBytes = smem;
+    config.stream = (cudaStream_t)stream;
+    config.attrs = attr;
+    config.numAttrs = attr ? 1 : 0;
+    return config;
+}
+
 // A cluster launch of `blocks` CTAs in clusters of `ranks`, once it has
 // opted in to `smem` bytes and cudaOccupancyMaxActiveClusters says one
 // such cluster fits the card; else cudaErrorLaunchOutOfResources, and
@@ -1741,15 +2241,7 @@ static int launch_cluster(void (*kernel)(Params...), int blocks, int ranks, int 
     attr[0].val.clusterDim.x = ranks;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
-    cudaLaunchConfig_t config = {};
-    config.gridDim.x = blocks;
-    config.gridDim.y = config.gridDim.z = 1;
-    config.blockDim.x = threads;
-    config.blockDim.y = config.blockDim.z = 1;
-    config.dynamicSmemBytes = smem;
-    config.stream = (cudaStream_t)stream;
-    config.attrs = attr;
-    config.numAttrs = 1;
+    const cudaLaunchConfig_t config = launch_config(blocks, threads, smem, stream, attr);
     int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                         (int)smem);
     if (!err && ranks > 8)
@@ -1763,26 +2255,75 @@ static int launch_cluster(void (*kernel)(Params...), int blocks, int ranks, int 
         return 0;
     }
     if (clusters < 1) return (int)cudaErrorLaunchOutOfResources;
-    err = (int)cudaLaunchKernelEx(&config, kernel, args...);
+    return launch_ex(kernel, config, args...);
+}
+
+// The grid tier's launch of B chains of `ctas` CTAs: cooperative where a
+// chain has more than one CTA, so that a grid the card cannot hold at
+// once is refused (cudaErrorCooperativeLaunchTooLarge) instead of
+// waiting forever on CTAs that never start.
+template <typename... Params, typename... Args>
+static int launch_grid(void (*kernel)(Params...), int B, int ctas, int threads, size_t smem,
+                       void* stream, Args... args) {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+    int err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        (int)smem);
     if (err) return err;
-    return (int)cudaGetLastError();
+    return launch_ex(kernel, launch_config(B * ctas, threads, smem, stream,
+                                           ctas > 1 ? attr : nullptr), args...);
+}
+
+// The CTAs the card holds at once for the grid tier into `capacity`
+// (FBE_GRID_SMS where a build sets it): the SMs x
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor of an instance at 1024
+// threads and a block's whole shared memory (one an SM; every instance
+// takes at most that), read once.
+static int fbe_grid_capacity(int* capacity) {
+    static int known = -1;
+    if (FBE_GRID_SMS > 0) known = FBE_GRID_SMS;
+    if (known < 0) {
+        void (*kernel)(const float*, const float*, const float*, const float*, const float*,
+                       const float*, const int*, const float*, float*, float*, float*, int,
+                       int, FbgLayout) = fbe_backward_grid_kernel<0, 1, FBG_GLOBAL>;
+        int dev = 0, sms = 0, per_sm = 0;
+        int err = (int)cudaGetDevice(&dev);
+        if (!err) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (!err)
+            err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                            FBE_SMEM_BYTES);
+        if (!err)
+            err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, kernel, 32 * FBG_WARPS, FBE_SMEM_BYTES);
+        if (err) return err;
+        known = sms * per_sm;
+    }
+    *capacity = known;
+    return 0;
 }
 
 // K3/K4's launch for B chains of P paths (fb_kernels.generic_launch
 // mirrors it): up to FB_MAX_PATHS one CTA of FBE_WARPS warps and
 // fbe_smem bytes; then the cluster tier's layout (fbe_cluster_layout,
-// fbc_smem; no scratch); beyond it one CTA of the wide tier's
-// FBE_WIDE_WARPS warps and fbe_wide_smem bytes, and its scratch.
+// fbc_smem; no scratch); beyond it the grid tier's (fbg_layout,
+// fbg_smem, and its scratch). No CTAs where the grid tier takes none.
 struct FbeLaunch {
-    bool cluster;
+    bool grid;
     int ranks, threads;
     size_t smem;
 };
 
 static FbeLaunch fbe_launch(int P, int B) {
-    FbcLayout l;
-    if (fbe_cluster_layout(P, B, l)) return {true, l.ranks, 32 * l.warps, fbc_smem(P, l)};
-    if (P > FB_MAX_PATHS) return {false, 1, 32 * FBE_WIDE_WARPS, fbe_wide_smem()};
+    FbcLayout c;
+    if (fbe_cluster_layout(P, B, c)) return {false, c.ranks, 32 * c.warps, fbc_smem(P, c)};
+    if (P > FB_MAX_PATHS) {
+        FbgLayout g;
+        int capacity = 0;
+        if (fbe_grid_capacity(&capacity) || !fbg_layout(P, B, capacity, g))
+            return {true, 0, 0, 0};
+        return {true, g.ctas, 32 * g.groups * g.segs, (size_t)fbg_smem(P, g)};
+    }
     return {false, 1, 32 * FBE_WARPS, fbe_smem(P)};
 }
 
@@ -1790,8 +2331,8 @@ static bool fbe_config_ok(int P, int B, int ranks, int threads, int smem,
                           const float* scratch) {
     if (P < 1 || B < 1) return false;
     const FbeLaunch want = fbe_launch(P, B);
-    return ranks == want.ranks && threads == want.threads && (size_t)smem == want.smem
-        && (P <= FB_MAX_PATHS || want.cluster || scratch != nullptr);
+    return want.ranks > 0 && ranks == want.ranks && threads == want.threads
+        && (size_t)smem == want.smem && (!want.grid || scratch != nullptr);
 }
 
 // (RW, NCM) of every cluster-tier instance: rows a warp and column slots
@@ -1826,6 +2367,52 @@ static int fbe_backward_cluster(const FbcLayout& l, int* fits, const float* alph
                               e_after, u_after, is_last, beta0, posts, beta_out, N, P, l.ranks);
     FBC_INSTANCES(FBC_BACKWARD)
 #undef FBC_BACKWARD
+    return (int)cudaErrorInvalidValue;
+}
+
+// (RW, NCM) of every grid-tier instance with the state in registers: at
+// most FBG_CELLS cells a thread at NCM = 4, 8 or 16
+#define FBG_INSTANCES(X)                                                                \
+    X(1, 4) X(2, 4) X(3, 4) X(4, 4) X(5, 4) X(6, 4) X(7, 4) X(8, 4) X(1, 8) X(2, 8) X(3, 8) \
+    X(4, 8) X(1, 16) X(2, 16)
+
+// The grid tier's K3 and K4 for B chains of P paths in the layout l.
+static int fbe_forward_grid(const FbgLayout& l, const float* E, const float* u,
+                            const float* alpha0, float* alphas, float* c_fwd, float* scratch,
+                            int B, int N, int P, void* stream) {
+    const int threads = 32 * l.groups * l.segs;
+    const size_t smem = (size_t)fbg_smem(P, l);
+#define FBG_FORWARD(RW, NCM, STORE)                                                   \
+    return launch_grid(fbe_forward_grid_kernel<RW, NCM, STORE>, B, l.ctas, threads, smem, \
+                       stream, E, u, alpha0, alphas, c_fwd, scratch, N, P, l);
+#define FBG_FORWARD_REG(RW, NCM) \
+    if (l.store == FBG_REG && l.rw == RW && l.ncm == NCM) FBG_FORWARD(RW, NCM, FBG_REG)
+    FBG_INSTANCES(FBG_FORWARD_REG)
+    if (l.store == FBG_SMEM) FBG_FORWARD(0, 1, FBG_SMEM)
+    if (l.store == FBG_GLOBAL) FBG_FORWARD(0, 1, FBG_GLOBAL)
+#undef FBG_FORWARD_REG
+#undef FBG_FORWARD
+    return (int)cudaErrorInvalidValue;
+}
+
+static int fbe_backward_grid(const FbgLayout& l, const float* alphas, const float* c_fwd,
+                             const float* E, const float* u, const float* e_after,
+                             const float* u_after, const int* is_last, const float* beta0,
+                             float* posts, float* beta_out, float* scratch, int B, int N, int P,
+                             void* stream) {
+    const int threads = 32 * l.groups * l.segs;
+    const size_t smem = (size_t)fbg_smem(P, l);
+#define FBG_BACKWARD(RW, NCM, STORE)                                                      \
+    return launch_grid(fbe_backward_grid_kernel<RW, NCM, STORE>, B, l.ctas, threads, smem,  \
+                       stream, alphas, c_fwd, E, u, e_after, u_after, is_last, beta0, posts, \
+                       beta_out, scratch, N, P, l);
+#define FBG_BACKWARD_REG(RW, NCM) \
+    if (l.store == FBG_REG && l.rw == RW && l.ncm == NCM) FBG_BACKWARD(RW, NCM, FBG_REG)
+    FBG_INSTANCES(FBG_BACKWARD_REG)
+    if (l.store == FBG_SMEM) FBG_BACKWARD(0, 1, FBG_SMEM)
+    if (l.store == FBG_GLOBAL) FBG_BACKWARD(0, 1, FBG_GLOBAL)
+#undef FBG_BACKWARD_REG
+#undef FBG_BACKWARD
     return (int)cudaErrorInvalidValue;
 }
 
@@ -1886,9 +2473,10 @@ extern "C" int pg_fbe_forward(const float* E, const float* u, const float* alpha
     FbcLayout l;
     if (fbe_cluster_layout(P, B, l))
         return fbe_forward_cluster(l, nullptr, E, u, alpha0, alphas, c_fwd, B, N, P, stream);
-    if (P > FB_MAX_PATHS)
-        return launch(fbe_forward_wide_kernel, B, threads, smem, stream,
-                      E, u, alpha0, alphas, c_fwd, scratch, N, P);
+    FbgLayout g;
+    int capacity = 0;
+    if (P > FB_MAX_PATHS && !fbe_grid_capacity(&capacity) && fbg_layout(P, B, capacity, g))
+        return fbe_forward_grid(g, E, u, alpha0, alphas, c_fwd, scratch, B, N, P, stream);
     const int RW = (P + FBE_WARPS - 1) / FBE_WARPS, NC = (P + 31) / 32;
 #define FBE_FORWARD(rw, nc)                                                \
     if (RW == rw && NC == nc)                                              \
@@ -1910,10 +2498,11 @@ extern "C" int pg_fbe_backward(const float* alphas, const float* c_fwd,
     if (fbe_cluster_layout(P, B, l))
         return fbe_backward_cluster(l, nullptr, alphas, c_fwd, E, u, e_after, u_after, is_last,
                                     beta0, posts, beta_out, B, N, P, stream);
-    if (P > FB_MAX_PATHS)
-        return launch(fbe_backward_wide_kernel, B, threads, smem, stream,
-                      alphas, c_fwd, E, u, e_after, u_after, is_last, beta0, posts,
-                      beta_out, scratch, N, P);
+    FbgLayout g;
+    int capacity = 0;
+    if (P > FB_MAX_PATHS && !fbe_grid_capacity(&capacity) && fbg_layout(P, B, capacity, g))
+        return fbe_backward_grid(g, alphas, c_fwd, E, u, e_after, u_after, is_last, beta0,
+                                 posts, beta_out, scratch, B, N, P, stream);
     const int RW = (P + FBE_WARPS - 1) / FBE_WARPS, NC = (P + 31) / 32;
 #define FBE_BACKWARD(rw, nc)                                                    \
     if (RW == rw && NC == nc)                                                   \
@@ -1947,4 +2536,23 @@ extern "C" void pg_fbe_launch(int P, int B, int* out) {
     out[0] = l.ranks;
     out[1] = l.threads;
     out[2] = (int)l.smem;
+}
+
+// The CTAs the card holds at once for the grid tier, into `capacity`;
+// the cudaError_t of the reading.
+extern "C" int pg_fbe_grid_capacity(int* capacity) { return fbe_grid_capacity(capacity); }
+
+// The grid tier's layout for B chains of P paths where the card holds
+// `capacity` CTAs at once, into out[0..9]: CTAs a chain, the most rows a
+// band has, row groups, segments, column slots a lane, rows a warp,
+// where the state lives (0 registers, 1 shared, 2 global memory), hops
+// of the merge, partials in global memory, shared bytes. 0 where P does
+// not take the grid tier (at or under 128 paths, or no layout), else 1.
+extern "C" int pg_fbe_grid_layout(int P, int B, int capacity, int* out) {
+    FbgLayout l;
+    if (!fbg_layout(P, B, capacity, l)) return 0;
+    const int fields[10] = {l.ctas, l.rows, l.groups, l.segs, l.ncm, l.rw,
+                            l.store, l.hops, l.gpart, (int)fbg_smem(P, l)};
+    for (int i = 0; i < 10; ++i) out[i] = fields[i];
+    return 1;
 }

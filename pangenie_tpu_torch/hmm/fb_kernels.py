@@ -7,15 +7,17 @@ On CPU tensors each wrapper runs its plain torch version
 ``forward_e_plain`` / ``backward_e_plain`` in ``fb_generic.py``); on
 CUDA tensors it launches the kernel or raises — there is no fallback
 from the card to the plain version. The wrappers check device, dtype,
-shape and contiguity and allocate the outputs and the wide tier's
+shape and contiguity and allocate the outputs and the grid tier's
 scratch; the kernels allocate nothing.
 
 K1/K2 take at most ``MAX_PATHS`` paths; ``batch.use_generic`` sends
-every batch with more to K3/K4, which take any P: up to ``MAX_PATHS``
-with the [P, P] state in one CTA's registers, then in the registers of
-a thread-block cluster of CTAs a chain (``cluster_layout``, up to 471
-paths), beyond it on the wide tier, whose state lives in global memory
-(``wide_scratch``).
+every batch with more to K3/K4: up to ``MAX_PATHS`` with the [P, P]
+state in one CTA's registers, then in the registers of a thread-block
+cluster of CTAs a chain (``cluster_layout``, up to 471 paths), beyond it
+on the grid tier (``grid_layout``): a cooperative launch of up to every
+SM the card holds a CTA on, divided among the chains, each CTA a band of
+rows with its state in registers, shared or global memory, the column
+sums merged through L2 (``grid_scratch``), up to some 58,000 paths.
 """
 
 from __future__ import annotations
@@ -69,11 +71,24 @@ CLUSTER_CELLS = 16
 CLUSTER_WARPS = 32
 CLUSTER_RING = 2
 SMS = 112
-# K3/K4's wide tier (past the cluster tier, FBE_WIDE_* in csrc/fb.cu):
-# 32 warps own the rows, and the columns go through in tiles of
-# WIDE_TILE, each lane holding WIDE_TILE / 32 of a row
-WIDE_WARPS = 32
-WIDE_TILE = 256
+# K3/K4's grid tier (past the cluster tier, FBG_* and FBE_GRID_* in
+# csrc/fb.cu): at most GRID_WARPS warps a CTA, GRID_REG_WARPS of at most
+# GRID_CELLS cells a thread with the state in registers, an E ring of
+# GRID_RING slots there; one hop of the merge
+# where a rank reads at most GRID_ONE_HOP floats of messages. GRID_SMS
+# is the source's FBE_GRID_SMS: the CTAs the card holds at once, 0 to ask
+# the card (grid_capacity); a library built with another, as the
+# emulated tests and tools/fbe_times.py build them, is driven with this
+# set to match, as is GRID_ONLY (FBE_GRID_ONLY: no cluster tier)
+GRID_WARPS = 32
+GRID_REG_WARPS = 16
+GRID_CELLS = 32
+GRID_RING = 2
+GRID_ONE_HOP = 34_000
+GRID_SMS = 0
+GRID_ONLY = False
+# where the grid tier keeps a band's state (FBG_REG, FBG_SMEM, FBG_GLOBAL)
+STORES = ("registers", "shared", "global")
 
 
 class ClusterLayout(NamedTuple):
@@ -113,8 +128,8 @@ def cluster_layout(P: int, B: int) -> Optional[ClusterLayout]:
     past MAX_PATHS, CLUSTER_RANKS CTAs a chain, halved while the chains'
     CTAs outnumber the SMS the card holds in clusters at once, never
     below the fewest (a power of two) whose band fits; None where not
-    even MAX_RANKS hold P."""
-    if P <= MAX_PATHS:
+    even MAX_RANKS hold P, and with GRID_ONLY."""
+    if P <= MAX_PATHS or GRID_ONLY:
         return None
     least = 1
     while least <= MAX_RANKS and _cluster_fit(P, least) is None:
@@ -127,20 +142,131 @@ def cluster_layout(P: int, B: int) -> Optional[ClusterLayout]:
     return _cluster_fit(P, k)
 
 
-def generic_launch(P: int, B: int):
+class GridLayout(NamedTuple):
+    """The grid tier's layout: CTAs a chain, the most rows a band has,
+    row groups and segments a row (their product the warps of a CTA),
+    column slots a lane, rows a warp, where the state lives (an index of
+    STORES), hops of the merge (0 at one CTA), whether the partials live
+    in global memory, shared bytes."""
+    ctas: int
+    rows: int
+    groups: int
+    segments: int
+    columns_per_lane: int
+    rows_per_warp: int
+    store: int
+    hops: int
+    global_partials: int
+    smem: int
+
+
+def _round4(x: int) -> int:
+    return (x + 3) // 4 * 4
+
+
+def _grid_floats(P: int, rows: int, groups: int, segments: int):
+    """(floats of a message, of a rank's partials): P column partials and
+    the total in float4s; the row groups' column partials, the row
+    partials of every segment and the row sums (fbg_part_floats)."""
+    msg = (P + 4) // 4 * 4
+    return msg, groups * msg + _round4(segments * rows) + _round4(rows)
+
+
+def grid_layout(P: int, B: int, capacity: int) -> Optional[GridLayout]:
+    """The grid tier's layout for B chains of P paths where the card
+    holds ``capacity`` CTAs at once (mirrors fbg_layout and fbg_smem in
+    csrc/fb.cu): G = capacity // B CTAs a chain (1 to P), bands of at
+    most ceil(P / G) rows; the state in registers where some number of
+    row groups Q (1 to GRID_REG_WARPS, at most the rows) gives at most
+    GRID_CELLS cells a thread at 4, 8 or 16 column slots a lane, else in
+    shared memory, else in global memory (Q up to GRID_WARPS); within a
+    place the fewest cells a thread, then rows a warp, then warps. Q sets
+    the slots: the fewest with which (warps // Q) segments span P. Shared
+    memory: the column sums, 32 warp totals, the partials (unless in
+    global memory, where they do not fit), and the E ring of GRID_RING
+    bands at any 16-byte misalignment (registers) or the band (shared
+    memory). None at or under MAX_PATHS paths, or where not even the
+    column sums fit."""
+    if P <= MAX_PATHS or B < 1:
+        return None
+    G = min(P, max(1, capacity // B))
+    rows = -(-P // G)
+    hops = 0 if G == 1 else 1 if G * (P + 1) <= GRID_ONE_HOP else 2
+    for store in range(len(STORES)):
+        best = None
+        warps = GRID_REG_WARPS if store == 0 else GRID_WARPS
+        for groups in range(1, min(warps, rows) + 1):
+            per_lane = -(-P // (32 * (warps // groups)))
+            if store == 0:
+                per_lane = next((k for k in (4, 8, 16) if per_lane <= k), 0)
+                if not per_lane:
+                    continue
+            segments = -(-P // (32 * per_lane))
+            per_warp = -(-rows // groups)
+            if store == 0 and per_warp * per_lane > GRID_CELLS:
+                continue
+            msg, part = _grid_floats(P, rows, groups, segments)
+            held = (GRID_RING * ((rows * P + 6) // 4 * 4) if store == 0
+                    else _round4(rows * P) if store == 1 else 0)
+            gpart = int(store == 2 and 4 * (msg + 32 + part) > SMEM_BYTES)
+            smem = 4 * (msg + 32 + (0 if gpart else part) + held)
+            if smem > SMEM_BYTES:
+                continue
+            key = (per_warp * per_lane, per_warp, groups * segments)
+            if best is None or key < best[0]:
+                best = (key, GridLayout(G, rows, groups, segments, per_lane, per_warp, store,
+                                        hops, gpart, smem))
+        if best is not None:
+            return best[1]
+    return None
+
+
+# the grid tier's capacity by library (pg_fbe_grid_capacity, read once)
+_CAPACITY = {}
+
+
+def grid_capacity(kernel: Optional[CudaKernel] = None) -> int:
+    """The CTAs the card holds at once for the grid tier: GRID_SMS where
+    set, else the library's reading (the SMs x
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor, from the library of
+    ``kernel``, default K3's), on the current card."""
+    if GRID_SMS:
+        return GRID_SMS
+    lib = (kernel or K3).lib()
+    if id(lib) not in _CAPACITY:
+        capacity = ctypes.c_int(0)
+        fn = lib.pg_fbe_grid_capacity
+        fn.argtypes = [ctypes.POINTER(_I)]
+        code = fn(ctypes.byref(capacity))
+        if code:
+            raise RuntimeError(f"pg_fbe_grid_capacity: CUDA error {code}")
+        _CAPACITY[id(lib)] = capacity.value
+    return _CAPACITY[id(lib)]
+
+
+def _grid(P: int, B: int, capacity: Optional[int]) -> GridLayout:
+    grid = grid_layout(P, B, grid_capacity() if capacity is None else capacity)
+    if grid is None:
+        raise ValueError(f"K3/K4's grid tier holds no layout of {P} paths: its column sums "
+                         f"exceed one block's shared memory")
+    return grid
+
+
+def generic_launch(P: int, B: int, capacity: Optional[int] = None):
     """(CTAs a chain, threads, dynamic shared bytes) of K3/K4 for B
     chains of P paths (mirrors fbe_config_ok in csrc/fb.cu). Up to
     MAX_PATHS one CTA of WARPS warps; a ring of RING slots, a staging
     column and the reduction scratch. A column is held at any 16-byte
     misalignment; the column partials' pitch is P rounded up to 8 mod
-    32. Then the cluster tier (:func:`cluster_layout`). Beyond it one CTA
-    of WIDE_WARPS warps, one tile of column partials and the warps'
-    totals of two columns, whatever P."""
+    32. Then the cluster tier (:func:`cluster_layout`). Beyond it the
+    grid tier (:func:`grid_layout`, on ``capacity`` CTAs, default the
+    card's :func:`grid_capacity`)."""
     cluster = cluster_layout(P, B)
     if cluster is not None:
         return cluster.ranks, 32 * cluster.warps, cluster.smem
     if P > MAX_PATHS:
-        return 1, 32 * WIDE_WARPS, 4 * (WIDE_WARPS * WIDE_TILE + 2 * 32)
+        grid = _grid(P, B, capacity)
+        return grid.ctas, 32 * grid.groups * grid.segments, grid.smem
     column = (P * P + 6) // 4 * 4
     scratch = 4 * (column + WARPS * (P + (8 - P) % 32) + P + 34)
     return 1, 32 * WARPS, scratch + RING * 4 * (_HEADER + column)
@@ -149,16 +275,16 @@ def generic_launch(P: int, B: int):
 def tier(P: int, B: int) -> str:
     """K3/K4's tier for B chains of P paths: "register" (one CTA a chain,
     the state in registers), "cluster" (a cluster of CTAs a chain) or
-    "wide" (one CTA a chain, the state in global memory)."""
+    "grid" (a cooperative grid of CTAs a chain)."""
     if P <= MAX_PATHS:
         return "register"
-    return "cluster" if cluster_layout(P, B) is not None else "wide"
+    return "cluster" if cluster_layout(P, B) is not None else "grid"
 
 
 # K3's and K4's launches by tier, grown beside each kernel's own count
 # where it launches (chip_smoke.py reads which tier a run took)
 TIER_LAUNCHES = {(kernel, t): 0 for kernel in ("K3", "K4")
-                 for t in ("register", "cluster", "wide")}
+                 for t in ("register", "cluster", "grid")}
 
 
 def cluster_fits(P: int, B: int, backward: bool,
@@ -176,14 +302,22 @@ def cluster_fits(P: int, B: int, backward: bool,
     return fits.value
 
 
-def wide_scratch(B: int, P: int, backward: bool, device) -> torch.Tensor:
-    """The wide tier's state in global memory, per chain: two buffers of
-    row sums and two of column sums, and for K4 the helper [P, P]. An
-    empty tensor where P takes a register tier or the cluster tier."""
-    if tier(P, B) != "wide":
+def grid_scratch(B: int, P: int, backward: bool, device,
+                 capacity: Optional[int] = None) -> torch.Tensor:
+    """The grid tier's scratch in global memory, zeros, per chain
+    (mirrors fbg_chain_floats in csrc/fb.cu): its arrival counter (16
+    bytes, zero before every launch), the messages of two parities from
+    each of its G CTAs and their sums, the partials where they live in
+    global memory and, for K4 where the state does, the helper [P, P]
+    (K3 keeps its state in its alphas). An empty tensor where P takes a
+    register tier or the cluster tier."""
+    if tier(P, B) != "grid":
         return torch.empty((0,), dtype=torch.float32, device=device)
-    return torch.empty((B, 4 * P + (P * P if backward else 0)), dtype=torch.float32,
-                       device=device)
+    grid = _grid(P, B, capacity)
+    msg, part = _grid_floats(P, grid.rows, grid.groups, grid.segments)
+    floats = (4 + 2 * (grid.ctas + 1) * msg + grid.global_partials * grid.ctas * part
+              + (P * P if backward and STORES[grid.store] == "global" else 0))
+    return torch.zeros((B, floats), dtype=torch.float32, device=device)
 
 
 def _check(name, t, dtype, shape, device):
@@ -269,7 +403,7 @@ def forward_e(E, u, alpha0):
     alphas = torch.empty((B, n, P, P), dtype=torch.float32, device=dev)
     c_fwd = torch.empty((B, n), dtype=torch.float32, device=dev)
     if B and n:
-        scratch = wide_scratch(B, P, False, dev)
+        scratch = grid_scratch(B, P, False, dev)
         K3(E.data_ptr(), u.data_ptr(), alpha0.data_ptr(), alphas.data_ptr(),
            c_fwd.data_ptr(), scratch.data_ptr(), B, n, P, *generic_launch(P, B),
            launch_stream(dev))
@@ -296,7 +430,7 @@ def backward_e(alphas, c_fwd, E, u, E_after, u_after, is_last, beta0):
     posts = torch.empty((B, n, P, P), dtype=torch.float32, device=dev)
     beta_out = torch.empty((B, P, P), dtype=torch.float32, device=dev)
     if B and n:
-        scratch = wide_scratch(B, P, True, dev)
+        scratch = grid_scratch(B, P, True, dev)
         K4(alphas.data_ptr(), c_fwd.data_ptr(), E.data_ptr(), u.data_ptr(),
            E_after.data_ptr(), u_after.data_ptr(), last.data_ptr(),
            beta0.data_ptr(), posts.data_ptr(), beta_out.data_ptr(),

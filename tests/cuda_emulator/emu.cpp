@@ -189,6 +189,29 @@ void emu_mbar_wait(const void* bar, unsigned parity) {
     ++progress;
 }
 
+namespace {
+
+void global_counter(const void* counter) {
+    const char* at = static_cast<const char*>(counter);
+    const char* base = reinterpret_cast<const char*>(smem);
+    if (at >= base && at < base + sizeof(smem)) fail("grid counter in shared memory");
+    if ((uintptr_t)at % sizeof(unsigned)) fail("grid counter misaligned");
+}
+
+}  // namespace
+
+void emu_grid_arrive(unsigned* counter) {
+    global_counter(counter);
+    ++*counter;
+    ++progress;
+}
+
+void emu_grid_wait(const unsigned* counter, unsigned target) {
+    global_counter(counter);
+    while ((int)(*counter - target) < 0) yield();
+    ++progress;
+}
+
 void emu_allow_cluster(const void* kernel, bool allowed) {
     if (allowed) non_portable.insert(kernel);
     else non_portable.erase(kernel);
@@ -265,22 +288,31 @@ int emu_run_cluster(int grid, int ranks, int threads, size_t smem_bytes,
         }
         // a warp runs until all its threads wait at a barrier (or are
         // done) before the next warp starts, so a warp that reuses shared
-        // memory before slower warps have read it shows; the cluster's
-        // blocks take turns in rank order
+        // memory before slower warps have read it shows; a block runs
+        // until none of its warps can go on before the next block starts
+        // (the blocks of a cluster or cooperative grid in rank order), so
+        // a block that reads what another has not yet published runs
+        // ahead of it and shows
+        const int warps = block_threads / 32;
         for (bool left = true; left;) {
             left = false;
             const long before = progress;
-            for (int w = 0; w < n / 32; ++w) {
-                for (long warp_before = -1; warp_before != progress;) {
-                    warp_before = progress;
-                    for (int g = 32 * w; g < 32 * w + 32; ++g) {
-                        Fiber& f = fibers[g];
-                        if (f.done) continue;
-                        make_resident(f.block);
-                        current = &f;
-                        threadIdx = {f.tid, 0, 0};
-                        blockIdx = {(unsigned)base + f.block, 0, 0};
-                        swapcontext(&scheduler, &f.ctx);
+            for (int b = 0; b < ranks; ++b) {
+                for (long block_before = -1; block_before != progress;) {
+                    block_before = progress;
+                    for (int w = b * warps; w < (b + 1) * warps; ++w) {
+                        for (long warp_before = -1; warp_before != progress;) {
+                            warp_before = progress;
+                            for (int g = 32 * w; g < 32 * w + 32; ++g) {
+                                Fiber& f = fibers[g];
+                                if (f.done) continue;
+                                make_resident(f.block);
+                                current = &f;
+                                threadIdx = {f.tid, 0, 0};
+                                blockIdx = {(unsigned)base + f.block, 0, 0};
+                                swapcontext(&scheduler, &f.ctx);
+                            }
+                        }
                     }
                 }
             }

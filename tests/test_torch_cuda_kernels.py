@@ -396,10 +396,11 @@ def test_fused_kernels_reject_more_than_128_paths(cuda):
 
 
 @pytest.mark.parametrize("B", [1, 3])
-@pytest.mark.parametrize("P", [129, 200, 256, 465, 471, 472, 1025])
+@pytest.mark.parametrize("P", [129, 200, 256, 465, 471, 472, 600, 1025, 2049])
 def test_wide_generic_kernels_match_plain(cuda, P, B):
-    """K3/K4 past 128 paths (the cluster tier up to 471, the one-CTA wide
-    tier beyond) against their plain versions on the edge inputs (entry
+    """K3/K4 past 128 paths (the cluster tier up to 471, the grid tier
+    beyond: its state in registers at 472-1025, in shared memory at 2049
+    for B=1) against their plain versions on the edge inputs (entry
     carries, is_last inside the chunk, an all-zero E column, padding; B =
     1 keeps the first chain), and two launches give the same bits."""
     inputs = _edge_inputs(P, 7, cuda)
@@ -449,7 +450,64 @@ def test_200_paths_launch_the_cluster_kernels(cuda):
     names = _kernel_names(both)
     for kernel in ("fbe_forward_cluster_kernel", "fbe_backward_cluster_kernel"):
         assert any(kernel in name for name in names), names
-    assert not any("wide_kernel" in name for name in names), names
+    assert not any("grid_kernel" in name for name in names), names
+
+
+def test_600_paths_launch_the_grid_kernels(cuda):
+    """At the chunk shape of ``genotype -f -a 600`` (B=2, P=600) K3/K4
+    launch their grid-tier kernels (66 CTAs a chain on an H100, the
+    state in registers, two hops) and neither the cluster tier nor the
+    one-CTA wide tier that came before it; TIER_LAUNCHES counts them."""
+    E, u, alpha0, e_after, u_after, is_last, beta0 = (
+        x[:2].contiguous() for x in _edge_inputs(600, 7, cuda))
+    grid = fb_kernels.grid_layout(600, 2, fb_kernels.grid_capacity())
+    assert grid.ctas == fb_kernels.grid_capacity() // 2 > 1
+    assert fb_kernels.generic_launch(600, 2)[0] == grid.ctas
+    launches = dict(fb_kernels.TIER_LAUNCHES)
+
+    def both():
+        a, c = fb_kernels.forward_e(E, u, alpha0)
+        fb_kernels.backward_e(a, c, E, u, e_after, u_after, is_last, beta0)
+
+    names = _kernel_names(both)
+    for kernel in ("fbe_forward_grid_kernel", "fbe_backward_grid_kernel"):
+        assert any(kernel in name for name in names), names
+    assert not any("wide_kernel" in name or "cluster_kernel" in name for name in names), names
+    for k in ("K3", "K4"):
+        assert fb_kernels.TIER_LAUNCHES[(k, "grid")] == launches[(k, "grid")] + 1
+
+
+@pytest.mark.parametrize("P,sms,one_hop", [(600, 1, None), (600, 8, None), (1025, 16, None),
+                                           (1025, 16, 0)])
+def test_grid_sizes(cuda, monkeypatch, P, sms, one_hop):
+    """The grid tier of the source built with FBE_GRID_SMS = sms (and
+    FBE_GRID_ONE_HOP), as tools/fbe_times.py builds it: one CTA a chain
+    (no arrivals, the state in global memory), 8 CTAs (shared memory),
+    16 CTAs of one hop and of two, against the plain versions on the edge
+    inputs, and the same bits twice."""
+    defines = {"FBE_GRID_SMS": sms}
+    monkeypatch.setattr(fb_kernels, "GRID_SMS", sms)
+    if one_hop is not None:
+        defines["FBE_GRID_ONE_HOP"] = one_hop
+        monkeypatch.setattr(fb_kernels, "GRID_ONE_HOP", one_hop)
+    monkeypatch.setattr(fb_kernels, "K3", _build.CudaKernel(
+        "fb", "pg_fbe_forward", "fb", fb_kernels.K3._argtypes, defines=defines))
+    monkeypatch.setattr(fb_kernels, "K4", _build.CudaKernel(
+        "fb", "pg_fbe_backward", "fb", fb_kernels.K4._argtypes, defines=defines))
+    assert fb_kernels.generic_launch(P, 1)[0] == min(sms, P)
+    E, u, alpha0, e_after, u_after, is_last, beta0 = (
+        x[:1].contiguous() for x in _edge_inputs(P, 9, cuda))
+    a_k, c_k = fb_kernels.forward_e(E, u, alpha0)
+    a_p, c_p = fb_generic.forward_e_plain(E, u, alpha0)
+    torch.testing.assert_close(a_k, a_p, rtol=2e-4, atol=1e-7)
+    torch.testing.assert_close(c_k, c_p, rtol=2e-4, atol=1e-7)
+    args = (a_k, c_k, E, u, e_after, u_after, is_last, beta0)
+    p_k, b_k = fb_kernels.backward_e(*args)
+    p_p, b_p = fb_generic.backward_e_plain(*args)
+    _posteriors_close_or_zero(p_k, p_p)
+    torch.testing.assert_close(b_k, b_p, rtol=2e-4, atol=1e-7)
+    assert torch.equal(fb_kernels.forward_e(E, u, alpha0)[0], a_k)
+    assert torch.equal(fb_kernels.backward_e(*args)[0], p_k)
 
 
 @pytest.mark.parametrize("P,ranks", [(200, 4), (129, 8), (200, 8)])
@@ -550,11 +608,11 @@ def test_k2_after_tiny_emissions(cuda, P, A):
                         backward_plain(*inputs).cpu())
 
 
-@pytest.mark.parametrize("P", [16, 89, 200])
+@pytest.mark.parametrize("P", [16, 89, 200, 600])
 def test_generic_kernels_after_tiny_emissions(cuda, P):
-    """K4 (register tiers and the wide tier) where two columns' emissions
-    are near 1e-25 (_tiny_columns), against its plain version on K3's
-    alphas (columns divided by their sums)."""
+    """K4 (register tiers, the cluster tier and the grid tier) where two
+    columns' emissions are near 1e-25 (_tiny_columns), against its plain
+    version on K3's alphas (columns divided by their sums)."""
     E, u, alpha0, e_after, u_after, is_last, beta0 = _edge_inputs(P, 37, cuda)
     E = _tiny_columns(E, 0, 5)
     a, c = fb_kernels.forward_e(E, u, alpha0)

@@ -2,22 +2,27 @@
 CPU by an emulator of the CUDA threads, against their plain versions:
 K3/K4's register tiers, their cluster tier (128 < P <= 471: a
 thread-block cluster of CTAs a chain, the state in registers, the column
-sums merged by pushes into every rank's shared memory) and their wide
-tier past it (one CTA, the state in a global scratch), K2's one-warp tier
-(P <= 32, A <= 8) and its CTA tier.
+sums merged by pushes into every rank's shared memory) and their grid
+tier past it (a cooperative grid of CTAs a chain, the band's state in
+registers, shared or global memory, the column sums merged through
+global memory in one hop or two; builds with a small FBE_GRID_SMS give
+the few CTAs the emulation can run), K2's one-warp tier (P <= 32, A <= 8)
+and its CTA tier.
 
 The kernel source is compiled with g++ against the headers of
 ``tests/cuda_emulator/``, which stand in for ``cuda_runtime.h``,
 ``csrc/cp_async.cuh`` and ``csrc/cluster.cuh``: a cp.async is a plain
 copy (a 16-byte one must be 16-byte aligned), a block's dynamic shared
 memory is one array, and the one textual substitution makes a launch run
-every thread of every block as a fiber; the cluster launch
-(``cudaLaunchKernelEx``) runs through the emulator's own, the K blocks of
-a cluster together, with the cluster barrier, the mbarriers and the
-pushes into another block's shared memory. So the kernels' own indexing,
-barriers, lane-masked shuffles, ring and staging layout and cluster
-merge run as written; their timing and the asynchrony of the copies are
-not modelled. ``tests/test_torch_cuda_kernels.py`` holds the real
+every thread of every block as a fiber; the cluster and cooperative
+launches (``cudaLaunchKernelEx``) run through the emulator's own, the K
+blocks of a cluster (every block of a cooperative grid) together, with
+the cluster barrier, the mbarriers and the pushes into another block's
+shared memory, and the arrivals and waits on a counter in global memory
+of ``tests/cuda_emulator/grid.cuh``. So the kernels' own indexing,
+barriers, lane-masked shuffles, ring and staging layout and cluster and
+grid merges run as written; their timing and the asynchrony of the
+copies are not modelled. ``tests/test_torch_cuda_kernels.py`` holds the real
 kernels against the same inputs on the card.
 """
 
@@ -51,7 +56,7 @@ def _emulated_source(src: str) -> str:
         "if (emu_run(B, threads, smem, [&]() { kernel(args...); }))"
         " return (int)cudaErrorInvalidValue;", src)
     assert n == 1, "the launch in csrc/fb.cu changed"
-    assert src.count("cudaLaunchKernelEx(") == 1, "the cluster launch changed"
+    assert src.count("cudaLaunchKernelEx(") == 1, "the cluster and grid launch changed"
     return src
 
 
@@ -84,6 +89,38 @@ def emulated(tmp_path_factory):
     return _build_emulated(tmp_path_factory.mktemp("fb_emulated"))
 
 
+# the emulated card (tests/cuda_emulator/cuda_runtime.h) holds 132 CTAs of
+# 1024 threads at once, one an SM: the grid tier's capacity in a build
+# without FBE_GRID_SMS
+EMU_CAPACITY = 132
+
+
+@pytest.fixture(scope="module")
+def emulated_grid(tmp_path_factory):
+    """The emulated library built with FBE_GRID_SMS = sms (and
+    FBE_GRID_ONE_HOP = one_hop where given), by (sms, one_hop)."""
+    libs = {}
+
+    def get(sms, one_hop=None):
+        if (sms, one_hop) not in libs:
+            defines = [f"FBE_GRID_SMS={sms}"]
+            if one_hop is not None:
+                defines.append(f"FBE_GRID_ONE_HOP={one_hop}")
+            libs[sms, one_hop] = _build_emulated(
+                tmp_path_factory.mktemp(f"fb_emulated_grid_{sms}_{one_hop}"), defines)
+        return libs[sms, one_hop]
+    return get
+
+
+def _grid_build(monkeypatch, emulated_grid, sms, one_hop=None):
+    """The build of FBE_GRID_SMS = sms (FBE_GRID_ONE_HOP = one_hop), with
+    fb_kernels set to match."""
+    monkeypatch.setattr(fb_kernels, "GRID_SMS", sms)
+    if one_hop is not None:
+        monkeypatch.setattr(fb_kernels, "GRID_ONE_HOP", one_hop)
+    return emulated_grid(sms, one_hop)
+
+
 @pytest.fixture(scope="module")
 def emulated_ranks(tmp_path_factory):
     """The emulated library built with FBE_CLUSTER_RANKS = k, by k."""
@@ -98,9 +135,13 @@ def emulated_ranks(tmp_path_factory):
 
 
 def _scratch(B, P, backward):
-    """The wide tier's scratch, NaN-filled so that a read before a write
-    shows (empty where P takes a register tier or the cluster tier)."""
-    return fb_kernels.wide_scratch(B, P, backward, "cpu").fill_(float("nan"))
+    """The grid tier's scratch, NaN-filled so that a read before a write
+    shows, but for each chain's arrival counter, which starts at 0 (empty
+    where P takes a register tier or the cluster tier)."""
+    scratch = fb_kernels.grid_scratch(B, P, backward, "cpu")
+    if scratch.numel():
+        scratch[:, 4:] = float("nan")
+    return scratch
 
 
 def _forward(lib, E, u, alpha0):
@@ -197,34 +238,73 @@ def test_emulated_launch_rejects_another_layout(emulated):
     for bad in ((8, threads, smem), (ranks, threads + 32, smem), (ranks, threads, smem + 16),
                 (1, 1024, 33_024)):
         assert code(200, bad) != 0
-    assert code(472, fb_kernels.generic_launch(472, 1)) != 0     # no scratch
+    assert code(472, fb_kernels.generic_launch(472, 1, EMU_CAPACITY)) != 0     # no scratch
 
 
-@pytest.mark.parametrize("P,n", [(129, 7), (200, 3), (257, 3), (465, 2)])
-def test_emulated_wide_tier_matches_plain(emulated, P, n):
-    """K3/K4 past 128 paths, on the cluster tier (clusters of 16 CTAs for
-    B=3, each rank a band of rows: 8 or 9 at P=129; the column sums
-    merged through every rank's shared memory), on the edge inputs of the
-    register tiers: entry carries alpha0 and beta0 that are not ones or
-    zeros, is_last inside the chunk, an all-zero E column (the state
-    turns uniform), padding and an all-padding chain; two launches give
-    the same bits."""
-    layout = fb_kernels.cluster_layout(P, 3)
-    assert layout.ranks == 16
-    assert fb_kernels.generic_launch(P, 3) == (layout.ranks, 32 * layout.warps, layout.smem)
-    assert fb_kernels.wide_scratch(3, P, True, "cpu").numel() == 0
-    _assert_generic_match_plain(emulated, _edge_inputs(P, n, "cpu"))
+@pytest.mark.parametrize("P,n", [(129, 7), (200, 3), (257, 3), (465, 2), (472, 3), (600, 2)])
+def test_emulated_wide_tier_matches_plain(emulated, emulated_grid, monkeypatch, P, n):
+    """K3/K4 past 128 paths on the edge inputs of the register tiers
+    (entry carries alpha0 and beta0 that are not ones or zeros, is_last
+    inside the chunk, an all-zero E column: the state turns uniform;
+    padding and an all-padding chain); two launches give the same bits.
+    Up to 471 paths the cluster tier (clusters of 16 CTAs for B=3, each
+    rank a band of rows: 8 or 9 at P=129; the column sums merged through
+    every rank's shared memory); past it the grid tier of a build whose
+    card holds 24 CTAs at once: 8 CTAs a chain of the 3, bands of 59 (75)
+    rows in shared memory, the column sums merged through global memory
+    in one hop."""
+    if P <= 471:
+        layout = fb_kernels.cluster_layout(P, 3)
+        assert layout.ranks == 16
+        assert fb_kernels.generic_launch(P, 3) == (layout.ranks, 32 * layout.warps, layout.smem)
+        assert fb_kernels.grid_scratch(3, P, True, "cpu").numel() == 0
+        _assert_generic_match_plain(emulated, _edge_inputs(P, n, "cpu"))
+        return
+    lib = _grid_build(monkeypatch, emulated_grid, 24)
+    grid = fb_kernels.grid_layout(P, 3, 24)
+    assert (grid.ctas, fb_kernels.STORES[grid.store], grid.hops) == (8, "shared", 1)
+    assert fb_kernels.generic_launch(P, 3) == (8, 32 * grid.groups * grid.segments, grid.smem)
+    _assert_generic_match_plain(lib, _edge_inputs(P, n, "cpu"))
 
 
-def test_emulated_one_cta_wide_tier_past_the_cluster_tier(emulated):
-    """Past what a cluster of 16 CTAs holds (P = 472) K3/K4 run their
-    one-CTA wide tier (1024 threads, the state in a global scratch, the
-    columns in tiles of 256: two tiles), on the edge inputs."""
+def test_emulated_one_cta_wide_tier_past_the_cluster_tier(emulated_grid, monkeypatch):
+    """Past what a cluster of 16 CTAs holds (P = 472), where the card
+    holds no more CTAs at once than the chains (a build of 4 for B=3):
+    the grid tier on one CTA a chain (32 warps, the state in global
+    memory: K3's in its alphas, K4's helper in the scratch; no arrivals,
+    a launch that is not cooperative), on the edge inputs."""
     P = 472
     assert fb_kernels.cluster_layout(P - 1, 3) is not None
     assert fb_kernels.cluster_layout(P, 3) is None
-    assert fb_kernels.generic_launch(P, 3) == (1, 1024, 4 * (32 * 256 + 64))
-    _assert_generic_match_plain(emulated, _edge_inputs(P, 2, "cpu"))
+    lib = _grid_build(monkeypatch, emulated_grid, 4)
+    grid = fb_kernels.grid_layout(P, 3, 4)
+    assert (grid.ctas, fb_kernels.STORES[grid.store], grid.hops) == (1, "global", 0)
+    assert fb_kernels.generic_launch(P, 3)[:2] == (1, 1024)
+    assert fb_kernels.grid_scratch(3, P, True, "cpu").shape[1] > P * P   # K4's helper
+    _assert_generic_match_plain(lib, _edge_inputs(P, 2, "cpu"))
+
+
+# (P, B, FBE_GRID_SMS, FBE_GRID_ONE_HOP, where the band lives, hops): one
+# case for each place of the state; bands of 19-20 and 52-53 rows (uneven);
+# two chains on one grid; two hops forced where one would do
+GRID_CASES = [(472, 1, 24, None, "registers", 1), (472, 2, 12, None, "shared", 1),
+              (472, 1, 9, 0, "shared", 2), (600, 1, 4, None, "global", 1),
+              (600, 2, 4, None, "global", 1)]
+
+
+@pytest.mark.parametrize("P,B,sms,one_hop,store,hops", GRID_CASES)
+def test_emulated_grid_tier_matches_plain(emulated_grid, monkeypatch, P, B, sms, one_hop,
+                                          store, hops):
+    """The grid tier of builds whose card holds ``sms`` CTAs at once, on
+    inputs that lean on the last rank's band (its E 1000x the others', a
+    column whose E only it holds, an all-zero E column, is_last inside
+    the chunk): the plain versions' results, and the same bits twice."""
+    lib = _grid_build(monkeypatch, emulated_grid, sms, one_hop)
+    grid = fb_kernels.grid_layout(P, B, sms)
+    assert (fb_kernels.STORES[grid.store], grid.hops) == (store, hops)
+    assert grid.ctas == sms // B
+    inputs = _band_inputs(P, 4, grid.ctas, seed=P + sms)
+    _assert_generic_match_plain(lib, tuple(x[:B].contiguous() for x in inputs))
 
 
 def _band_inputs(P, n, ranks, seed):
@@ -285,10 +365,12 @@ def test_emulated_cluster_last_band(emulated, P):
 def test_emulated_launch_layout_matches_the_rule(emulated, emulated_ranks, monkeypatch, k):
     """fb_kernels.generic_launch is csrc/fb.cu's rule (pg_fbe_launch) for
     every P up to 1,100 and at 6,405, for batches that fill the card and
-    batches past it, in the library built with FBE_CLUSTER_RANKS = k; the
-    cluster tier's occupancy reading is 0 where P does not take it."""
+    batches past it, in the library built with FBE_CLUSTER_RANKS = k (the
+    grid tier on the emulated card's 132 CTAs at once); the cluster
+    tier's occupancy reading is 0 where P does not take it."""
     lib = emulated if k == fb_kernels.CLUSTER_RANKS else emulated_ranks(k)
     monkeypatch.setattr(fb_kernels, "CLUSTER_RANKS", k)
+    monkeypatch.setattr(fb_kernels, "GRID_SMS", EMU_CAPACITY)
     out = (ctypes.c_int * 3)()
     for B in (1, 2, 11, 17, 34, 40):
         for P in [*range(1, 1101), 6405]:
@@ -313,6 +395,26 @@ def test_emulated_wide_tier_in_the_chunked_route(emulated, monkeypatch):
                         lambda E, u, alpha0: _forward(emulated, E, u, alpha0))
     monkeypatch.setattr(fb_kernels, "backward_e",
                         lambda *args: _backward(emulated, *args))
+    got, corr = fb_generic.forward_backward_chunked(
+        _generic_columns(B, N, P, "cpu"), chunk=chunk)
+    assert fb_generic.last_walk == (B, N, 3)
+    _posteriors_close_or_zero(got, want)
+    torch.testing.assert_close(corr, want_corr)
+
+
+def test_emulated_grid_tier_in_the_chunked_route(emulated_grid, monkeypatch):
+    """fb_generic.forward_backward_chunked at P = 480 in chunks of 4
+    columns through the emulated grid tier (2 CTAs a chain of the 2, the
+    state in global memory; each chunk's carries are the kernels' own
+    outputs), against the same route with the plain versions."""
+    B, N, P, chunk = 2, 10, 480, 4
+    lib = _grid_build(monkeypatch, emulated_grid, 4)
+    assert fb_kernels.grid_layout(P, B, 4).ctas == 2
+    want, want_corr = fb_generic.forward_backward_chunked(
+        _generic_columns(B, N, P, "cpu"), chunk=chunk)
+    monkeypatch.setattr(fb_kernels, "forward_e",
+                        lambda E, u, alpha0: _forward(lib, E, u, alpha0))
+    monkeypatch.setattr(fb_kernels, "backward_e", lambda *args: _backward(lib, *args))
     got, corr = fb_generic.forward_backward_chunked(
         _generic_columns(B, N, P, "cpu"), chunk=chunk)
     assert fb_generic.last_walk == (B, N, 3)
@@ -369,15 +471,18 @@ def test_emulated_k2_after_tiny_emissions(emulated, P, A):
     _kept_columns_close(_k2(emulated, *inputs), backward_plain(*inputs))
 
 
-@pytest.mark.parametrize("P", [16, 129, 257])
-def test_emulated_generic_kernels_after_tiny_emissions(emulated, P):
-    """K4's register and cluster tiers (16 CTAs) where two columns'
-    emissions are near 1e-25, against backward_e_plain on K3's alphas."""
+@pytest.mark.parametrize("P", [16, 129, 257, 472])
+def test_emulated_generic_kernels_after_tiny_emissions(emulated, emulated_grid, monkeypatch,
+                                                      P):
+    """K4's register, cluster (16 CTAs) and grid tiers (8 CTAs a chain
+    in a build whose card holds 24 at once) where two columns' emissions
+    are near 1e-25, against backward_e_plain on K3's alphas."""
+    lib = emulated if P <= 471 else _grid_build(monkeypatch, emulated_grid, 24)
     E, u, alpha0, e_after, u_after, is_last, beta0 = _edge_inputs(P, 9, "cpu")
     E = _tiny_columns(E, 0, 1)
-    a, c = _forward(emulated, E, u, alpha0)
+    a, c = _forward(lib, E, u, alpha0)
     args = (a, c, E, u, e_after, u_after, is_last, beta0)
-    p_k, b_k = _backward(emulated, *args)
+    p_k, b_k = _backward(lib, *args)
     p_p, b_p = fb_generic.backward_e_plain(*args)
     _kept_columns_close(p_k, p_p)
     torch.testing.assert_close(b_k, b_p, rtol=2e-4, atol=1e-7)

@@ -109,8 +109,10 @@ def test_bucketed_collapse_in_bounded_slices(monkeypatch):
     assert torch.equal(fb_generic.bucketed_collapse(posts, cols), whole)
 
 
+# the last case is past 471 paths, where the port's K3/K4 run their grid
+# tier on the card (about 10 s of interpret mode)
 @pytest.mark.parametrize("B,N,P,K,A_hi", [(2, 23, 8, 6, 5), (1, 9, 4, 4, 3),
-                                          (2, 30, 6, 4, 12)])
+                                          (2, 30, 6, 4, 12), (1, 5, 480, 4, 3)])
 def test_chunked_fb_matches_pallas_generic(B, N, P, K, A_hi):
     cols = _mixed_allele_columns(B, N, P, K, A_hi)
     ref_p, ref_c = pallas_fb.forward_backward_batch_pallas_e(

@@ -8,6 +8,8 @@ take and return; the launch layout against the shared memory one H100
 block can use, for every path count the kernels take.
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -38,7 +40,14 @@ from pangenie_tpu_torch.hmm import bounds, fb_generic, fb_kernels, sampling
     # S1's chase: one uint8 backtrace entry a column 110,080 + ends 8 +
     # paths 440,320
     (bounds.s1_chase(2, 55040, 1), 550_408, 0.000164301),
-], ids=["K1", "K2", "K3", "K4", "S1", "S1_chase"])
+    # the grid tier at genotype -f -a 600's chunk shape B=2 N=2,048 P=600:
+    # E and alphas 2 x 1,474,560,000 + u 49,152 + alpha0 2,880,000 + c_fwd
+    # 16,384 (11.8 GB)
+    (bounds.k3(2, 2048, 600), 11_799_425_536, 3.5222166),
+    # alphas, E, posts 3 x 5,898,240,000, c_fwd 16,384, u 49,152, e_after,
+    # beta0, beta_out 3 x 2,880,000, u_after 24, is_last 16,384
+    (bounds.k4(2, 2048, 600), 17_703_441_944, 5.2846095),
+], ids=["K1", "K2", "K3", "K4", "S1", "S1_chase", "K3_grid", "K4_grid"])
 def test_bytes_and_bound_at_main_shapes(work, nbytes, ms):
     assert work.nbytes == nbytes
     got_ms, by = work.bound()
@@ -81,16 +90,19 @@ def test_generic_bytes_match_the_plain_versions_tensors():
 # bands of 17 rows, one warp a row: 16 + 4 x ((2 x 8 + 1 + 17) x 132 + 2 x
 # (8 + 2,196)). P=200: 8 CTAs of 25 warps, 16 + 4 x (42 x 204 + 2 x (8 +
 # 5,004)). P=465: 16 CTAs of 30 warps, 16 + 4 x (63 x 468 + 2 x (8 +
-# 13,956)). Past 471 paths the wide tier: 1024 threads, one tile of 32 x
-# 256 column partials and 2 x 32 warp totals, 4 x (8,192 + 64) bytes at
-# any P
+# 13,956)). Past 471 paths the grid tier on an H100's 132 CTAs at once, 12
+# a chain of the 11: at P=472 bands of 40 rows in shared memory, 10 row
+# groups of 3 segments of 5 column slots a lane (30 warps), 4 x (476 + 32 +
+# 10 x 476 + 120 + 40 + 40 x 472); at 6405 bands of 534 rows in global
+# memory, 32 warps of 201 slots a lane, the partials in global memory
+# too (32 x 6,408 of them do not fit), 4 x (6,408 + 32)
 @pytest.mark.parametrize("P,launch", [
     (1, (1, 512, 764)), (16, (1, 512, 5_944)), (89, (1, 512, 102_300)),
-    (128, (1, 512, 206_072)), (129, (8, 544, 35_600)), (6405, (1, 1024, 33_024)),
-    (200, (8, 800, 74_384)), (465, (16, 960, 229_664)), (472, (1, 1024, 33_024)),
+    (128, (1, 512, 206_072)), (129, (8, 544, 35_600)), (6405, (12, 1024, 25_760)),
+    (200, (8, 800, 74_384)), (465, (16, 960, 229_664)), (472, (12, 960, 97_232)),
 ])
 def test_generic_launch_at_known_path_counts(P, launch):
-    assert fb_kernels.generic_launch(P, 11) == launch
+    assert fb_kernels.generic_launch(P, 11, capacity=132) == launch
 
 
 def test_generic_launch_fits_every_path_count():
@@ -254,11 +266,12 @@ def test_generic_launch_past_128_paths():
     256 paths and of 16 beyond, each CTA a band of floor(P / K) or ceil(P / K) rows
     in at most 16 cells a thread (one warp a row, lanes over 8 or 16
     column slots), its shared memory within one H100 block's and no
-    scratch; past it the wide tier's 32 warps and fixed shared memory,
-    and its scratch of two buffers each of row and column sums, and for
-    K4 the [P, P] helper, per chain; the register tiers take none."""
+    scratch; past it the grid tier on an H100's 132 CTAs at once, 12 a
+    chain, rows spread over at most 32 warps whose segments cover P, at
+    most 16 cells a thread where the band is in registers, and its
+    scratch per chain; the register tiers take none."""
     for P in [*range(fb_kernels.MAX_PATHS + 1, 1025), 6405]:
-        ranks, threads, smem = fb_kernels.generic_launch(P, 11)
+        ranks, threads, smem = fb_kernels.generic_launch(P, 11, capacity=132)
         layout = fb_kernels.cluster_layout(P, 11)
         assert smem <= fb_kernels.SMEM_BYTES
         if P <= 471:
@@ -267,16 +280,29 @@ def test_generic_launch_past_128_paths():
             assert layout.rows_per_warp == 1 and threads == 32 * layout.rows
             assert layout.columns_per_lane == (8 if P <= 256 else 16) >= P / 32
             assert smem == layout.smem
-            assert fb_kernels.wide_scratch(11, P, True, "cpu").numel() == 0
+            assert fb_kernels.grid_scratch(11, P, True, "cpu").numel() == 0
         else:
-            assert layout is None
-            assert (ranks, threads) == (1, 32 * fb_kernels.WIDE_WARPS) == (1, 1024)
-            assert smem == 4 * (fb_kernels.WIDE_WARPS * fb_kernels.WIDE_TILE + 2 * 32)
-            assert threads == 4 * fb_kernels.WIDE_TILE    # four threads a tile column
-    for P in (472, 6405):
-        assert fb_kernels.wide_scratch(3, P, False, "cpu").shape == (3, 4 * P)
-        assert fb_kernels.wide_scratch(3, P, True, "cpu").shape == (3, 4 * P + P * P)
-    assert fb_kernels.wide_scratch(3, 128, True, "cpu").numel() == 0
+            grid = fb_kernels.grid_layout(P, 11, 132)
+            assert layout is None and fb_kernels.tier(P, 11) == "grid"
+            assert ranks == grid.ctas == 12 and grid.rows == -(-P // 12)
+            assert threads == 32 * grid.groups * grid.segments <= 1024
+            assert 32 * grid.columns_per_lane * grid.segments >= P
+            assert grid.rows_per_warp * grid.groups >= grid.rows
+            if fb_kernels.STORES[grid.store] == "registers":
+                assert grid.rows_per_warp * grid.columns_per_lane <= fb_kernels.GRID_CELLS
+            assert smem == grid.smem and grid.hops == (1 if 12 * (P + 1) <= 34_000 else 2)
+    msg = 604                                       # 601 floats in float4s
+    for B, ctas in ((1, 132), (2, 66)):
+        shape = (B, 4 + 2 * (ctas + 1) * msg)       # counter, messages and sums
+        assert fb_kernels.grid_scratch(B, 600, True, "cpu", 132).shape == shape
+        assert not fb_kernels.grid_scratch(B, 600, True, "cpu", 132).any()
+    # one CTA a chain of 6405 paths: the partials (32 x 6,408 + 6,405 +
+    # 6,408 floats) in global memory, and K4's helper
+    part = 32 * 6408 + 6408 + 6408
+    assert fb_kernels.grid_scratch(3, 6405, False, "cpu", 3).shape == (3, 4 + 4 * 6408 + part)
+    assert fb_kernels.grid_scratch(3, 6405, True, "cpu", 3).shape == (
+        3, 4 + 4 * 6408 + part + 6405 * 6405)
+    assert fb_kernels.grid_scratch(3, 128, True, "cpu").numel() == 0
 
 
 @pytest.mark.parametrize("P,B,ranks", [
@@ -318,3 +344,46 @@ def test_k2_bytes_match_the_tensors_it_takes():
     posts = fb_kernels.backward(alphas, c_fwd, ea, al, trans, last)
     assert bounds.k2(B, N, P, A).nbytes == _nbytes(alphas, c_fwd, ea, al, trans, last,
                                                    posts)
+
+
+@pytest.fixture(scope="module")
+def fb_rule(tmp_path_factory):
+    """csrc/fb.cu built against the CUDA emulator (test_torch_fb_emulated),
+    for its host-side layout rules."""
+    from test_torch_fb_emulated import _build_emulated
+
+    lib = _build_emulated(tmp_path_factory.mktemp("fb_rule"))
+    lib.pg_fbe_grid_layout.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    return lib
+
+
+@pytest.mark.parametrize("capacity", [1, 4, 24, 132])
+def test_grid_layout_matches_the_c_rule(fb_rule, capacity):
+    """fb_kernels.grid_layout is csrc/fb.cu's fbg_layout and fbg_smem
+    (pg_fbe_grid_layout) for every P from 472 to 2,100 and several B,
+    on cards that hold 1, 4, 24 and 132 CTAs at once: the CTAs a chain,
+    the band's rows, row groups, segments, slots a lane, rows a warp,
+    where the state lives, hops, partials in global memory, shared
+    bytes."""
+    out = (ctypes.c_int * 10)()
+    for B in (1, 2, 3, 7, 11, 40):
+        for P in range(472, 2101):
+            assert fb_rule.pg_fbe_grid_layout(P, B, capacity, out) == 1
+            assert tuple(out) == tuple(fb_kernels.grid_layout(P, B, capacity)), (P, B)
+
+
+@pytest.mark.parametrize("P,B,ctas,store,hops", [
+    (600, 2, 66, "registers", 2), (1025, 1, 132, "registers", 2), (2049, 1, 132, "shared", 2),
+    (472, 3, 44, "registers", 1), (6405, 1, 132, "global", 2), (600, 4, 33, "registers", 1),
+])
+def test_grid_layout_at_the_main_shapes(P, B, ctas, store, hops):
+    """The grid tier on an H100 (132 CTAs at once): the `-a 600` chunk's
+    two chains on 66 CTAs each (bands of 9-10 rows in registers, 5 row
+    groups of 3 segments, 16 cells a thread, two hops); P=1025 and 2049 on
+    all 132 (bands of 7-8 rows in registers, of 15-16 in shared memory);
+    one hop where G (P + 1) floats are few."""
+    grid = fb_kernels.grid_layout(P, B, 132)
+    assert (grid.ctas, fb_kernels.STORES[grid.store], grid.hops) == (ctas, store, hops)
+    if (P, B) == (600, 2):
+        assert (grid.rows, grid.groups, grid.segments, grid.columns_per_lane,
+                grid.rows_per_warp) == (10, 5, 3, 8, 2)

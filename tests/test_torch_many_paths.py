@@ -6,7 +6,7 @@ a 100 kb chromosome (about 250 variants), 20x reads of sample 0. Both
 packages index it and run ``genotype -f -a 130`` on the CPU in float64:
 two path subsets of 130 paths, each past K1/K2's 128, so the port's batch
 takes the generic route (``torch_generic``: the plain versions of K3/K4,
-whose wide tier takes such P on the card) while the reference, past its
+whose cluster tier takes such P on the card) while the reference, past its
 96-path Pallas limit, runs its XLA scan. The genotyping VCF bodies
 must be identical.
 """

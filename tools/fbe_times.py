@@ -1,6 +1,6 @@
 """Times kernels K3/K4 at chip_smoke.py's shapes on one NVIDIA GPU.
 
-    python3 tools/fbe_times.py [--root DIR] [--reps 3] [--wide] [--ranks] [--ablate]
+    python3 tools/fbe_times.py [--root DIR] [--reps 3] [--wide] [--ranks] [--ablate] [--grid]
 
 Builds the inputs as chip_smoke.py does (seed 17, K=32, A=16): the SV
 path's first chunk (B=1, N=131,072, P=89, with 97/2/1% of the columns
@@ -17,11 +17,14 @@ bound (``hmm/bounds.py``). Exits non-zero without a GPU.
 ``--wide`` times K3/K4 past 128 paths instead, with the 97/2/1% allele
 mix: at the chunk shape of chip_smoke.py's ``genotype -f -a 200`` run
 (B=11, N=4,941, P=200), at B=2, N=2048, P=200, at chip_smoke.py's B=2,
-N=512, P=465 and at the cluster tier's edges (B=2, P = 129, 256, 257 at
-N=1024 and 471 at N=512), each line with the layout the checkout's
-``generic_launch`` gives (CTAs a chain, threads, shared bytes) and, where
-it has a cluster tier, each kernel's cudaOccupancyMaxActiveClusters
-reading for that layout.
+N=512, P=465, at the cluster tier's edges (B=2, P = 129, 256, 257 at
+N=1024 and 471 at N=512), and past it on the grid tier: the chunk shape
+of chip_smoke.py's ``genotype -f -a 600`` run (B=2, N=2048, P=600), B=2,
+N=512, P=472, and chip_smoke.py's B=1, N=16, P=1025 and B=1, N=64,
+P=2049; each line with the layout the checkout's ``generic_launch``
+gives (CTAs a chain, threads, shared bytes), on the cluster tier each
+kernel's cudaOccupancyMaxActiveClusters reading for that layout, and on
+the grid tier its layout and the CTAs the card holds at once.
 
 ``--ranks`` (with ``--wide``'s shapes and B=22, N=1024, P=200, a batch
 past what the card holds in clusters of 8 at once) times the cluster
@@ -35,6 +38,17 @@ all at once, and drives each with ``fb_kernels.CLUSTER_RANKS`` (and
 takes the layout of one already timed (fewer CTAs do not hold a band of
 P paths in registers, or the batch halves them) is left out; each line
 names the layout it took.
+
+``--grid`` builds ``csrc/fb.cu`` with each GRID_BUILDS define, all at
+once, and times the grid tier of each against the library's tier, in
+turns (each build twice, the order reversed the second time), at
+GRID_SHAPES: with FBE_GRID_ONLY the grid tier in place of the cluster
+tier at B=2, N=512, P=465; with FBE_GRID_SMS=1 one CTA a chain (no
+arrivals), as the one-CTA tier before the grid tier ran it; with
+FBE_GRID_ONE_HOP the merge in one hop, or in two, wherever the rule
+would take the other. Each build must give the library's results
+(alphas and c_fwd within rtol 2e-4, atol 1e-7); a build whose layout is
+the library's is left out.
 
 ``--ablate`` builds textual cuts of the cluster tier in csrc/fb.cu
 (ABLATIONS, into build/tools/fbe_ablations/, all at once) and times K3
@@ -85,6 +99,19 @@ ABLATIONS = {
     "no_streams": _FETCHES + _STORES,
 }
 ABLATE_SHAPES = [WIDE_SHAPES[0], WIDE_SHAPES[2]]
+# past the cluster tier: the grid tier at genotype -f -a 600's chunk
+# shape, its first P, and chip_smoke.py's shapes of 1025 and 2049 paths
+GRID_SHAPES = [(2, 2048, 600, 32, True), (2, 512, 472, 32, True), (1, 16, 1025, 32, True),
+               (1, 64, 2049, 32, True)]
+# --grid: name: (the build's defines, fb_kernels' settings to match)
+GRID_BUILDS = {
+    "grid_only": ({"FBE_GRID_ONLY": 1}, {"GRID_ONLY": True}),
+    "one_cta": ({"FBE_GRID_SMS": 1}, {"GRID_SMS": 1}),
+    "one_hop": ({"FBE_GRID_ONE_HOP": 1 << 30}, {"GRID_ONE_HOP": 1 << 30}),
+    "two_hops": ({"FBE_GRID_ONE_HOP": 0}, {"GRID_ONE_HOP": 0}),
+}
+GRID_SWEEP_SHAPES = [(2, 512, 465, 32, True), (2, 2048, 600, 32, True),
+                     (1, 16, 1025, 32, True)]
 
 
 def gpu_line() -> str:
@@ -145,6 +172,10 @@ def layout(B, P) -> dict:
     if fb_kernels.cluster_layout(P, B) is not None:
         out["clusters_at_once"] = {name: fb_kernels.cluster_fits(P, B, backward)
                                    for name, backward in (("K3", False), ("K4", True))}
+    elif hasattr(fb_kernels, "grid_layout") and P > fb_kernels.MAX_PATHS:
+        capacity = fb_kernels.grid_capacity()
+        out["grid"] = dict(fb_kernels.grid_layout(P, B, capacity)._asdict(),
+                           ctas_at_once=capacity)
     return out
 
 
@@ -251,6 +282,81 @@ def ranks_sweep(reps: int) -> dict:
     return record
 
 
+def grid_sweep(reps: int) -> dict:
+    """K3/K4 per GRID_BUILDS build and the library at GRID_SWEEP_SHAPES,
+    each timed twice in turns, the order reversed the second time; every
+    build's K3 must give the library's alphas and c_fwd."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from pangenie_tpu_torch import _build
+    from pangenie_tpu_torch.hmm import fb_kernels
+
+    builds = {"library": ((fb_kernels.K3, fb_kernels.K4), {})}
+    for name, (defines, settings) in GRID_BUILDS.items():
+        builds[name] = (tuple(
+            _build.CudaKernel("fb", symbol, "fb", kernel._argtypes, defines=defines)
+            for symbol, kernel in (("pg_fbe_forward", fb_kernels.K3),
+                                   ("pg_fbe_backward", fb_kernels.K4))), settings)
+    with ThreadPoolExecutor(len(builds)) as pool:  # one nvcc a build, all at once
+        list(pool.map(lambda build: build[0][0].lib(), builds.values()))
+    names = ("K3", "K4", "GRID_ONLY", "GRID_SMS", "GRID_ONE_HOP")
+    saved = {name: getattr(fb_kernels, name) for name in names}
+
+    def use(name):
+        for key, value in saved.items():
+            setattr(fb_kernels, key, value)
+        (k3, k4), settings = builds[name]
+        fb_kernels.K3, fb_kernels.K4 = k3, k4
+        for key, value in settings.items():
+            setattr(fb_kernels, key, value)
+
+    def layout(B, P):
+        grid = (fb_kernels.grid_layout(P, B, fb_kernels.grid_capacity())
+                if fb_kernels.tier(P, B) == "grid" else None)
+        return {"tier": fb_kernels.tier(P, B), "launch": fb_kernels.generic_launch(P, B),
+                "grid": grid._asdict() if grid else None}
+
+    dev = torch.device("cuda", 0)
+    record = {}
+    try:
+        for B, N, P, K, mixed in GRID_SWEEP_SHAPES:
+            E, u, ones, zeros, u_after, last = generic_inputs(B, N, P, K, mixed, dev)
+            use("library")
+            want = fb_kernels.forward_e(E, u, ones)
+            keys, runs = [], {}
+            for name in builds:
+                use(name)
+                shape_layout = layout(B, P)
+                if any(runs[o]["layout"] == shape_layout for o in keys):
+                    continue                    # the layout of a build already timed
+                alphas, c_fwd = fb_kernels.forward_e(E, u, ones)
+                torch.testing.assert_close(alphas, want[0], rtol=2e-4, atol=1e-7)
+                torch.testing.assert_close(c_fwd, want[1], rtol=2e-4, atol=1e-7)
+                keys.append(name)
+                runs[name] = {"layout": shape_layout, "K3_ms": [], "K4_ms": []}
+                del alphas, c_fwd
+            bwd = (want[0], want[1], E, u, zeros, u_after, last, zeros)
+            for order in (keys, keys[::-1]):
+                for name in order:
+                    use(name)
+                    runs[name]["K3_ms"].append(
+                        cuda_ms(lambda: fb_kernels.forward_e(E, u, ones), reps))
+                    runs[name]["K4_ms"].append(cuda_ms(lambda: fb_kernels.backward_e(*bwd), reps))
+            record[f"B={B} N={N} P={P}"] = {
+                name: dict(runs[name],
+                           K3_us_per_column=[t * 1e3 / N for t in runs[name]["K3_ms"]],
+                           K4_us_per_column=[t * 1e3 / N for t in runs[name]["K4_ms"]])
+                for name in keys}
+            del E, u, want, bwd
+            torch.cuda.empty_cache()
+    finally:
+        for key, value in saved.items():
+            setattr(fb_kernels, key, value)
+    return record
+
+
 def ablations(reps: int) -> list:
     """K3/K4's cluster tier from csrc/fb.cu as it is ("full") and from
     each ABLATIONS cut, built with nvcc at once, timed at ABLATE_SHAPES in
@@ -350,6 +456,7 @@ def main() -> int:
     ap.add_argument("--wide", action="store_true")
     ap.add_argument("--ranks", action="store_true")
     ap.add_argument("--ablate", action="store_true")
+    ap.add_argument("--grid", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
 
@@ -363,11 +470,15 @@ def main() -> int:
         print(json.dumps({"ranks": ranks_sweep(args.reps), "root": args.root, "gpu": gpu}),
               flush=True)
         return 0
+    if args.grid:
+        print(json.dumps({"grid": grid_sweep(args.reps), "root": args.root, "gpu": gpu}),
+              flush=True)
+        return 0
     if args.ablate:
         for record in ablations(args.reps):
             print(json.dumps({**record, "gpu": gpu}), flush=True)
         return 0
-    for shape in WIDE_SHAPES + EDGE_SHAPES if args.wide else SHAPES:
+    for shape in WIDE_SHAPES + EDGE_SHAPES + GRID_SHAPES if args.wide else SHAPES:
         print(json.dumps({"root": args.root, **time_shape(*shape, args.reps), "gpu": gpu}),
               flush=True)
     return 0
