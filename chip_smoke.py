@@ -44,9 +44,10 @@ Phases, each printed as it runs; any failure exits non-zero:
    cooperative grid of CTAs a chain, the column sums merged through L2)
    at B=1, N=16, P=1025 and at B=1, N=64, P=2049 (the band in shared
    memory), each with its CTAs a chain, where the band lives and the
-   CTAs the card holds at once. K2 runs its one-warp tier at P <= 32 (the
-   bench shape at A=2 printed beside the time of the kernel it
-   replaced) and its 256-thread tier at 32 < P <= 128. Each
+   CTAs the card holds at once. K1 and K2 run their one-warp tier at P
+   <= 32 and A <= 8 (one rule for both, pg_fb_threads in csrc/fb.cu; K2 at
+   the bench shape at A=2 printed beside the time of the kernel it
+   replaced) and their 256-thread tier at 32 < P <= 128. Each
    kernel's bound (hmm/bounds.py: bytes over 3.35 TB/s or operations
    over 67 TFLOP/s, the larger) is printed beside its time, with the
    bytes/s achieved;
@@ -76,9 +77,11 @@ Phases, each printed as it runs; any failure exits non-zero:
 5. profile: the same command once more under torch.profiler; its VCF
    body must equal the first run's, and the device's busy time and idle
    share over the run are printed; then the batch the run handed to the
-   fused route (its own columns and padded A, so the K2 instance it
-   took): K1/K2 against the plain versions and timed, and the two routes
-   on it, in turns;
+   fused route (its own columns and padded A, so the K1/K2 instances it
+   took): K1/K2 against the plain versions and timed, K1 against the
+   256-thread kernel its one-warp tier replaced, launched on the same
+   batch for this (K1_CTA: the same bits, or the phase fails) and timed
+   beside it, and the two routes on it, in turns;
 6. SV panel: one 20 Mb chromosome (about 150,000 variants, so more than
    2^17 HMM columns), 44 samples = 89 paths (no auto-sampling), 1% SV
    sites each rewritten into 8-15 distinct 100-400 bp insertion ALTs,
@@ -197,6 +200,10 @@ ROUTE_SHAPES = [(2, 65536, 16, 16, 2), (2, 8192, 89, 32, 16)]
 # K2 at the bench path's shape before its one-warp tier, on an NVIDIA H100
 # 80GB HBM3 at 700 W (PERF.md; tools/k2_times.py times both in one run)
 K2_BEFORE_MS = 207.029
+# K1 on the bench run's own batch (B=2 N=65,536 P=16 A=4) before its
+# one-warp tier, the 256-thread kernel, on an NVIDIA H100 80GB HBM3 at
+# 700 W (PERF.md; tools/k2_times.py --root times the parent beside it)
+K1_BEFORE_MS = 148.622
 # K3/K4 at the SV path's shape, as the redesign's acceptance set them (ms)
 GENERIC_TARGETS = {"K3": 550.0, "K4": 730.0}
 # the bench workload (bench.py:191-192, not cut) and the SV panel
@@ -269,11 +276,20 @@ def against_bound(t: dict, key: str) -> str:
             f"{t[key] * 1e3 / t[key + '_cols']:.3f} us per column")
 
 
-def hold_fb(cols, what: str, gpu: str, parent_ms=None, timed_cols=None):
+def fused_tier(P: int, A: int) -> str:
+    """K1's and K2's tier for P paths and A alleles (one rule for both)."""
+    from pangenie_tpu_torch.hmm import fb_kernels
+
+    threads = fb_kernels.K1.lib().pg_fb_threads(P, A)
+    return "one warp a chain" if threads == 32 else f"{threads} threads a chain"
+
+
+def hold_fb(cols, what: str, gpu: str, parent_ms=None, timed_cols=None, k1_parent_ms=None):
     """K1 and K2 against the plain forward-backward on the columns
     ``cols``, timed beside their bounds on ``timed_cols`` (default
-    ``cols``). Returns the times, with K1's and K2's largest absolute
-    errors."""
+    ``cols``); ``parent_ms`` / ``k1_parent_ms`` are printed beside K2's /
+    K1's time. Returns the times, with K1's and K2's largest absolute
+    errors and their tier."""
     import torch
 
     from pangenie_tpu_torch.hmm import bounds, fb_kernels
@@ -310,12 +326,14 @@ def hold_fb(cols, what: str, gpu: str, parent_ms=None, timed_cols=None):
         "K1_work": bounds.k1(B, N, P, A), "K1_cols": N,
         "K2_work": bounds.k2(B, N, P, A), "K2_cols": N,
         "shape": f"B={B} N={N} P={P} A={A}", "K1_err": e1, "K2_err": e2,
+        "tier": fused_tier(P, A),
     }
     print(f"  fb {what}: ok (K1 max_abs_err {e1:.3e}, K2 max_abs_err {e2:.3e})")
-    tier = ("one warp a chain" if fb_kernels.K2.lib().pg_fb_backward_threads(P, A) == 32
-            else "256 threads a chain")
+    tier = t["tier"]
     parent = f" (the 256-thread kernel before: {parent_ms} ms)" if parent_ms else ""
-    print(f"  times {what} [{gpu}]: K1 {t['K1']:.3f} ms, plain "
+    k1_parent = (f" (the 256-thread kernel before: {k1_parent_ms} ms)" if k1_parent_ms
+                 else "")
+    print(f"  times {what} [{gpu}]: K1 ({tier}) {t['K1']:.3f} ms{k1_parent}, plain "
           f"{t['K1_plain']:.3f} ms; K2 ({tier}) {t['K2']:.3f} ms{parent}, plain "
           f"{t['K2_plain']:.3f} ms; {against_bound(t, 'K1')}; "
           f"{against_bound(t, 'K2')}", flush=True)
@@ -348,13 +366,32 @@ def check_fb(device, gpu) -> None:
 
 def check_bench_columns(cols, gpu):
     """K1/K2 on the bench run's own fused batch (the padded A it had, so
-    the K2 instance it took) against the plain versions, timed; then the
-    two routes on those columns (:func:`time_routes`). Returns the
-    errors and times."""
+    the K1/K2 instances it took) against the plain versions, timed; K1
+    against the 256-thread kernel it replaced there (K1_CTA), which must
+    give the same bits (so the VCF does not depend on K1's tier), timed
+    on the same batch; then the two routes on those columns
+    (:func:`time_routes`). Returns the errors and times."""
+    import torch
+
+    from pangenie_tpu_torch.hmm import fb_kernels
+    from pangenie_tpu_torch.hmm.forward_backward import allele_emissions
+
     B, N, P = cols.allele_local.shape
     A = cols.incidence.shape[-1]
     what = f"the bench run's batch B={B} N={N} P={P} A={A}"
-    t = hold_fb(cols, what, gpu)
+    t = hold_fb(cols, what, gpu, k1_parent_ms=K1_BEFORE_MS)
+    ea = allele_emissions(cols)
+    al, tr = cols.allele_local, cols.trans
+    got = fb_kernels.forward(ea, al, tr)
+    cta = fb_kernels.forward(ea, al, tr, fb_kernels.K1_CTA)
+    same = all(torch.equal(g.view(torch.int32), c.view(torch.int32))
+               for g, c in zip(got, cta))
+    t["K1_cta"] = cuda_ms(lambda: fb_kernels.forward(ea, al, tr, fb_kernels.K1_CTA), 3)
+    print(f"  K1 {what} [{gpu}]: {t['K1']:.3f} ms ({t['tier']}) against the 256-thread "
+          f"kernel's {t['K1_cta']:.3f} ms on the same batch in this run; outputs "
+          f"{'the same bits' if same else 'NOT the same bits'}", flush=True)
+    assert same, "K1's one-warp tier does not give the 256-thread kernel's bits"
+    del ea, got, cta
     time_routes(cols, what, gpu)
     return t
 
@@ -1056,7 +1093,8 @@ def time_routes(cols, what: str, gpu: str) -> None:
     chunks = fb_generic.last_walk[2]
     f1, g1 = cuda_ms(fused, 3), cuda_ms(generic, 3)
     g2, f2 = cuda_ms(generic, 3), cuda_ms(fused, 3)
-    print(f"  routes {what} [{gpu}]: fused (emissions, K1, K2) {f1:.3f} / {f2:.3f} "
+    tier = fused_tier(cols.allele_local.shape[-1], cols.incidence.shape[-1])
+    print(f"  routes {what} [{gpu}]: fused (emissions, K1, K2; {tier}) {f1:.3f} / {f2:.3f} "
           f"ms; generic (bucketed emissions, K3/K4 in {chunks} chunk(s), collapse) "
           f"{g1:.3f} / {g2:.3f} ms (in turns); the routes' posteriors divided by "
           f"their column sums agree on {int(kept.sum())} of {n_real} columns (the "
@@ -1945,6 +1983,10 @@ def smoke(device, gpu, inputs) -> int:
                 "bound_by": by, "bytes": t[key + "_work"].nbytes,
                 "us_per_column": t[key] * 1e3 / t[key + "_cols"], "library_ms": None}
 
+    def fused_kernel(direction):
+        warp = "_warp" if fb_times["tier"] == "one warp a chain" else ""
+        return f"fb_{direction}{warp}_kernel"
+
     def cluster_keys(P):
         ranks, warps, per_lane, _row = sampling.sweep_layout(P)
         return {"cluster_ctas": ranks, "warps_per_cta": warps, "paths_per_lane": per_lane}
@@ -1957,10 +1999,12 @@ def smoke(device, gpu, inputs) -> int:
     s1_src = "pangenie_tpu_torch/csrc/sampling_dp.cu"
     pallas = "pangenie_tpu/hmm/pallas_fb.py"
     record = {"kernels": [
-        dict(entry("fb_forward (K1)", fb_src, f"{pallas}:122", launches["K1"],
-                   fb_times["K1_err"], fb_times, "K1"), at=fb_times["shape"]),
-        dict(entry("fb_backward (K2)", fb_src, f"{pallas}:148", launches["K2"],
-                   fb_times["K2_err"], fb_times, "K2"), at=fb_times["shape"]),
+        dict(entry(f"fb_forward (K1: {fused_kernel('forward')}, {fb_times['tier']})",
+                   fb_src, f"{pallas}:122", launches["K1"], fb_times["K1_err"], fb_times,
+                   "K1"), at=fb_times["shape"], cta_ms=fb_times["K1_cta"]),
+        dict(entry(f"fb_backward (K2: {fused_kernel('backward')}, {fb_times['tier']})",
+                   fb_src, f"{pallas}:148", launches["K2"], fb_times["K2_err"], fb_times,
+                   "K2"), at=fb_times["shape"]),
         entry("fbe_forward (K3)", fb_src, f"{pallas}:307", sv_launches["K3"],
               g_err["K3"], g_times, "K3"),
         entry("fbe_backward (K4)", fb_src, f"{pallas}:333", sv_launches["K4"],

@@ -1,6 +1,7 @@
 // The pair-HMM forward-backward kernels for Hopper (sm_90a):
 //
-//   K1 fb_forward_kernel, K2 fb_backward_kernel: forward sweep, and
+//   K1 fb_forward_warp_kernel / fb_forward_kernel, K2
+//      fb_backward_warp_kernel / fb_backward_kernel: forward sweep, and
 //      backward sweep + posterior collapse, on [A, A] emissions gathered
 //      to path pairs inside the kernel (the fused route);
 //   K3 fbe_forward_kernel, K4 fbe_backward_kernel: the same sweeps on
@@ -10,8 +11,10 @@
 //      fbe_backward_cluster_kernel, and past what a cluster holds
 //      fbe_forward_grid_kernel / fbe_backward_grid_kernel).
 //
-// Tiers by P: K1 takes P <= 128; K2 runs fb_backward_warp_kernel (one
-// warp a chain) up to P = 32 and fb_backward_kernel up to 128; K3/K4 keep
+// Tiers by P: K1 and K2 run one warp a chain (fb_forward_warp_kernel,
+// fb_backward_warp_kernel) up to P = 32 and A = 8 and a CTA of 256
+// threads a chain (fb_forward_kernel, fb_backward_kernel) up to 128, by
+// one rule for both (pg_fb_threads); K3/K4 keep
 // the state in one CTA's registers up to 128, in the registers of a
 // thread-block cluster of CTAs a chain up to 471 (fbe_cluster_layout),
 // and beyond on a grid of CTAs a chain that merge through L2, the state
@@ -37,9 +40,11 @@
 // to 16 CTAs, and past 471 over up to every SM, whose merge of the
 // column sums then joins the chain.
 //
-// K1 and K2's 256-thread tier: the whole [P, P] f32 state stays in
-// shared memory for the entire sweep (row pitch P+1 so the per-row
-// reductions are free of bank conflicts). Row sums / column sums / total are taken in a fixed
+// K1's and K2's one-warp tiers keep the state in a warp's registers, K1
+// also in shared memory for its sums (their sections below; K1's gives
+// the 256-thread kernel's bits). Their 256-thread tiers: the whole
+// [P, P] f32 state stays in shared memory for the entire sweep (row pitch
+// P+1 so the per-row reductions are free of bank conflicts). Row sums / column sums / total are taken in a fixed
 // order (no atomics: results do not change from run to run), and the
 // state is mixed and normalized in place. K1/K2 gather E[p, q] =
 // EA[al[p], al[q]] from a shared [A, A] tile (exactly the one-hot
@@ -2180,6 +2185,304 @@ fb_backward_warp_kernel(const float* __restrict__ alphas, const float* __restric
     cp_async_wait<0>();
 }
 
+// ---- K1 at P <= 32 (and A <= 8): one warp per chain ----
+//
+// Bit for bit the arithmetic of fb_forward_kernel, the 256-thread tier,
+// so that the VCF a batch gives does not depend on the tier: its
+// transition form (mix), the row and column sums of the normalized state
+// each in order of the index and their total in order of the row, its
+// per-thread partials of cur (cells i, i + 256, ...), the shuffle tree of
+// each of its 8 warps and their sum in order, and the rounding of its
+// division cur / s. (The reference's factored mix with 1 / s folded into
+// the next column, as K3 does, took 0.285 us a column at the bench shape
+// but changed one line of the bench `single` VCF body: PERF.md.) Lane l
+// holds column q = l mod Q and the rows grp + L r of it in registers
+// (K2's layout; its instances but for 32 rows a lane at every Q = 32,
+// FBF_INSTANCES). A column:
+//
+// - the total s of cur: where P = Q (the bench's P = 16) the cells of
+//   the 256-thread kernel's warp w are register w of the 32 lanes
+//   (registers w + 8k at P = 32, its thread's cells i + 256k), so its 8
+//   trees are 8 butterflies of shuffles in the tree's order (16, 8, ...,
+//   1: every lane ends with the bits lane 0 of the tree gets), with no
+//   shared memory; at other P the cells go through a staging column;
+// - alpha = cur / s, rounded once as the IEEE division rounds it, from
+//   one reciprocal of s in double precision a column and a corrected
+//   product a cell (fbf_div): the float division's slow path, which
+//   subnormal cells of real columns take, 8 to 32 times a lane, is gone;
+// - the sums of alpha in the orders above, each a chain of Q adds in one
+//   lane (rows and columns through a transposed copy in shared memory,
+//   Q + 1 floats a row; at Q = 32 a column's sum in its lane's
+//   registers), then their total, a chain of P adds in every lane; three
+//   __syncwarp a column (two where P = Q);
+// - the column's [A, A] emissions, its paths' alleles and its transition
+//   arrive by cp.async in a ring of FBF_RING slots in shared memory,
+//   FBF_RING - 1 columns ahead, by copies planned once, and the lane's
+//   gathered emissions E[al[p], al[q]] are read out of it a column ahead
+//   (at up to 8 rows a lane). A slot holds the emissions at a pitch of
+//   A + 1 with a zero row and column A, and 32 alleles of which those of
+//   paths P to 31 are A: a padding row or column gathers a zero emission
+//   with no predicate, so its cells of cur and alpha are zeros, which
+//   leave every sum's bits as they are.
+//
+// Tier by P: 32 < P <= 128 (or A > 8, which the fused route never sends)
+// keeps fb_forward_kernel (pg_fb_threads, which K2 reads too).
+
+#define FBF_RING 16
+#define FBF_HEADER 4                 // t0, t1, t2, and a word the idle copies land in
+
+__host__ __device__ __forceinline__ int fbf_ea_floats(int A) {
+    return ((A + 1) * (A + 1) + 3) & ~3;
+}
+__host__ __device__ __forceinline__ int fbf_slot_floats(int A) {
+    return FBF_HEADER + fbf_ea_floats(A) + 32;
+}
+// the most paths of instance (Q, RW), and the cells of a thread of the
+// 256-thread kernel there
+__host__ __device__ constexpr int fbf_paths(int Q, int RW) { return Q < 32 ? Q : RW; }
+__host__ __device__ constexpr int fbf_cells(int Q, int RW) {
+    return (fbf_paths(Q, RW) * fbf_paths(Q, RW) + FB_THREADS - 1) / FB_THREADS;
+}
+
+// after the ring: the transposed state [Q, Q + 1], the sums [32], the
+// staging column [256 * fbf_cells]
+static size_t fbf_smem(int Q, int RW, int A) {
+    return sizeof(float) * ((size_t)FBF_RING * fbf_slot_floats(A) + Q * (Q + 1) + 32
+                            + FB_THREADS * fbf_cells(Q, RW));
+}
+
+// cur / s rounded to float once, as the IEEE division rounds it, for 0 <
+// s < 2^24, given sd = s and y = 1 / sd in double precision: the quotient
+// x * y, corrected once by its exact residual, is within 2^-52.9 of
+// cur / s relative to it; cur / s is further than that from every
+// midpoint between floats (over 2^-51 of it where the quotient is normal,
+// over 2^-177 where it is subnormal and s < 2^24), or it is one (only
+// where it is subnormal), and then the correction meets it exactly. So
+// rounding the double to float rounds cur / s; copysignf keeps -0.
+__device__ __forceinline__ float fbf_div(float cur, double sd, double y) {
+    const double x = (double)cur;
+    const double q = x * y;
+    return copysignf((float)fma(fma(-q, sd, x), y, q), cur);
+}
+
+template <int Q, int RW>
+__global__ void __launch_bounds__(32, 1)
+fb_forward_warp_kernel(const float* __restrict__ ea, const int* __restrict__ al,
+                       const float* __restrict__ trans, float* __restrict__ alphas,
+                       float* __restrict__ c_fwd, int N, int P, int A) {
+    constexpr int L = 32 / Q, D = FBF_RING, SP = Q + 1, PM = fbf_paths(Q, RW);
+    constexpr int KM = fbf_cells(Q, RW);
+    // the 256-thread kernel's warps that hold cells (the others add zeros)
+    constexpr int NV = PM * PM >= FB_THREADS ? FB_WARPS : (PM * PM + 31) / 32;
+    const int lane = threadIdx.x, b = blockIdx.x, PP = P * P, AA = A * A, A1 = A + 1;
+    const int q = lane & (Q - 1), grp = lane / Q;
+    const bool aligned = P == Q;
+    const float uniform = 1.0f / (float)PP;
+    const int ea_off = FBF_HEADER, al_off = ea_off + fbf_ea_floats(A);
+    const int pitch = fbf_slot_floats(A);
+    float* st = fbe_shm + D * pitch;             // [Q, SP] alpha of the column before
+    float* sums = st + Q * SP;                   // [32] its row sums, then column sums
+    float* stage = sums + 32;                    // [256 KM] cur, by cell index p P + q
+    const float* ea_b = ea + (size_t)b * N * AA;
+    const int* al_b = al + (size_t)b * N * P;
+    const float* tr_b = trans + (size_t)b * N * 3;
+    float* alpha_b = alphas + (size_t)b * N * PP;
+    float* cf_b = c_fwd + (size_t)b * N;
+
+    // the lane's cells of real paths (bit r: row grp + L r, column q)
+    unsigned valid = 0;
+#pragma unroll
+    for (int r = 0; r < RW; ++r)
+        if (q < P && grp + L * r < P) valid |= 1u << r;
+
+    // Every slot: emissions 0 (row and column A stay so), alleles A (paths
+    // P to 31 stay so); the state, the sums and the staging column 0 (the
+    // cells past P P and rows past RW stay so); published before the first
+    // copies
+    for (int i = lane; i < D * pitch; i += 32) {
+        const int j = i % pitch;
+        if (j >= ea_off && j < al_off) fbe_shm[i] = 0.f;
+        if (j >= al_off) ((int*)fbe_shm)[i] = A;
+    }
+    for (int i = lane; i < Q * SP + 32 + FB_THREADS * KM; i += 32) st[i] = 0.f;
+    __syncwarp();
+
+    // The copies of one column into its slot, planned once, one 4-byte
+    // copy a scalar (the [A, A] emissions, the paths' alleles, t0-t2)
+    // spread over the lanes, the idle ones into the header's spare word;
+    // every source pointer steps one column per copy. Columns are copied
+    // in order 0, 1, ... into slots 0, 1, ... mod D.
+    constexpr int NS = (FBW_MAX_ALLELES * FBW_MAX_ALLELES + Q + 3 + 31) / 32;
+    const char* s_src[NS];
+    int s_step[NS], s_dst[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+        int j = lane + 32 * i;
+        s_src[i] = (const char*)ea_b;                  // a valid address where idle
+        s_step[i] = 0;
+        s_dst[i] = 4 * 3;
+        if (j < AA) {
+            s_src[i] = (const char*)(ea_b + j);
+            s_step[i] = 4 * AA;
+            s_dst[i] = 4 * (ea_off + j / A * A1 + j % A);
+        } else if ((j -= AA) < P) {
+            s_src[i] = (const char*)(al_b + j);
+            s_step[i] = 4 * P;
+            s_dst[i] = 4 * (al_off + j);
+        } else if ((j -= P) < 3) {
+            s_src[i] = (const char*)(tr_b + j);
+            s_step[i] = 12;
+            s_dst[i] = 4 * j;
+        }
+    }
+    int f_slot = 0, f_col = 0;
+    auto fetch_next = [&]() {
+        const bool live = f_col < N;
+        char* s = (char*)(fbe_shm + f_slot * pitch);
+#pragma unroll
+        for (int i = 0; i < NS; ++i)
+            if (live) cp_async4(s + s_dst[i], s_src[i]);
+#pragma unroll
+        for (int i = 0; i < NS; ++i) s_src[i] += s_step[i];
+        f_slot = f_slot + 1 == D ? 0 : f_slot + 1;
+        ++f_col;
+    };
+    // a column's inputs, read from its slot (a column ahead of their use
+    // where RW <= 8): the lane's gathered emissions and the transition
+    struct Inputs {
+        float e[RW];
+        float t0, t1, t2;
+    };
+    auto load = [&](int slot, Inputs& x) {
+        const float* s = fbe_shm + slot * pitch;
+        const int* als = (const int*)(s + al_off) + grp;
+        const float* eas = s + ea_off + ((const int*)(s + al_off))[q];
+#pragma unroll
+        for (int r = 0; r < RW; ++r) x.e[r] = eas[als[L * r] * A1];
+        x.t0 = s[0];
+        x.t1 = s[1];
+        x.t2 = s[2];
+    };
+
+    for (int j = 0; j < D - 1; ++j) {                     // columns 0 .. D-2
+        fetch_next();
+        cp_async_commit();
+    }
+    constexpr bool AHEAD = RW <= 8;
+    cp_async_wait<D - 2>();                               // column 0
+    __syncwarp();
+    Inputs x, y;
+    if (AHEAD) load(0, x);
+    // a: alpha of the column before; R the row sums of the lane's rows, C
+    // the sum of its column, h their total (fb_forward_kernel's s_row,
+    // s_col, h)
+    float a[RW], R[RW], C = 0.f, h = 0.f;
+#pragma unroll
+    for (int r = 0; r < RW; ++r) a[r] = R[r] = 0.f;
+
+    for (int n = 0; n < N; ++n) {
+        // column n's inputs are in x or in slot n % D, published
+        if (!AHEAD) load(n % D, x);
+        float cur[RW];
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+            // the first column starts from all-ones (src/hmm.cpp:236-239)
+            const float prev = n == 0 ? 1.f : mix(a[r], R[r], C, h, x.t0, x.t1, x.t2);
+            cur[r] = prev * x.e[r];
+        }
+        if (!aligned) {
+#pragma unroll
+            for (int r = 0; r < RW; ++r)
+                if (valid >> r & 1) stage[(grp + L * r) * P + q] = cur[r];
+        }
+        // off the chain: column n + D - 1 into the slot of column n - 1
+        fetch_next();
+        cp_async_commit();
+
+        // the total of cur as fb_forward_kernel's block_sum takes it: the
+        // partial of its thread t = 32 w + lane (cells t, t + 256, ...),
+        // the tree of warp w, then the warps in order
+        float part[NV];
+        if (aligned) {
+#pragma unroll
+            for (int w = 0; w < NV; ++w) {
+                part[w] = 0.f;
+#pragma unroll
+                for (int k = 0; k < KM; ++k)
+                    part[w] += valid >> (w + 8 * k) & 1 ? cur[w + 8 * k] : 0.f;
+            }
+        } else {
+            __syncwarp();
+#pragma unroll
+            for (int w = 0; w < NV; ++w) {
+                part[w] = 0.f;
+#pragma unroll
+                for (int k = 0; k < KM; ++k) part[w] += stage[32 * w + lane + FB_THREADS * k];
+            }
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+            for (int w = 0; w < NV; ++w) part[w] += __shfl_xor_sync(FULL_MASK, part[w], o);
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < NV; ++w) s += part[w];
+
+        // alpha, to global memory and to the transposed state
+        if (s > 0.f && s < 0x1p24f) {
+            const double sd = s, inv = 1.0 / sd;
+#pragma unroll
+            for (int r = 0; r < RW; ++r) a[r] = fbf_div(cur[r], sd, inv);
+        } else if (s > 0.f) {                 // never on real columns
+#pragma unroll
+            for (int r = 0; r < RW; ++r) a[r] = cur[r] / s;
+        } else {
+#pragma unroll
+            for (int r = 0; r < RW; ++r) a[r] = valid >> r & 1 ? uniform : 0.f;
+        }
+        float* out = alpha_b + (size_t)n * PP;
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+            const int p = grp + L * r;
+            if (valid >> r & 1) out[p * P + q] = a[r];
+            if (L * RW <= Q || p < Q) st[p * SP + q] = a[r];
+        }
+        if (lane == 0) cf_b[n] = s > 0.f ? s : 1.f;
+        // every lane's copies of column n + 1 have arrived
+        cp_async_wait<D - 2>();
+        __syncwarp();
+        if (AHEAD) load((n + 1) % D, y);
+
+        // the row and column sums of alpha, each in order of the index:
+        // lanes [0, Q) sum row `lane`, lanes [Q, 2Q) column lane - Q; at Q =
+        // 32 every lane sums its row and its column's registers
+        float acc = 0.f;
+        if (Q == 32) {
+            C = 0.f;
+#pragma unroll
+            for (int r = 0; r < RW; ++r) C += a[r];
+#pragma unroll
+            for (int j = 0; j < Q; ++j) acc += st[lane * SP + j];
+        } else {
+            const bool row = lane < Q;
+            const int c = lane - Q < Q ? lane - Q : 0;
+#pragma unroll
+            for (int j = 0; j < Q; ++j) acc += st[row ? lane * SP + j : j * SP + c];
+        }
+        sums[lane] = acc;
+        __syncwarp();
+        // their total in order of the row, and the lane's rows and column
+        h = 0.f;
+#pragma unroll
+        for (int p = 0; p < PM; ++p) h += sums[p];
+#pragma unroll
+        for (int r = 0; r < RW; ++r) R[r] = sums[grp + L * r < Q ? grp + L * r : 0];
+        if (Q < 32) C = sums[Q + q];
+        if (AHEAD) x = y;
+    }
+    cp_async_wait<0>();
+}
+
 static size_t forward_smem(int P, int A) {
     return sizeof(float) * ((size_t)P * (P + 1) + 2 * P + A * A + FB_WARPS)
         + sizeof(int) * P;
@@ -2421,27 +2724,64 @@ static int fbe_backward_grid(const FbgLayout& l, const float* alphas, const floa
 #define FBE_INSTANCES(X) \
     X(1, 1) X(2, 1) X(3, 2) X(4, 2) X(5, 3) X(6, 3) X(7, 4) X(8, 4)
 
-// (Q, RW) of every K2 warp-tier instance: Q lanes a row (P rounded up to
-// a power of two), RW = Q / (32 / Q) rows a lane (at least 1; at Q = 32,
-// 24 up to P = 24)
+// (Q, RW) of every K1/K2 warp-tier instance: Q lanes a row (P rounded up
+// to a power of two), RW = Q / (32 / Q) rows a lane (at least 1; at Q =
+// 32, 24 up to P = 24)
 #define FBW_INSTANCES(X) \
     X(1, 1) X(2, 1) X(4, 1) X(8, 2) X(16, 8) X(32, 24) X(32, 32)
 
+// The warp tier's instance for P paths
+static void fbw_shape(int P, int& Q, int& RW) {
+    Q = 1;
+    while (Q < P) Q <<= 1;
+    RW = Q < 32 ? (Q * Q + 31) / 32 : (P <= 24 ? 24 : 32);
+}
+
+// (Q, RW) of every K1 warp-tier instance: K2's, but 32 rows a lane at P =
+// 17..32 (24 rows a lane took 422.6 against 163.3 ms at B=2 N=65,536 P=24
+// on an NVIDIA H100 80GB HBM3 at 700 W: tools/k2_times.py --forks, PERF.md)
+#define FBF_INSTANCES(X) \
+    X(1, 1) X(2, 1) X(4, 1) X(8, 2) X(16, 8) X(32, 32)
+
 extern "C" const char* pg_fb_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
+}
+
+// K1's and K2's tier, one rule for both so that they never split a batch:
+// the threads of their CTA, 32 (one warp a chain) or FB_THREADS
+extern "C" int pg_fb_threads(int P, int A) {
+    return P <= FBW_MAX_PATHS && A <= FBW_MAX_ALLELES ? 32 : FB_THREADS;
 }
 
 extern "C" int pg_fb_forward(const float* ea, const int* al, const float* trans,
                              float* alphas, float* c_fwd, int B, int N, int P,
                              int A, void* stream) {
     if (A < 1 || P < 1 || P > FB_MAX_PATHS) return (int)cudaErrorInvalidValue;
+    if (pg_fb_threads(P, A) == 32) {                     // K1's one-warp tier
+        int Q, RW;
+        fbw_shape(P, Q, RW);
+        if (Q == 32) RW = 32;                            // FBF_INSTANCES
+#define FBF_FORWARD(q, rw)                                                   \
+        if (Q == q && RW == rw)                                              \
+            return launch(fb_forward_warp_kernel<q, rw>, B, 32, fbf_smem(q, rw, A), \
+                          stream, ea, al, trans, alphas, c_fwd, N, P, A);
+        FBF_INSTANCES(FBF_FORWARD)
+#undef FBF_FORWARD
+        return (int)cudaErrorInvalidValue;
+    }
     return launch(fb_forward_kernel, B, FB_THREADS, forward_smem(P, A), stream,
                   ea, al, trans, alphas, c_fwd, N, P, A);
 }
 
-// K2's tier: the threads of its CTA, 32 (one warp) or FB_THREADS
-extern "C" int pg_fb_backward_threads(int P, int A) {
-    return P <= FBW_MAX_PATHS && A <= FBW_MAX_ALLELES ? 32 : FB_THREADS;
+// K1's 256-thread kernel at any P up to FB_MAX_PATHS, which pg_fb_forward
+// launches only past the one-warp tier: the reference that the tier's
+// outputs equal bit for bit (tests, chip_smoke.py, tools/k2_times.py)
+extern "C" int pg_fb_forward_cta(const float* ea, const int* al, const float* trans,
+                                 float* alphas, float* c_fwd, int B, int N, int P,
+                                 int A, void* stream) {
+    if (A < 1 || P < 1 || P > FB_MAX_PATHS) return (int)cudaErrorInvalidValue;
+    return launch(fb_forward_kernel, B, FB_THREADS, forward_smem(P, A), stream,
+                  ea, al, trans, alphas, c_fwd, N, P, A);
 }
 
 extern "C" int pg_fb_backward(const float* alphas, const float* c_fwd,
@@ -2449,10 +2789,9 @@ extern "C" int pg_fb_backward(const float* alphas, const float* c_fwd,
                               const int* is_last, float* posts, int B,
                               int N, int P, int A, void* stream) {
     if (A < 1 || P < 1 || P > FB_MAX_PATHS) return (int)cudaErrorInvalidValue;
-    if (pg_fb_backward_threads(P, A) == 32) {
-        int Q = 1;
-        while (Q < P) Q <<= 1;
-        const int RW = Q < 32 ? (Q * Q + 31) / 32 : (P <= 24 ? 24 : 32);
+    if (pg_fb_threads(P, A) == 32) {
+        int Q, RW;
+        fbw_shape(P, Q, RW);
         const size_t smem = fbw_smem(P, A);
 #define FBW_BACKWARD(q, rw)                                                  \
         if (Q == q && RW == rw)                                              \

@@ -2,6 +2,9 @@
 (forward) and K2 (backward) on [A, A] emissions, K3 (forward) and K4
 (backward) on precomputed [P, P] state emissions.
 
+K1 and K2 run one warp a chain up to 32 paths and 8 alleles, else a CTA
+of 256 threads a chain (:func:`fused_threads`, one rule for both).
+
 On CPU tensors each wrapper runs its plain torch version
 (``forward_plain`` / ``backward_plain`` in ``forward_backward.py``,
 ``forward_e_plain`` / ``backward_e_plain`` in ``fb_generic.py``); on
@@ -36,6 +39,10 @@ _I = ctypes.c_int
 
 # kernel K1: replaces pangenie_tpu/hmm/pallas_fb.py:_fwd_kernel
 K1 = CudaKernel("fb", "pg_fb_forward", "fb", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+# K1's 256-thread kernel at any P (which K1 launches past 32 paths): the
+# reference that K1's one-warp tier equals bit for bit; chip_smoke.py and
+# the card tests launch it, the port's path never does
+K1_CTA = CudaKernel("fb", "pg_fb_forward_cta", "fb", K1._argtypes)
 # kernel K2: replaces pangenie_tpu/hmm/pallas_fb.py:_bwd_kernel
 K2 = CudaKernel(
     "fb", "pg_fb_backward", "fb", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
@@ -45,10 +52,18 @@ K3 = CudaKernel("fb", "pg_fbe_forward", "fb", [_P] * 6 + [_I] * 6 + [_P])
 # kernel K4: replaces pangenie_tpu/hmm/pallas_fb.py:_bwd_kernel_e
 K4 = CudaKernel("fb", "pg_fbe_backward", "fb", [_P] * 11 + [_I] * 6 + [_P])
 
-# K1 (and K2 above 32 paths): a CTA's 256 threads compute the P row sums
-# and P column sums in parallel; K3/K4's register tiers give each of 16
-# warps at most 8 rows and each lane at most 4 columns
+# K1/K2 above 32 paths: a CTA's 256 threads compute the P row sums and P
+# column sums in parallel; K3/K4's register tiers give each of 16 warps at
+# most 8 rows and each lane at most 4 columns
 MAX_PATHS = 128
+
+
+def fused_threads(P: int, A: int) -> int:
+    """The threads a chain of K1 and of K2 for P paths and A alleles (one
+    rule for both, mirrors pg_fb_threads in csrc/fb.cu): 32, one warp a
+    chain, up to 32 paths and 8 alleles, else a CTA of 256."""
+    return 32 if P <= 32 and A <= 8 else 256
+
 
 # K3/K4's launch (checked again by fbe_config_ok in csrc/fb.cu): shared
 # memory one H100 block can use, warps (FBE_WARPS), the slots of the E
@@ -349,8 +364,9 @@ def _shape_check(ea, allele_local):
     return B, N, P, A
 
 
-def forward(ea, allele_local, trans):
-    """(alphas [B, N, P, P], c_fwd [B, N]) — kernel K1 on CUDA tensors."""
+def forward(ea, allele_local, trans, kernel: CudaKernel = K1):
+    """(alphas [B, N, P, P], c_fwd [B, N]) — kernel K1 on CUDA tensors
+    (``kernel=K1_CTA``: its 256-thread kernel at any P, the same bits)."""
     if ea.device.type == "cpu":
         return forward_plain(ea, allele_local, trans)
     B, N, P, A = _shape_check(ea, allele_local)
@@ -362,8 +378,8 @@ def forward(ea, allele_local, trans):
     alphas = torch.empty((B, N, P, P), dtype=torch.float32, device=dev)
     c_fwd = torch.empty((B, N), dtype=torch.float32, device=dev)
     if B and N:
-        K1(ea.data_ptr(), al.data_ptr(), trans.data_ptr(), alphas.data_ptr(),
-           c_fwd.data_ptr(), B, N, P, A, launch_stream(dev))
+        kernel(ea.data_ptr(), al.data_ptr(), trans.data_ptr(), alphas.data_ptr(),
+               c_fwd.data_ptr(), B, N, P, A, launch_stream(dev))
     return alphas, c_fwd
 
 

@@ -7,6 +7,11 @@ where there is no GPU. Run them on a GPU machine with
 (the GPU machine has no JAX, which tests/conftest.py imports).
 """
 
+import json
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -634,3 +639,90 @@ def test_k2_at_a_long_chain(cuda):
     p = fb_kernels.backward(a, c, ea, cols.allele_local, cols.trans, cols.is_last)
     p_ref = backward_plain(a, c, ea, cols.allele_local, cols.trans, cols.is_last)
     torch.testing.assert_close(p, p_ref, rtol=2e-4, atol=1e-7)
+
+
+def _same_bits(got, want):
+    """Two tuples of float32 tensors hold the same bits (-0 is not 0)."""
+    return all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+               for g, w in zip(got, want))
+
+
+def _cta_bits(ea, al, trans, got):
+    """K1's outputs ``got`` are those of its 256-thread kernel (K1_CTA, at
+    any P) on the same inputs, bit for bit; the comparison launch is not
+    counted as K1's."""
+    launches = fb_kernels.K1.launches
+    assert _same_bits(got, fb_kernels.forward(ea, al, trans, fb_kernels.K1_CTA))
+    assert fb_kernels.K1.launches == launches
+
+
+@pytest.mark.parametrize("A", [2, 8])
+@pytest.mark.parametrize("P", range(1, 33))
+def test_k1_one_warp_tier_matches_plain(cuda, P, A):
+    """K1's one-warp tier (P <= 32) against forward_plain on B=3 chains
+    of 50 columns (more than its ring), with an all-zero emission column
+    (uniform alphas, c_fwd 1); two launches give the same bits, those of
+    the 256-thread kernel."""
+    _alphas, _c, ea, al, trans, _last = (
+        x.to(cuda) for x in _k2_inputs(3, 50, P, A, seed=100 * P + A))
+    launches = fb_kernels.K1.launches
+    got = fb_kernels.forward(ea, al, trans)
+    again = fb_kernels.forward(ea, al, trans)
+    torch.cuda.synchronize()
+    assert fb_kernels.K1.launches == launches + 2
+    for g, w in zip(got, forward_plain(ea, al, trans)):
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=1e-7)
+    assert _same_bits(again, got)
+    _cta_bits(ea, al, trans, got)
+
+
+@pytest.mark.parametrize("further", [1.0, 1e-16])
+@pytest.mark.parametrize("P,A", [(16, 2), (16, 8), (32, 2), (33, 8)])
+def test_k1_after_tiny_emissions(cuda, P, A, further):
+    """K1 where two columns' emissions are near 1e-25 (_tiny_columns), or
+    1e-16 times that (subnormal: the total of cur is near 5e-42, whose
+    reciprocal overflows float32), on both tiers, against forward_plain."""
+    _alphas, _c, ea, al, trans, _last = _k2_inputs(3, 50, P, A, seed=7 * P + A)
+    ea = _tiny_columns(ea, 1, 30)
+    ea[1, 30:32] *= further
+    ea, al, trans = ea.to(cuda), al.to(cuda), trans.to(cuda)
+    got = fb_kernels.forward(ea, al, trans)
+    assert bool(torch.isfinite(got[0]).all())
+    for g, w in zip(got, forward_plain(ea, al, trans)):
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=1e-7)
+    _cta_bits(ea, al, trans, got)
+
+
+def test_k1_at_a_long_chain(cuda):
+    """K1 at B=2 N=65,536 P=16 A=2 (the bench's B, N and P) against the
+    plain version, with the 256-thread kernel's bits."""
+    cols = synthetic_columns(n_columns=65536, n_paths=16, n_kmers=16, n_alleles=2,
+                             batch_dims=(2,), seed=11, dtype=np.float32)
+    cols = columns_from_numpy(cols, cuda, torch.float32)
+    ea = allele_emissions(cols)
+    got = fb_kernels.forward(ea, cols.allele_local, cols.trans)
+    for g, w in zip(got, forward_plain(ea, cols.allele_local, cols.trans)):
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=1e-7)
+    _cta_bits(ea, cols.allele_local, cols.trans, got)
+
+
+@pytest.mark.parametrize("P,A", [(16, 4), (13, 4), (24, 3), (32, 2)])
+def test_k1_one_warp_tier_gives_the_cta_bits_on_subnormal_cells(cuda, P, A):
+    """K1's one-warp tier on B=2 chains of 4096 columns whose emissions,
+    divided by their column's largest, are scaled by 1e-41 for unequal
+    allele pairs: subnormal emissions, so subnormal cells of cur, as on
+    real columns (where the float division takes its slow path and rounds
+    most delicately), and some subnormal alphas: bit for bit the
+    256-thread kernel's outputs, at the bench's P and A, where the cells
+    are staged (P=13) and at Q = 32."""
+    cols = synthetic_columns(n_columns=4096, n_paths=P, n_kmers=16, n_alleles=A,
+                             batch_dims=(2,), seed=P + A, dtype=np.float32)
+    cols = columns_from_numpy(cols, cuda, torch.float32)
+    ea = allele_emissions(cols)
+    ea = ea / ea.amax((-1, -2), keepdim=True)
+    same = torch.eye(A, dtype=torch.bool, device=cuda)
+    ea = torch.where(same, ea, ea * 1e-41).contiguous()
+    tiny = torch.finfo(torch.float32).tiny
+    assert int(((ea != 0) & (ea < tiny)).sum()) > 0
+    got = fb_kernels.forward(ea, cols.allele_local, cols.trans)
+    _cta_bits(ea, cols.allele_local, cols.trans, got)

@@ -1,13 +1,14 @@
-"""Kernels K2, K3 and K4 of ``pangenie_tpu_torch/csrc/fb.cu`` run on the
-CPU by an emulator of the CUDA threads, against their plain versions:
+"""Kernels K1-K4 of ``pangenie_tpu_torch/csrc/fb.cu`` run on the CPU by
+an emulator of the CUDA threads, against their plain versions:
 K3/K4's register tiers, their cluster tier (128 < P <= 471: a
 thread-block cluster of CTAs a chain, the state in registers, the column
 sums merged by pushes into every rank's shared memory) and their grid
 tier past it (a cooperative grid of CTAs a chain, the band's state in
 registers, shared or global memory, the column sums merged through
 global memory in one hop or two; builds with a small FBE_GRID_SMS give
-the few CTAs the emulation can run), K2's one-warp tier (P <= 32, A <= 8)
-and its CTA tier.
+the few CTAs the emulation can run), K1's and K2's one-warp tiers (P <=
+32, A <= 8) and their CTA tiers, K1 also against the JAX package's
+Pallas kernel in interpret mode.
 
 The kernel source is compiled with g++ against the headers of
 ``tests/cuda_emulator/``, which stand in for ``cuda_runtime.h``,
@@ -37,7 +38,14 @@ import torch
 
 from pangenie_tpu_torch import _build
 from pangenie_tpu_torch.hmm import fb_generic, fb_kernels
-from pangenie_tpu_torch.hmm.forward_backward import backward_plain, forward_plain
+from pangenie_tpu_torch.hmm.forward_backward import (
+    allele_emissions,
+    backward_plain,
+    columns_from_numpy,
+    forward_backward,
+    forward_plain,
+)
+from pangenie_tpu_torch.utils.synthetic import synthetic_columns
 from test_torch_cuda_kernels import (
     _edge_inputs,
     _generic_columns,
@@ -60,12 +68,25 @@ def _emulated_source(src: str) -> str:
     return src
 
 
+# K1's one-warp tier's division (fbf_div) over arrays, for its test
+_FBF_DIV_SHIM = """
+extern "C" void test_fbf_div(const float* cur, const float* s, float* out, int n) {
+    for (int i = 0; i < n; ++i) {
+        const double sd = s[i];
+        out[i] = fbf_div(cur[i], sd, 1.0 / sd);
+    }
+}
+"""
+
+
 def _build_emulated(out, defines=()):
     """csrc/fb.cu built against the emulator into ``out`` (with the -D
-    macros ``defines``), its K2-K4 entry points bound."""
+    macros ``defines``), its K1-K4 entry points bound, and
+    ``pg_fb_forward_cta``: K1's 256-thread kernel at any P; and
+    ``test_fbf_div``: the one-warp tier's division."""
     src = out / "fb_emulated.cpp"
     with open(os.path.join(_build.CUDA_SRC_DIR, "fb.cu")) as f:
-        src.write_text(_emulated_source(f.read()))
+        src.write_text(_emulated_source(f.read()) + _FBF_DIV_SHIM)
     lib = out / "libfb_emulated.so"
     subprocess.run(
         ["g++", "-std=c++17", "-O1", "-shared", "-fPIC", "-Wno-unknown-pragmas",
@@ -75,8 +96,12 @@ def _build_emulated(out, defines=()):
     lib = ctypes.CDLL(str(lib))
     lib.pg_fbe_forward.argtypes = fb_kernels.K3._argtypes
     lib.pg_fbe_backward.argtypes = fb_kernels.K4._argtypes
+    lib.pg_fb_forward.argtypes = fb_kernels.K1._argtypes
+    lib.pg_fb_forward_cta.argtypes = fb_kernels.K1._argtypes
     lib.pg_fb_backward.argtypes = fb_kernels.K2._argtypes
-    lib.pg_fb_backward_threads.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.test_fbf_div.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    lib.test_fbf_div.restype = None
+    lib.pg_fb_threads.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.pg_fbe_launch.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.pg_fbe_launch.restype = None
     lib.pg_fbe_cluster_fits.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
@@ -85,7 +110,7 @@ def _build_emulated(out, defines=()):
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """csrc/fb.cu built against the emulator, its K2-K4 entry points bound."""
+    """csrc/fb.cu built against the emulator, its K1-K4 entry points bound."""
     return _build_emulated(tmp_path_factory.mktemp("fb_emulated"))
 
 
@@ -442,7 +467,7 @@ def test_emulated_k2_matches_plain(emulated, P, A):
     emission column: P <= 32 on the one-warp tier, at every lanes-a-row
     layout and both allele buckets (2, 8); P = 33 still on the CTA tier.
     Two launches give the same bits."""
-    assert emulated.pg_fb_backward_threads(P, A) == (32 if P <= 32 else 256)
+    assert emulated.pg_fb_threads(P, A) == (32 if P <= 32 else 256)
     inputs = _k2_inputs(3, 20, P, A, seed=100 * P + A)
     got = _k2(emulated, *inputs)
     want = backward_plain(*inputs)
@@ -469,6 +494,184 @@ def test_emulated_k2_after_tiny_emissions(emulated, P, A):
     alphas, c_fwd = forward_plain(ea, al, trans)
     inputs = (alphas, c_fwd, ea, al, trans, is_last)
     _kept_columns_close(_k2(emulated, *inputs), backward_plain(*inputs))
+
+
+def _k1(lib, ea, al, trans, entry="pg_fb_forward"):
+    B, N, A, _ = ea.shape
+    P = al.shape[2]
+    al32 = al.to(torch.int32).contiguous()
+    alphas = torch.full((B, N, P, P), float("nan"))
+    c_fwd = torch.full((B, N), float("nan"))
+    assert getattr(lib, entry)(ea.data_ptr(), al32.data_ptr(), trans.data_ptr(),
+                               alphas.data_ptr(), c_fwd.data_ptr(), B, N, P, A, None) == 0
+    return alphas, c_fwd
+
+
+def _assert_k1_close(got, want):
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=1e-7)
+
+
+@pytest.mark.parametrize("A", [1, 2, 8])
+@pytest.mark.parametrize("P", [1, 2, 5, 9, 15, 16, 17, 24, 25, 31, 32, 33])
+def test_emulated_k1_matches_plain(emulated, P, A):
+    """K1 against forward_plain on B=3 chains of 20 columns (more than
+    its ring of 16 slots), with is_last inside a chain (K1 reads none)
+    and an all-zero emission column (uniform alphas, c_fwd 1 there): P <=
+    32 on the one-warp tier, at every lanes-a-row layout and 24 rows a
+    lane at P = 17..24, A = 1 (one allele), 2 and 8, bit for bit the
+    256-thread kernel's outputs; P = 33 on that kernel, by the rule K2
+    reads. Two launches give the same bits."""
+    assert emulated.pg_fb_threads(P, A) == fb_kernels.fused_threads(P, A) == (
+        32 if P <= 32 else 256)
+    _alphas, _c, ea, al, trans, _last = _k2_inputs(3, 20, P, A, seed=100 * P + A)
+    got = _k1(emulated, ea, al, trans)
+    want = forward_plain(ea, al, trans)
+    _assert_k1_close(got, want)
+    assert torch.equal(got[0][1, 20 // 3], torch.full((P, P), 1.0 / (P * P)))
+    assert got[1][1, 20 // 3] == 1.0
+    again = _k1(emulated, ea, al, trans)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+    cta = _k1(emulated, ea, al, trans, "pg_fb_forward_cta")
+    assert torch.equal(cta[0], got[0]) and torch.equal(cta[1], got[1])
+
+
+def test_emulated_k1_division_rounds_as_the_float_division(emulated):
+    """The one-warp tier's cur / s (fbf_div: a reciprocal and a corrected
+    product in double precision, then rounded to float) gives the bits of
+    the float32 division for 0 < s < 2^24: on quotients of every exponent
+    from 2^-160 to 2, normal and subnormal cells and totals, exact
+    midpoints between subnormal floats (cur = m s, where the division
+    rounds a tie to even), quotients one float apart from them, and
+    cells of -0, 0 and of either sign."""
+    rng = np.random.default_rng(13)
+    n = 200_000
+    s = np.exp2(rng.uniform(-149, 24, n)).astype(np.float32)
+    cur = (s.astype(np.float64) * np.exp2(rng.uniform(-160, 1, n))).astype(np.float32)
+    cur[: n // 8] = rng.integers(0, 1 << 23, n // 8).astype(np.uint32).view(np.float32)
+    odd_m = 2 * rng.integers(0, 1 << 11, n) + 1
+    odd_s = 2 * rng.integers(0, 1 << 10, n) + 1
+    k = rng.integers(1, 13, n)
+    s_mid = (odd_s * np.exp2(k)).astype(np.float32)
+    cur_mid = (odd_m * odd_s * np.exp2(k - 150.0)).astype(np.float32)
+    assert np.array_equal(cur_mid.astype(np.float64), odd_m * odd_s * np.exp2(k - 150.0))
+    near = np.nextafter(cur_mid, np.float32(np.inf))
+    cur = np.concatenate([cur, cur_mid, near, [0.0, -0.0, 1e-45, -1e-45]]).astype(np.float32)
+    s = np.concatenate([s, s_mid, s_mid, [1.0, 1.0, 2.0, 2.0]]).astype(np.float32)
+    cur[::3] = -cur[::3]
+    got = np.empty_like(cur)
+    emulated.test_fbf_div(cur.ctypes.data, s.ctypes.data, got.ctypes.data, len(cur))
+    want = cur / s
+    assert int((want == 0).sum()) > 1000 and int((np.abs(want) < 2.0 ** -126).sum()) > n // 4
+    bad = np.flatnonzero(got.view(np.int32) != want.view(np.int32))
+    assert bad.size == 0, [(cur[i], s[i], got[i], want[i]) for i in bad[:5]]
+
+
+@pytest.mark.parametrize("N", [1, 3])
+@pytest.mark.parametrize("P", [1, 16])
+def test_emulated_k1_short_chains(emulated, N, P):
+    """Chains shorter than the ring (N = 1 and 3) on the one-warp tier,
+    at P = 1 (one lane a row, 32 a column) and 16, bit for bit the
+    256-thread kernel's."""
+    _alphas, _c, ea, al, trans, _last = _k2_inputs(2, N, P, 2, seed=N + P)
+    got = _k1(emulated, ea, al, trans)
+    _assert_k1_close(got, forward_plain(ea, al, trans))
+    cta = _k1(emulated, ea, al, trans, "pg_fb_forward_cta")
+    assert torch.equal(cta[0], got[0]) and torch.equal(cta[1], got[1])
+
+
+@pytest.mark.parametrize("further", [1.0, 1e-16])
+@pytest.mark.parametrize("P,A", [(16, 2), (16, 8), (32, 2), (33, 8)])
+def test_emulated_k1_after_tiny_emissions(emulated, P, A, further):
+    """K1 where two columns' emissions are near 1e-25 (_tiny_columns, as
+    on real columns), or 1e-16 times that (subnormal: the total of cur is
+    near 5e-42, whose reciprocal overflows float32), on both tiers,
+    against forward_plain: each column is divided by its total before it
+    is mixed, so nothing underflows or overflows."""
+    _alphas, _c, ea, al, trans, _last = _k2_inputs(3, 20, P, A, seed=7 * P + A)
+    ea = _tiny_columns(ea, 1, 8)
+    ea[1, 8:10] *= further
+    got = _k1(emulated, ea, al, trans)
+    assert bool(torch.isfinite(got[0]).all())
+    _assert_k1_close(got, forward_plain(ea, al, trans))
+
+
+@pytest.mark.parametrize("P,A", [(16, 3), (33, 3)])
+def test_emulated_k1_then_k2_match_forward_backward(emulated, P, A):
+    """Emulated K1, then emulated K2 on its alphas and c_fwd, against the
+    plain forward_backward on synthetic columns (B=3, N=20, is_last at
+    column 14 with a padded tail), on both tiers."""
+    B, N = 3, 20
+    cols = synthetic_columns(n_columns=N, n_paths=P, n_kmers=8, n_alleles=A,
+                             batch_dims=(B,), seed=P + A, dtype=np.float32)
+    is_last = np.zeros((B, N), dtype=bool)
+    is_last[:, N - 6] = True
+    cols = columns_from_numpy(cols._replace(is_last=is_last), "cpu", torch.float32)
+    ea = allele_emissions(cols)
+    alphas, c_fwd = _k1(emulated, ea, cols.allele_local, cols.trans)
+    posts = _k2(emulated, alphas, c_fwd, ea, cols.allele_local, cols.trans, cols.is_last)
+    want, _corr = forward_backward(cols)
+    torch.testing.assert_close(posts[:, :N - 5], want[:, :N - 5], rtol=2e-4, atol=1e-7)
+
+
+def _pallas_forward(ea, al, trans):
+    """The JAX package's K1 (pallas_fb._fwd_kernel) in interpret mode on
+    numpy ea [B, N, A, A], al [B, N, P] and trans [B, N, 3] (float32), laid
+    out as forward_backward_batch_pallas lays them out: (alphas [B, N,
+    P, P], c_fwd [B, N])."""
+    from functools import partial
+
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+    from pangenie_tpu.hmm import pallas_fb
+
+    B, N, P = al.shape
+    A = ea.shape[-1]
+    LB, S = pallas_fb.LANE, pallas_fb._pick_segment(P)
+    NP = -(-N // S) * S
+
+    def to_lanes(x):
+        x = jnp.moveaxis(jnp.asarray(x, jnp.float32), 0, -1)
+        pad = [(0, NP - x.shape[0])] + [(0, 0)] * (x.ndim - 2) + [(0, LB - B)]
+        return jnp.pad(x, pad)
+
+    oh = np.eye(A, dtype=np.float32)[al]                                  # [B, N, P, A]
+    args = (to_lanes(ea.reshape(B, N, A * A)), to_lanes(np.swapaxes(oh, 2, 3)),
+            to_lanes(pallas_fb._factor_trans(jnp.asarray(trans))))
+
+    def spec(block, index_map):
+        return pl.BlockSpec(block, index_map, memory_space=pltpu.VMEM)
+
+    with jax.enable_x64(False):
+        alphas, c_fwd = pl.pallas_call(
+            partial(pallas_fb._fwd_kernel, S=S, P=P, A=A),
+            grid=(1, NP // S),
+            in_specs=[spec((S, A * A, LB), lambda b, n: (n, 0, b)),
+                      spec((S, A, P, LB), lambda b, n: (n, 0, 0, b)),
+                      spec((S, 3, LB), lambda b, n: (n, 0, b))],
+            out_specs=[spec((S, P, P, LB), lambda b, n: (n, 0, 0, b)),
+                       spec((S, LB), lambda b, n: (n, b))],
+            out_shape=[jax.ShapeDtypeStruct((NP, P, P, LB), jnp.float32),
+                       jax.ShapeDtypeStruct((NP, LB), jnp.float32)],
+            scratch_shapes=[pltpu.VMEM((P, P, LB), jnp.float32)],
+            interpret=True,
+        )(*args)
+    alphas = np.moveaxis(np.asarray(alphas), -1, 0)[:B, :N]
+    return alphas, np.asarray(c_fwd).T[:B, :N]
+
+
+def test_emulated_k1_matches_the_pallas_kernel(emulated):
+    """K1's one-warp tier at P=16 A=4 (the bench batch's P and padded A),
+    B=2 N=64, against the JAX package's _fwd_kernel run in interpret
+    mode on the same numpy inputs."""
+    B, N, P, A = 2, 64, 16, 4
+    _alphas, _c, ea, al, trans, _last = _k2_inputs(B, N, P, A, seed=1613)
+    got = _k1(emulated, ea, al, trans)
+    want = _pallas_forward(ea.numpy(), al.numpy(), trans.numpy())
+    np.testing.assert_allclose(got[0].numpy(), want[0], rtol=2e-4, atol=1e-7)
+    np.testing.assert_allclose(got[1].numpy(), want[1], rtol=2e-4, atol=1e-7)
 
 
 @pytest.mark.parametrize("P", [16, 129, 257, 472])

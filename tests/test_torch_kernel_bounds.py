@@ -346,6 +346,20 @@ def test_k2_bytes_match_the_tensors_it_takes():
                                                    posts)
 
 
+def test_k1_bytes_match_the_tensors_it_takes():
+    """K1's byte count is the bytes of the tensors the wrapper hands the
+    kernel (allele_local as the int32 it copies) and of its outputs."""
+    from pangenie_tpu_torch.hmm.forward_backward import forward_plain
+
+    B, N, P, A = 2, 6, 5, 3
+    rng = np.random.default_rng(2)
+    ea = torch.from_numpy(rng.random((B, N, A, A)).astype(np.float32))
+    al = torch.from_numpy(rng.integers(0, A, (B, N, P)).astype(np.int32))
+    trans = torch.from_numpy(rng.random((B, N, 3)).astype(np.float32))
+    alphas, c_fwd = forward_plain(ea, al, trans)
+    assert bounds.k1(B, N, P, A).nbytes == _nbytes(ea, al, trans, alphas, c_fwd)
+
+
 @pytest.fixture(scope="module")
 def fb_rule(tmp_path_factory):
     """csrc/fb.cu built against the CUDA emulator (test_torch_fb_emulated),
@@ -387,3 +401,21 @@ def test_grid_layout_at_the_main_shapes(P, B, ctas, store, hops):
     if (P, B) == (600, 2):
         assert (grid.rows, grid.groups, grid.segments, grid.columns_per_lane,
                 grid.rows_per_warp) == (10, 5, 3, 8, 2)
+
+
+@pytest.mark.parametrize("P,A,threads", [(32, 8, 32), (33, 8, 256), (32, 9, 256),
+                                         (33, 9, 256), (1, 1, 32), (16, 4, 32)])
+def test_fused_tier_rule(fb_rule, P, A, threads):
+    """K1's and K2's tier, one rule for both: one warp a chain up to 32
+    paths and 8 alleles, else a CTA of 256 threads. fb_kernels.fused_threads
+    is csrc/fb.cu's pg_fb_threads, which pg_fb_forward and pg_fb_backward
+    both read."""
+    assert fb_rule.pg_fb_threads(P, A) == fb_kernels.fused_threads(P, A) == threads
+
+
+def test_fused_tier_rule_for_every_shape(fb_rule):
+    """fb_kernels.fused_threads is pg_fb_threads for every P up to 128 and
+    A up to 16."""
+    for P in range(1, 129):
+        for A in range(1, 17):
+            assert fb_rule.pg_fb_threads(P, A) == fb_kernels.fused_threads(P, A), (P, A)

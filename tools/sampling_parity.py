@@ -1,6 +1,6 @@
 """Byte-compares two checkouts' ``sampling -x 15`` outputs on one NVIDIA GPU.
 
-    python3 tools/sampling_parity.py --root DIR [--genotype]
+    python3 tools/sampling_parity.py --root DIR [--genotype] [--panels NAME,...]
 
 Simulates chip_smoke.py's large panel (2049 paths, 2 Mb) and widest
 panel (6405 paths, 1 Mb) into ``build/smoke_inputs/`` (cached by their
@@ -22,6 +22,10 @@ paths, 0.2 Mb: K3/K4 past 471 paths), whose body may differ from the
 other tree's in float32 rounding where the two take other kernels:
 whether it is identical is reported, the lines that differ counted, and
 each tree's concordance against the simulated truth must reach 0.98.
+``--panels`` keeps only the named panels (large, widest, bench, sv,
+wide_subsets): ``--genotype --panels bench,large`` compares only what
+runs kernel K1 (``single``, and ``sampling -x 15``, which genotypes at
+16 paths), and the large panel's ``genotype -f``.
 """
 
 from __future__ import annotations
@@ -86,6 +90,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", required=True, help="the other checkout")
     ap.add_argument("--genotype", action="store_true")
+    ap.add_argument("--panels", help="a comma-separated subset of the panels")
     args = ap.parse_args()
     trees = {"change": ROOT, "other": os.path.abspath(args.root)}
     sys.path.insert(0, ROOT)
@@ -102,6 +107,8 @@ def main() -> int:
     if args.genotype:
         panels.update(bench=chip_smoke.BENCH, sv=chip_smoke.SV_PANEL,
                       wide_subsets=chip_smoke.WIDE_SUBSET_PANEL)
+    if args.panels:
+        panels = {name: panels[name] for name in args.panels.split(",")}
     with multiprocessing.get_context("spawn").Pool(len(panels)) as pool:
         made = dict(zip(panels, pool.map(chip_smoke.timed_inputs, panels.values())))
     same_everywhere = True
