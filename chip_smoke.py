@@ -6,8 +6,8 @@ Phases, each printed as it runs; any failure exits non-zero:
 
 1. environment: torch/CUDA versions, GPU name and power limit, nvcc;
 2. build: the CUDA kernels (K1-K4 in csrc/fb.cu, S1's sweep and chase
-   in csrc/sampling_dp.cu) and the host k-mer engine, from this checkout,
-   one compiler per source, all at once.
+   in csrc/sampling_dp.cu, V1 in csrc/viterbi.cu) and the host k-mer
+   engine, from this checkout, one compiler per source, all at once.
    The five end-to-end workloads below are simulated meanwhile, in
    four worker processes, once each into build/smoke_inputs/;
 3. kernel vs plain on the card, with the times of both (float32,
@@ -70,18 +70,28 @@ Phases, each printed as it runs; any failure exits non-zero:
    N=65,536, P=16, A=2 and at B=2, N=8192, P=89 with the 97/2/1% mix of
    A=2/4/16, in turns; their posteriors must agree;
 4. end to end: the bench workload (20 Mb, 2 chromosomes, 61 samples =
-   123 paths, 12x 150 bp reads, seed 11) genotyped with the port's
-   single command on CUDA; the run must dispatch to the fused kernels,
-   launch K1, K2 and S1 (sweep and chase), load the native k-mer engine
-   and reach genotype concordance >= 0.99 against the truth;
+   123 paths, 12x 150 bp reads, seed 11) genotyped and phased with the
+   port's ``single -g -p`` on CUDA; the run must dispatch to the fused
+   kernels, launch K1, K2, S1 (sweep and chase) and V1 (the phasing
+   Viterbi, one launch a phasing batch), write a phasing VCF of every
+   variant, load the native k-mer engine and reach genotype concordance
+   >= 0.99 against the truth;
 5. profile: the same command once more under torch.profiler; its VCF
-   body must equal the first run's, and the device's busy time and idle
-   share over the run are printed; then the batch the run handed to the
-   fused route (its own columns and padded A, so the K1/K2 instances it
-   took): K1/K2 against the plain versions and timed, K1 against the
+   bodies must equal the first run's, and the device's busy time and
+   idle share over the run are printed; then the batch the run handed to
+   the fused route (its own columns and padded A, so the K1/K2 instances
+   it took): K1/K2 against the plain versions and timed, K1 against the
    256-thread kernel its one-warp tier replaced, launched on the same
    batch for this (K1_CTA: the same bits, or the phase fails) and timed
-   beside it, and the two routes on it, in turns;
+   beside it, and the two routes on it, in turns; then the batch the run
+   phased: V1 against its plain version on its first 8,192 columns (the
+   same states, or where they part two paths that tie within 1e-6
+   relative rescored in float64, printed with the column; exit carries
+   the same bits or within 1e-5), V1 again on the whole batch (the run's
+   states) and timed beside its bound; and, in a worker process beside
+   the SV panel's phase, the port's float64 run of the same phasing runs
+   on the CPU, whose phasing VCF is held against the run's after that
+   phase, the lines that differ printed (no gate);
 6. SV panel: one 20 Mb chromosome (about 150,000 variants, so more than
    2^17 HMM columns), 44 samples = 89 paths (no auto-sampling), 1% SV
    sites each rewritten into 8-15 distinct 100-400 bp insertion ALTs,
@@ -206,6 +216,16 @@ K2_BEFORE_MS = 207.029
 K1_BEFORE_MS = 148.622
 # K3/K4 at the SV path's shape, as the redesign's acceptance set them (ms)
 GENERIC_TARGETS = {"K3": 550.0, "K4": 730.0}
+# the bench run's phasing batch is held against V1's plain version (a
+# per-column torch loop) on this many columns; V1 is timed at its full N
+V1_PLAIN_COLUMNS = 8192
+# where V1's and the plain version's states part, the two paths rescored
+# in float64 from the same inputs must agree this closely (relative): a
+# near-tie broken by the last ulp of a column's logsumexp; their exit
+# carries (log values) must agree to this, absolute, where their bits
+# differ
+V1_TIE_RTOL = 1e-6
+V1_CARRY_ATOL = 1e-5
 # the bench workload (bench.py:191-192, not cut) and the SV panel
 BENCH = dict(mb=20.0, chroms=2, samples=61, distance=150, seed=11)
 SV_PANEL = dict(mb=20.0, chroms=1, samples=44, distance=100, seed=13,
@@ -1242,7 +1262,8 @@ def timed_inputs(params: dict):
 
 
 def _run_single(casedir: str, outpref: str) -> float:
-    """The port's single command on CUDA; returns its wall in seconds."""
+    """The port's ``single -g -p`` (genotyping and phasing) on CUDA;
+    returns its wall in seconds."""
     import torch
 
     from pangenie_tpu_torch.commands import run_single_command
@@ -1251,7 +1272,7 @@ def _run_single(casedir: str, outpref: str) -> float:
     run_single_command(
         os.path.join(casedir, "reads.fa"), os.path.join(casedir, "ref.fa"),
         os.path.join(casedir, "panel.vcf"), 31, outpref,
-        nr_jellyfish_threads=2, nr_core_threads=2, device="cuda",
+        nr_jellyfish_threads=2, nr_core_threads=2, only_genotyping=False, device="cuda",
     )
     torch.cuda.synchronize()
     return time.monotonic() - t0
@@ -1264,9 +1285,9 @@ def run_e2e(casedir: str, gpu: str):
     from pangenie_tpu_torch.utils import timer
 
     outpref = os.path.join(casedir, "out")
-    batches = []
+    batches, phasing = [], {}
     reset_launches()
-    with batches_kept(batches):
+    with batches_kept(batches), phasing_kept(phasing):
         wall = _run_single(casedir, outpref)
     launches = launch_counts()
     if batch.last_dispatch != "cuda_fused":
@@ -1274,9 +1295,15 @@ def run_e2e(casedir: str, gpu: str):
     fused = [cols for cols, route in batches if route == "cuda_fused"]
     if len(fused) != launches["K2"]:
         raise AssertionError(f"{len(fused)} fused batches but {launches['K2']} K2 launches")
-    for name in ("K1", "K2", "S1", "S1_CHASE"):
+    for name in ("K1", "K2", "S1", "S1_CHASE", "V1"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the bench path")
+    if not phasing["batches"] or len(phasing["batches"]) != launches["V1"]:
+        raise AssertionError(f"{len(phasing['batches'])} phasing batches but "
+                             f"{launches['V1']} V1 launches")
+    phased = len(_vcf_body(outpref + "_phasing.vcf"))
+    if phased != len(_vcf_body(outpref + "_genotyping.vcf")) or phased < 100:
+        raise AssertionError(f"the phasing VCF has {phased} lines")
     if native._LIB is None:
         raise AssertionError("the native k-mer engine was not loaded")
     result = genotype_concordance(
@@ -1285,13 +1312,15 @@ def run_e2e(casedir: str, gpu: str):
     print(f"  e2e [{gpu}]: wall {wall:.2f} s, {result.total} variants, "
           f"{result.total / wall:.1f} variants/s, concordance "
           f"{result.concordance:.5f}, launches {launches}, batches (B, N, P, A) and "
-          f"routes {[(batch_shape(c), r) for c, r in batches]}")
+          f"routes {[(batch_shape(c), r) for c, r in batches]}, phasing batches "
+          f"{[batch_shape(c) for c, _u, _s in phasing['batches']]} ({phased - 1} phased "
+          f"variants)")
     print(f"  phase walls (s): "
           f"{json.dumps({k: round(v, 2) for k, v in timer.last_phases.items()})}",
           flush=True)
     if result.concordance < 0.99:
         raise AssertionError(f"concordance {result.concordance} < 0.99")
-    return launches, fused[0]
+    return launches, fused[0], phasing
 
 
 def _vcf_body(path: str) -> list:
@@ -1339,7 +1368,7 @@ def print_profile(label: str, wall: float, busy: float, by_name: dict, gpu: str)
 
     print(f"  profiled {label} [{gpu}]: wall {wall:.2f} s, device busy {busy:.3f} s, "
           f"idle share {1 - busy / wall:.4f}, peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; VCF body equals "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; VCF bodies equal "
           f"the first run's")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     for name, (dt, n) in top:
@@ -1357,10 +1386,11 @@ def run_profiled(casedir: str, gpu: str) -> None:
     outpref = os.path.join(casedir, "out_profiled")
     torch.cuda.reset_peak_memory_stats()
     wall, busy, by_name = profile_device(lambda: _run_single(casedir, outpref))
-    if _vcf_body(outpref + "_genotyping.vcf") != _vcf_body(
-        os.path.join(casedir, "out_genotyping.vcf")
-    ):
-        raise AssertionError("the profiled run's VCF differs from the first run's")
+    for kind in ("genotyping", "phasing"):
+        if _vcf_body(f"{outpref}_{kind}.vcf") != _vcf_body(
+            os.path.join(casedir, f"out_{kind}.vcf")
+        ):
+            raise AssertionError(f"the profiled run's {kind} VCF differs from the first run's")
     print_profile("e2e", wall, busy, by_name, gpu)
 
 
@@ -1469,6 +1499,174 @@ def batches_kept(captured: list):
 
     with patched(genotyping, "forward_backward_batch", kept):
         yield
+
+
+@contextlib.contextmanager
+def phasing_kept(captured: dict):
+    """While it is open, PairHMM's phasing goes to
+    ``captured``: under "runs" each phasing PairHMM's arguments (records,
+    probabilities, recombination rate, uniform, effective N, paths) in
+    the order the commands make them, under "batches" each batch it
+    phases as (its columns, uniform, the states it got)."""
+    from pangenie_tpu_torch.hmm import genotyping
+
+    captured.update(runs=[], batches=[])
+    init, phase_batch = genotyping.PairHMM.__init__, genotyping.viterbi
+
+    def kept_init(self, records, probabilities, run_genotyping, run_phasing,
+                  recombrate=1.26, uniform=False, effective_N=25000.0, only_paths=None, **kw):
+        if run_phasing:
+            captured["runs"].append(dict(
+                records=records, probabilities=probabilities, recombrate=recombrate,
+                uniform=uniform, effective_N=effective_N,
+                paths=None if only_paths is None else list(only_paths)))
+        init(self, records, probabilities, run_genotyping, run_phasing, recombrate, uniform,
+             effective_N, only_paths, **kw)
+
+    def kept_batch(columns, uniform=False, *args, **kw):
+        states = phase_batch(columns, uniform, *args, **kw)
+        captured["batches"].append((columns, uniform, states))
+        return states
+
+    with patched(genotyping.PairHMM, "__init__", kept_init), \
+            patched(genotyping, "viterbi", kept_batch):
+        yield
+
+
+def path_scores(inputs, b: int, states) -> list:
+    """The score of chain b's state path in float64 from V1's inputs, a
+    sum a stretch of columns ending at a column whose emissions are all
+    zero (every value -inf, so it restarts uniform): each stretch sums
+    the log transitions into its columns and the log emissions of those
+    that are not such a column."""
+    import numpy as np
+
+    logea, al, lt = (x[b].double().cpu().numpy() if x.is_floating_point() else
+                     x[b].cpu().numpy() for x in inputs)
+    P = al.shape[1]
+    scores, s, prev = [], 0.0, None
+    for n, state in enumerate(states.tolist()):
+        p1, p2 = divmod(state, P)
+        if prev is not None:
+            s += lt[n, int(p1 != prev[0]) + int(p2 != prev[1])]
+        if not np.isfinite(logea[n]).any():
+            scores.append(s)
+            s = 0.0
+        else:
+            s += logea[n, al[n, p1], al[n, p2]]
+        prev = (p1, p2)
+    return scores + [s]
+
+
+def check_phasing_batch(phasing: dict, gpu: str) -> dict:
+    """V1 on the bench run's phasing batch (its own columns): against the
+    plain version on its first V1_PLAIN_COLUMNS columns (the same states,
+    or where they part two paths that tie within V1_TIE_RTOL, rescored
+    in float64, printed with the column; exit carries within
+    V1_CARRY_ATOL where their bits differ), then launched on the whole
+    batch, whose states must be the run's, and timed there beside its
+    bound. Returns the times and the largest error."""
+    import numpy as np
+    import torch
+
+    from pangenie_tpu_torch.hmm import bounds, v1_kernels, viterbi
+
+    cols, uniform, run_states = phasing["batches"][0]
+    inputs = viterbi.viterbi_inputs(cols, uniform)
+    B, N, P = inputs.al.shape
+    A = inputs.logea.shape[-1]
+    carry = torch.zeros((B, P * P), dtype=torch.float32, device=inputs.al.device)
+    first = torch.ones((B,), dtype=torch.bool, device=inputs.al.device)
+    n = min(N, V1_PLAIN_COLUMNS)
+    part = viterbi.Inputs(*(x[:, :n].contiguous() for x in inputs))
+    got = v1_kernels.sweep(part, carry, first)
+    want, plain_ms = timed(lambda: viterbi.segment_plain(part, carry, first))
+    ties = 0
+    for b in range(B):
+        parted = (got.states[b] != want.states[b]).nonzero()
+        if len(parted):
+            ties += 1
+            ours, theirs = path_scores(part, b, got.states[b]), path_scores(part, b, want.states[b])
+            print(f"  V1 and the plain version part at chain {b} column {int(parted[0])}: path "
+                  f"scores (float64, rescored) {ours} and {theirs}")
+            np.testing.assert_allclose(ours, theirs, rtol=V1_TIE_RTOL, atol=0)
+    same = torch.equal(got.carry.view(torch.int32), want.carry.view(torch.int32))
+    if not same:
+        torch.testing.assert_close(got.carry, want.carry, rtol=0, atol=V1_CARRY_ATOL)
+    finite = torch.isfinite(want.carry)
+    err = float((got.carry - want.carry)[finite].abs().max()) if bool(finite.any()) else 0.0
+    whole = v1_kernels.sweep(inputs, carry, first)
+    if not torch.equal(whole.states, run_states):
+        raise AssertionError("V1 on the bench run's phasing batch did not give the run's states")
+    t = {"V1": cuda_ms(lambda: v1_kernels.sweep(inputs, carry, first), 3), "V1_plain": plain_ms,
+         "V1_work": bounds.v1(B, N, P, A), "V1_cols": N, "V1_err": err,
+         "shape": f"B={B} N={N} P={P} A={A}", "plain_at": f"B={B} N={n} P={P} A={A}"}
+    print(f"  V1 on the bench run's phasing batch {t['shape']} [{gpu}]: states "
+          f"{'equal' if not ties else f'equal but {ties} near-tie(s)'} and exit carries "
+          f"{'the same bits' if same else f'within {err:.3e}'} against the plain version on "
+          f"its first {n} columns (plain {plain_ms:.3f} ms); the run's states again at full "
+          f"N; V1 {t['V1']:.3f} ms (one warp a chain); {against_bound(t, 'V1')}", flush=True)
+    return t
+
+
+def float64_phasing(runs: list, outpref: str, chroms: list) -> float:
+    """The bench run's phasing runs again on the CPU in float64 (the plain
+    version, on one thread: its small per-column operations run fastest
+    so), their phasing VCF written from the run's graphs to
+    ``<outpref>_phasing_cpu_float64.vcf``; returns its wall. Run in a
+    worker process beside the SV panel's phase."""
+    import torch
+
+    from pangenie_tpu_torch.commands import _load
+    from pangenie_tpu_torch.hmm.genotyping import PairHMM
+
+    torch.set_num_threads(1)
+    t0 = time.monotonic()
+    hmms = [PairHMM(r["records"], r["probabilities"], False, True, r["recombrate"],
+                    r["uniform"], r["effective_N"], r["paths"], dtype=torch.float64,
+                    defer=True, device="cpu") for r in runs]
+    PairHMM.run_deferred(hmms)
+    wall = time.monotonic() - t0
+    for i, (chrom, hmm) in enumerate(zip(chroms, hmms)):
+        graph = _load(f"{outpref}_{chrom}_Graph.pkl")
+        graph.write_phasing(outpref + "_phasing_cpu_float64.vcf", hmm.get_genotyping_result(),
+                            i == 0, "sample")
+    return wall
+
+
+@contextlib.contextmanager
+def float64_phasing_beside(phasing: dict, outpref: str):
+    """:func:`float64_phasing` of the bench run's phasing runs in a spawned
+    worker process while the block runs; yields a function that waits for
+    it and prints how the card's phasing VCF (float32, V1) differs from
+    the CPU's (no gate). The worker is stopped when the block ends."""
+    import multiprocessing
+
+    card = _vcf_body(outpref + "_phasing.vcf")
+    chroms = list(dict.fromkeys(line.split("\t")[0] for line in card if not line.startswith("#")))
+    if len(chroms) != len(phasing["runs"]):
+        raise AssertionError(f"{len(phasing['runs'])} phasing runs for chromosomes {chroms}")
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        job = pool.apply_async(float64_phasing, (phasing["runs"], outpref, chroms))
+        pool.close()
+
+        def compare():
+            wall = job.get()
+            cpu = _vcf_body(outpref + "_phasing_cpu_float64.vcf")
+            differ = [(a, c) for a, c in zip(card, cpu) if a != c]
+            print(f"  the bench run's phasing VCF (float32, V1) against the port's CPU float64 "
+                  f"run of the same phasing runs (its wall {wall:.1f} s, beside the SV panel): "
+                  f"{len(differ)} of {len(card)} lines differ"
+                  + ("" if len(card) == len(cpu) else f", {len(cpu)} lines on the CPU"),
+                  flush=True)
+            for a, c in differ[:10]:
+                print(f"    card: {a.rstrip()}\n    cpu:  {c.rstrip()}")
+
+        yield compare
+    finally:
+        pool.terminate()
+        pool.join()
 
 
 def batch_shape(columns) -> tuple:
@@ -1819,10 +2017,11 @@ def run_wide_subsets(casedir: str, gpu: str, device: str = "cuda"):
 
 
 def kernels():
-    from pangenie_tpu_torch.hmm import fb_kernels, sampling
+    from pangenie_tpu_torch.hmm import fb_kernels, sampling, v1_kernels
 
     return {"K1": fb_kernels.K1, "K2": fb_kernels.K2, "K3": fb_kernels.K3,
-            "K4": fb_kernels.K4, "S1": sampling.S1, "S1_CHASE": sampling.S1_CHASE}
+            "K4": fb_kernels.K4, "S1": sampling.S1, "S1_CHASE": sampling.S1_CHASE,
+            "V1": v1_kernels.V1}
 
 
 def reset_launches() -> None:
@@ -1896,9 +2095,9 @@ def smoke(device, gpu, inputs) -> int:
 
     ks = kernels()
     t0 = time.monotonic()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         for f in [pool.submit(fn) for fn in (
-                ks["K1"].lib, ks["S1"].lib, native._build_and_load)]:
+                ks["K1"].lib, ks["S1"].lib, ks["V1"].lib, native._build_and_load)]:
             f.result()
     print(f"  built in {time.monotonic() - t0:.1f} s")
     for lib, info in _build.build_log.items():
@@ -1933,7 +2132,7 @@ def smoke(device, gpu, inputs) -> int:
     phase("end to end")
     casedir, seconds = inputs["bench"].get()
     print(f"  bench inputs ({BENCH}) simulated in {seconds:.1f} s", flush=True)
-    launches, bench_cols = run_e2e(casedir, gpu)
+    launches, bench_cols, phasing = run_e2e(casedir, gpu)
 
     phase("profile")
     run_profiled(casedir, gpu)
@@ -1942,10 +2141,18 @@ def smoke(device, gpu, inputs) -> int:
     fb_times = check_bench_columns(bench_cols, gpu)
     del bench_cols
 
-    phase("sv panel: index + genotype -f")
-    sv_dir, seconds = inputs["sv"].get()
-    print(f"  sv inputs ({SV_PANEL}) simulated in {seconds:.1f} s", flush=True)
-    sv_launches = run_sv_index_genotype(sv_dir, gpu)
+    phase("the bench run's own phasing batch: V1 against the plain version")
+    with float64_phasing_beside(phasing, os.path.join(casedir, "out")) as compare_phasing:
+        v1_times = check_phasing_batch(phasing, gpu)
+        del phasing
+
+        phase("sv panel: index + genotype -f")
+        sv_dir, seconds = inputs["sv"].get()
+        print(f"  sv inputs ({SV_PANEL}) simulated in {seconds:.1f} s", flush=True)
+        sv_launches = run_sv_index_genotype(sv_dir, gpu)
+
+        phase("the bench run's phasing VCF against the port's float64 run on the CPU")
+        compare_phasing()
 
     phase("large panel: index + genotype -f + sampling at 2049 paths")
     large_dir, seconds = inputs["large"].get()
@@ -1996,6 +2203,7 @@ def smoke(device, gpu, inputs) -> int:
     large_p = int(large_times["shape"].split("P=")[1])
     widest_p = int(widest_times["shape"].split("P=")[1])
     fb_src = "pangenie_tpu_torch/csrc/fb.cu"
+    v1_src = "pangenie_tpu_torch/csrc/viterbi.cu"
     s1_src = "pangenie_tpu_torch/csrc/sampling_dp.cu"
     pallas = "pangenie_tpu/hmm/pallas_fb.py"
     record = {"kernels": [
@@ -2044,6 +2252,10 @@ def smoke(device, gpu, inputs) -> int:
                    s1_src, "pangenie_tpu/hmm/sampling.py:174",
                    widest_launches["S1"], widest_err, widest_times, "S1"),
              at=widest_times["shape"], **cluster_keys(widest_p)),
+        dict(entry("viterbi (V1: v1_viterbi_kernel, one warp a chain, the chase in the same "
+                   "launch)", v1_src, "pangenie_tpu/hmm/viterbi.py:214", launches["V1"],
+                   v1_times["V1_err"], v1_times, "V1"),
+             at=v1_times["shape"], plain_at=v1_times["plain_at"]),
         dict(entry(f"viterbi_iteration_segmented (S1-seg: s1_sweep_kernel as "
                    f"{s1_layout(BEYOND_SHAPE[2])} a chromosome, sweeps with entry and exit "
                    f"rows, chases from handed-back states)", s1_src,

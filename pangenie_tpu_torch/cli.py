@@ -17,8 +17,8 @@ or result written by ``pangenie_tpu`` is not readable here (its pickles
 hold that package's classes, and unpickling them imports JAX): index
 the panel with this port. The device comes from
 ``PANGENIE_TORCH_DEVICE`` (default ``cuda``, see ``device.py``).
-Phasing (``-p``) is not ported yet and exits with an error that names
-its ROADMAP.md item.
+``-p`` phases (``<out>_phasing.vcf``): alone it phases only, with ``-g``
+it genotypes too (the reference's wiring, src/pangenie-genotype.cpp:98-109).
 """
 
 from __future__ import annotations
@@ -28,7 +28,14 @@ import sys
 
 VERSION = "0.1.0"
 
-_PHASING = "phasing (-p) is not ported yet (ROADMAP queue 1, hmm/viterbi.py)"
+
+def _outputs(args) -> dict:
+    """only_genotyping / only_phasing from -g and -p, as the reference
+    wires them (src/pangenie-genotype.cpp:98-109): -p alone phases only,
+    -g -p does both, anything else genotypes only."""
+    both = args.genotyping_flag and args.phasing_flag
+    phasing_only = args.phasing_flag and not args.genotyping_flag
+    return dict(only_genotyping=not (both or phasing_only), only_phasing=phasing_only)
 
 
 def _add_genotype_args(p: argparse.ArgumentParser) -> None:
@@ -54,7 +61,7 @@ def _add_genotype_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("-g", dest="genotyping_flag", action="store_true",
                    help="run genotyping (Forward-Backward, default)")
     p.add_argument("-p", dest="phasing_flag", action="store_true",
-                   help="run phasing (Viterbi; not ported yet)")
+                   help="run phasing (Viterbi). Experimental feature")
     p.add_argument("-c", dest="count_all", action="store_true",
                    help="count all read kmers instead of only those in the graph")
     p.add_argument("-u", dest="ignore_imputed", action="store_true",
@@ -114,7 +121,7 @@ def main(argv=None) -> int:
     p_vcf.add_argument("-s", dest="sample_name", default="sample")
     p_vcf.add_argument("-g", dest="genotyping_flag", action="store_true")
     p_vcf.add_argument("-p", dest="phasing_flag", action="store_true",
-                       help="phasing output (not ported yet)")
+                       help="phasing output")
     p_vcf.add_argument("-u", dest="ignore_imputed", action="store_true")
 
     # flag for flag with the reference package's
@@ -157,11 +164,9 @@ def main(argv=None) -> int:
         )
 
     if args.command == "vcf":
-        if args.phasing_flag:
-            raise NotImplementedError(_PHASING)
         return commands.run_vcf_command(
             args.precomputed_prefix, args.results_name, args.outname,
-            args.sample_name, ignore_imputed=args.ignore_imputed,
+            args.sample_name, ignore_imputed=args.ignore_imputed, **_outputs(args),
         )
 
     has_f = bool(args.precomputed_prefix)
@@ -173,10 +178,8 @@ def main(argv=None) -> int:
     if has_f and args.kmersize != 31:
         parser.error("option -k cannot be combined with -f (the index fixes "
                      "the kmer size)")
-    if args.phasing_flag:
-        raise NotImplementedError(_PHASING)
-
     common = dict(
+        **_outputs(args),
         sample_name=args.sample_name,
         nr_jellyfish_threads=args.nr_jellyfish_threads,
         nr_core_threads=args.nr_core_threads,

@@ -7,16 +7,16 @@ phase structure, same intermediate artifacts (path-segments FASTA,
 per-chromosome k-mer TSVs, pickled graphs and unique-k-mer maps, pickled
 results), same defaults, including auto-sampling above 100 paths. Host
 phases (parsing, k-mer counting on the C++ engine, unique k-mer
-selection, VCF writing) are the reference package's code; the two device
-stages — haplotype sampling (kernel S1) and genotyping forward-backward
+selection, VCF writing) are the reference package's code; the device
+stages — haplotype sampling (kernel S1), genotyping forward-backward
 (kernels K1/K2, or K3/K4 for many-allele batches and long chromosomes)
-— run in torch on the chosen device.
+and phasing, ``-p`` (the Viterbi, kernel V1) — run in torch on the
+chosen device.
 
 Pickles hold the port's own classes: an index or result pickled by
 ``pangenie_tpu`` cannot be read here (unpickling it imports JAX).
 
-Not ported yet: phasing (``-p``); the device k-mer counter;
-multi-process runs.
+Not ported yet: the device k-mer counter; multi-process runs.
 """
 
 from __future__ import annotations
@@ -125,6 +125,8 @@ def _genotyping_block(
     unique_kmers_list: UniqueKmersMap,
     probabilities: ProbabilityTable,
     results: Results,
+    only_genotyping: bool,
+    only_phasing: bool,
     effective_N: float,
     recombrate: float,
     sampling_size: int,
@@ -132,7 +134,7 @@ def _genotyping_block(
     chrom_to_sampled: Dict[str, List[SampledPanel]],
     device: torch.device,
 ) -> None:
-    """Genotyping section (reference src/commands.cpp:908-1009)."""
+    """Genotyping and phasing section (reference src/commands.cpp:908-1009)."""
     nr_paths = 0
     for chromosome in chromosomes:
         records = unique_kmers_list.unique_kmers[chromosome]
@@ -146,10 +148,16 @@ def _genotyping_block(
     path_sampler = PathSampler(nr_paths)
     subsets: List[List[int]] = []
     path_sampler.partition_samples(subsets, sampling_size)
-    _log(
-        f"Sampled {len(subsets)} subset(s) of paths each of size "
-        f"{sampling_size} for genotyping."
-    )
+    if not only_phasing:
+        _log(
+            f"Sampled {len(subsets)} subset(s) of paths each of size "
+            f"{sampling_size} for genotyping."
+        )
+
+    phasing_paths: List[int] = []
+    path_sampler.select_single_subset(phasing_paths, min(nr_paths, 30))
+    if not only_genotyping:
+        _log(f"Sampled {len(phasing_paths)} paths to be used for phasing.")
 
     _log("Construct HMM and run core algorithm ...")
     t = time.monotonic()
@@ -175,19 +183,34 @@ def _genotyping_block(
         dense_cache = dict(map(_densify, chromosomes))
     # with a single subset no cross-subset combine follows, so
     # normalization happens vectorized inside the posterior scatter
+    # (combine into the phasing run's empty likelihood maps is the
+    # identity, so pre-normalized values survive it)
     normalize_in_run = len(subsets) == 1
-    all_runs: List[tuple] = []
+    # per chromosome the phasing run first, then the genotyping subsets:
+    # the first run's results are the stored list (its haplotypes), the
+    # others' likelihoods are combined into it
+    run_specs: List[tuple] = []  # (chromosome, genotyping?, paths)
     for chromosome in chromosomes:
+        if not only_genotyping:
+            run_specs.append((chromosome, False, phasing_paths))
+        if not only_phasing:
+            run_specs.extend((chromosome, True, subset) for subset in subsets)
+    all_runs: List[tuple] = []
+    cols_cache: Dict[tuple, tuple] = {}  # (chromosome, paths) -> built columns
+    for chromosome, is_genotyping, paths in run_specs:
         records = unique_kmers_list.unique_kmers[chromosome]
-        for paths in subsets:
-            hmm = PairHMM(
-                records, probabilities, True, False, recombrate, False,
-                effective_N, paths, normalize=normalize_in_run,
-                dtype=dtype, defer=True, dense=dense_cache[chromosome],
-                bulk=True, device=device,
-            )
-            all_runs.append((chromosome, hmm))
-    del dense_cache
+        cols_key = (chromosome, tuple(paths))
+        hmm = PairHMM(
+            records, probabilities, is_genotyping, not is_genotyping,
+            recombrate, False, effective_N, paths,
+            normalize=is_genotyping and normalize_in_run,
+            dtype=dtype, defer=True, dense=dense_cache[chromosome],
+            prebuilt=cols_cache.get(cols_key), bulk=True, device=device,
+        )
+        # genotyping and phasing over the same subset share columns
+        cols_cache.setdefault(cols_key, hmm.shared_columns())
+        all_runs.append((chromosome, hmm))
+    del dense_cache, cols_cache
     # the (chromosome x subset) grid executes as batched device sweeps
     PairHMM.run_deferred([hmm for _, hmm in all_runs])
     if all_runs:
@@ -213,7 +236,7 @@ def _genotyping_block(
         )
     results.runtimes["all"] = time.monotonic() - t
 
-    if not normalize_in_run:
+    if not only_phasing and not normalize_in_run:
         for chromosome in chromosomes:
             for g in results.result.get(chromosome, ()):
                 g.normalize()
@@ -233,6 +256,8 @@ def _write_outputs(
     precomputed_prefix: str,
     outname: str,
     sample_name: str,
+    only_genotyping: bool,
+    only_phasing: bool,
     ignore_imputed: bool,
     output_panel: bool,
     chrom_to_sampled: Dict[str, List[SampledPanel]],
@@ -248,17 +273,34 @@ def _write_outputs(
         graph: ChromosomeGraph = _load(
             f"{precomputed_prefix}_{chromosome}_Graph.pkl"
         )
-        graph.write_genotypes(
-            outname + "_genotyping.vcf", results.result[chromosome],
-            write_header, sample_name, ignore_imputed,
-            results.bulk.get(chromosome),
-        )
+        _write_chromosome(graph, results, chromosome, outname, write_header,
+                          sample_name, only_genotyping, only_phasing,
+                          ignore_imputed)
         if output_panel:
             graph.write_sampled_panel(
                 outname + "_panel.vcf", chrom_to_sampled[chromosome],
                 write_header,
             )
         write_header = False
+
+
+def _write_chromosome(graph: ChromosomeGraph, results: Results, chromosome: str,
+                      outname: str, write_header: bool, sample_name: str,
+                      only_genotyping: bool, only_phasing: bool,
+                      ignore_imputed: bool) -> None:
+    """One chromosome's lines of ``<out>_genotyping.vcf`` (unless
+    phasing only) and ``<out>_phasing.vcf`` (unless genotyping only)."""
+    bulk = results.bulk.get(chromosome)
+    if not only_phasing:
+        graph.write_genotypes(
+            outname + "_genotyping.vcf", results.result[chromosome],
+            write_header, sample_name, ignore_imputed, bulk,
+        )
+    if not only_genotyping:
+        graph.write_phasing(
+            outname + "_phasing.vcf", results.result[chromosome],
+            write_header, sample_name, ignore_imputed, bulk,
+        )
 
 
 def _use_device(device: Optional[str]) -> torch.device:
@@ -490,10 +532,6 @@ def run_genotype_command(
     (reference src/commands.cpp:730-1086). ``device`` as in
     :func:`run_single_command`; ``hash_size`` (-e) is accepted for
     compatibility."""
-    if only_phasing or not only_genotyping:
-        raise NotImplementedError(
-            "phasing (-p) is not ported yet (ROADMAP queue 1, hmm/viterbi.py)"
-        )
     check_input_file(readfile)
     segment_file = precomputed_prefix + "_path_segments.fasta"
     check_input_file(segment_file)
@@ -581,14 +619,15 @@ def run_genotype_command(
 
     _genotyping_block(
         chromosomes, unique_kmers_list, probabilities, results,
-        effective_N, recombrate, sampling_size, output_panel,
-        chrom_to_sampled, dev,
+        only_genotyping, only_phasing, effective_N, recombrate,
+        sampling_size, output_panel, chrom_to_sampled, dev,
     )
     summary.phase("genotyping (HMM)")
 
     _write_outputs(
         chromosomes, results, precomputed_prefix, outname, sample_name,
-        ignore_imputed, output_panel, chrom_to_sampled, serialize_output,
+        only_genotyping, only_phasing, ignore_imputed, output_panel,
+        chrom_to_sampled, serialize_output,
     )
     summary.phase("writing output")
     summary.print_summary()
@@ -626,10 +665,6 @@ def run_single_command(
     ``device`` is a torch device name ("cuda", "cuda:1", "cpu"); None
     takes PANGENIE_TORCH_DEVICE, else "cuda" (see :mod:`device`).
     """
-    if only_phasing or not only_genotyping:
-        raise NotImplementedError(
-            "phasing (-p) is not ported yet (ROADMAP queue 1, hmm/viterbi.py)"
-        )
     check_input_file(reffile)
     check_input_file(vcffile)
     check_input_file(readfile)
@@ -750,14 +785,15 @@ def run_single_command(
 
     _genotyping_block(
         chromosomes, unique_kmers_list, probabilities, results,
-        effective_N, recombrate, sampling_size, output_panel,
-        chrom_to_sampled, dev,
+        only_genotyping, only_phasing, effective_N, recombrate,
+        sampling_size, output_panel, chrom_to_sampled, dev,
     )
     summary.phase("genotyping (HMM)")
 
     _write_outputs(
-        chromosomes, results, outname, outname, sample_name, ignore_imputed,
-        output_panel, chrom_to_sampled, serialize_output,
+        chromosomes, results, outname, outname, sample_name, only_genotyping,
+        only_phasing, ignore_imputed, output_panel, chrom_to_sampled,
+        serialize_output,
     )
     summary.phase("writing output")
     summary.print_summary()
@@ -775,10 +811,6 @@ def run_vcf_command(
 ) -> int:
     """PanGenie-vcf: results serialized by ``genotype -w`` -> VCF
     (reference src/commands.cpp:1088-1154)."""
-    if only_phasing or not only_genotyping:
-        raise NotImplementedError(
-            "phasing (-p) is not ported yet (ROADMAP queue 1, hmm/viterbi.py)"
-        )
     check_input_file(results_name)
     _log(f"Reading serialized genotyping results from {results_name}")
     results: Results = _load(results_name)
@@ -789,11 +821,9 @@ def run_vcf_command(
         graph: ChromosomeGraph = _load(
             f"{precomputed_prefix}_{chromosome}_Graph.pkl"
         )
-        graph.write_genotypes(
-            outname + "_genotyping.vcf", results.result[chromosome],
-            write_header, sample_name, ignore_imputed,
-            results.bulk.get(chromosome),
-        )
+        _write_chromosome(graph, results, chromosome, outname, write_header,
+                          sample_name, only_genotyping, only_phasing,
+                          ignore_imputed)
         write_header = False
     return 0
 

@@ -26,6 +26,13 @@ FWD_OPS, BWD_E_OPS, BWD_OPS = 10, 13, 14
 # integer operations per path and column of one sampling DP iteration:
 # the path's cost, staying or switching, the column minimum, the mask
 S1_OPS = 4
+# operations per [P, P] state cell and column of the phasing Viterbi
+# (V1): its share of the row, column and switch-both top-2 passes (7),
+# the three class values and their comparisons and selections (11), the
+# emission add (1), the column max (1), the shifted exp and its sum (3,
+# in double precision, counted at the float32 rate) and the
+# normalization (1)
+V1_OPS = 24
 
 
 class Work(NamedTuple):
@@ -96,3 +103,17 @@ def s1_chase(C: int, N: int, bt_bytes: int) -> Work:
     column that the path needs, and ends (int32) [C], in; paths (int32)
     [C, N] out. One lookup a column."""
     return Work(bt_bytes * C * N + 4 * C + 4 * C * N, C * N)
+
+
+def v1(B: int, N: int, P: int, A: int, backtrace: bool = True) -> Work:
+    """viterbi (V1): logea [B, N, A, A], al (int32) [B, N, P], lt [B, N,
+    3], carry_in [B, S] and first (int32) [B] in; carry_out [B, S] out;
+    with ``backtrace`` also the int16 backtraces [B, N, S], written once
+    (the chase reads them back; the function's output is the states),
+    state_in and state_out (int32) [B] and the states (int32) [B, N]."""
+    S = P * P
+    cols = B * N
+    nbytes = cols * (4 * A * A + 4 * P + 12) + 8 * B * S + 4 * B
+    if backtrace:
+        nbytes += 2 * cols * S + 4 * cols + 8 * B
+    return Work(nbytes, V1_OPS * cols * S)

@@ -1,7 +1,9 @@
-"""PairHMM: per-(chromosome, path-subset) genotyping driver (torch).
+"""PairHMM: genotyping and phasing per (chromosome, path subset), in
+torch.
 
-Port of ``pangenie_tpu/hmm/genotyping.py`` for genotyping
-(forward-backward) with deferred, batched execution. Inputs are
+Port of ``pangenie_tpu/hmm/genotyping.py``: genotyping
+(forward-backward) and phasing (Viterbi, ``viterbi.py``) with deferred,
+batched execution. Inputs are
 densified on the host (``columns.py``), padded to power-of-two buckets,
 moved to the device as torch tensors, run through
 :func:`batch.forward_backward_batch` and scattered back into
@@ -14,9 +16,14 @@ A run over ``fb_generic.SEGMENT`` columns (a long chromosome) is not
 padded to a bucket and executes alone, with B=1: the dispatcher sends it
 down the chunked generic route (kernels K3/K4 with carries), whose
 device memory is O(chunk * P^2) — the counterpart of the reference's
-``forward_backward_segmented`` streaming.
+``forward_backward_segmented`` streaming — and phases through
+``viterbi.viterbi_segmented`` over its columns padded to a bucket as the
+reference pads them (the padding columns lie on the chased path).
 
-Not ported yet (raises): phasing (Viterbi, ``-p``).
+Phasing runs of one padded shape run as one batch of kernel V1 (the
+reference vmaps them); the Viterbi backtrack stores the haplotype
+alleles at the record each column maps to, and (as src/hmm.cpp:164-165
+does) the k-mer count and coverage at the COLUMN index.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from .batch import forward_backward_batch
 from .columns import HMMColumns, build_columns, transition_probs
 from .emissions import emission_scale
 from .forward_backward import ColumnArrays
+from .viterbi import viterbi, viterbi_segmented
 
 
 # numpy dtype of the host-side grids for each HMM device dtype
@@ -138,12 +146,15 @@ def _to_device_columns(
 
 
 class PairHMM:
-    """Forward-backward over path-pair states (genotyping).
+    """Forward-backward (genotyping) and Viterbi (phasing) over path-pair
+    states.
 
     With ``defer=True`` the constructor only densifies inputs; call
     :func:`run_deferred` on a list of deferred instances to execute
     them batched — instances whose padded shapes match run as ONE batch
-    (chromosomes and path subsets become the batch dim).
+    (chromosomes and path subsets become the batch dim). ``prebuilt``
+    (another run's :meth:`shared_columns`) reuses the columns of a run
+    over the same records and path subset.
     """
 
     def __init__(
@@ -160,18 +171,16 @@ class PairHMM:
         dtype: torch.dtype = torch.float64,
         defer: bool = False,
         dense=None,
+        prebuilt=None,
         bulk: bool = False,
         device: "torch.device | str" = "cpu",
     ):
-        if run_phasing:
-            raise NotImplementedError(
-                "phasing (-p, Viterbi) is not ported yet (ROADMAP queue 1, "
-                "hmm/viterbi.py)"
-            )
         _t0 = time.monotonic()
         self.runtime = 0.0  # host build seconds
         self.records = records
         self._run_genotyping = run_genotyping
+        self._run_phasing = run_phasing
+        self._uniform = uniform
         self._normalize = normalize
         self.genotyping_result: List[GenotypeLikelihoods] = [
             GenotypeLikelihoods() for _ in records
@@ -184,7 +193,10 @@ class PairHMM:
         self._bulk_enabled = bulk
         self.columns = None
         self.device_cols = None
-        if records:
+        if records and prebuilt is not None:
+            # genotyping and phasing over the same subset share columns
+            self.columns, self.device_cols = prebuilt
+        elif records:
             self.columns = build_columns(
                 records, probabilities, only_paths, dense=dense,
                 dtype=NP_DTYPE[dtype],
@@ -197,6 +209,10 @@ class PairHMM:
         self.runtime += time.monotonic() - _t0
         if not defer:
             PairHMM.run_deferred([self])
+
+    def shared_columns(self):
+        """(columns, device_cols) for PairHMM(prebuilt=...)."""
+        return (self.columns, self.device_cols)
 
     def is_long(self) -> bool:
         """More columns than ``fb_generic.SEGMENT``: runs alone, chunked."""
@@ -309,6 +325,49 @@ class PairHMM:
                 (ka[c], kb[c]): vn[c] for c in pair_cols[nr_local_list[n]]
             }
 
+    def _phase(self, stacked: ColumnArrays, run: Sequence["PairHMM"]) -> None:
+        """Viterbi over the stacked columns of ``run`` (one batch of V1
+        on a card), scattered into each run's haplotypes. A long run's
+        columns are padded to the bucket the reference pads them to and
+        walked by the checkpointed scan: in ``fb_generic.SEGMENT``
+        columns on the CPU, in the longest segments the free memory
+        holds on a card."""
+        if self.is_long():
+            segment = fb_generic.SEGMENT if stacked.lp.device.type == "cpu" else None
+            states = viterbi_segmented(stacked, segment, self._uniform,
+                                       length=_bucket(self.columns.n_columns))
+        else:
+            states = viterbi(stacked, self._uniform)
+        states = states.cpu().numpy()
+        for i, hmm in enumerate(run):
+            hmm._scatter_haplotypes(states[i])
+
+    def _scatter_haplotypes(self, states: np.ndarray) -> None:
+        columns = self.columns
+        N = columns.n_columns
+        if N == 0:
+            return
+        P = columns.n_paths
+        # bulk index math on arrays; the remaining loop only assigns
+        # plain ints to result objects (no per-column numpy scalars)
+        states = np.asarray(states[:N], dtype=np.int64)
+        rows = np.arange(N)
+        allele1 = columns.alleles[rows, states // P].tolist()
+        allele2 = columns.alleles[rows, states % P].tolist()
+        variant_ids = columns.variant_ids.tolist()
+        results = self.genotyping_result
+        for n in range(N):
+            g = results[variant_ids[n]]
+            g.haplotype_1 = allele1[n]
+            g.haplotype_2 = allele2[n]
+        # reference quirk: kmer count / coverage written at the
+        # COLUMN index, not the variant id (src/hmm.cpp:164-165)
+        for n in range(N):
+            g = results[n]
+            record = self.records[n]
+            g.nr_unique_kmers = record.size()
+            g.coverage = record.get_coverage()
+
     # -- reference-parity accessors ----------------------------------------
 
     def get_genotyping_result(self) -> List[GenotypeLikelihoods]:
@@ -331,10 +390,11 @@ class PairHMM:
 
         Runs whose padded tensors have identical shapes (same bucket:
         chromosomes of similar size, path subsets of the same panel)
-        execute as ONE batched forward-backward — the (chromosome x
-        subset) grid becomes the batch dimension, as in the reference's
-        thread pool over the same grid (src/commands.cpp:955-978). A
-        long run (over ``fb_generic.SEGMENT`` columns) executes alone, as the
+        execute as ONE batched forward-backward, and phasing runs as ONE
+        batched Viterbi — the (chromosome x subset) grid becomes the
+        batch dimension, as in the reference's thread pool over the same
+        grid (src/commands.cpp:955-978). A long run (over
+        ``fb_generic.SEGMENT`` columns) executes alone, as the
         reference's streaming path does.
         """
         groups = {}
@@ -345,20 +405,23 @@ class PairHMM:
                 continue
             key = (id(hmm),) if hmm.is_long() else tuple(
                 x.shape for x in hmm.device_cols)
-            groups.setdefault(key, []).append(hmm)
+            groups.setdefault((key, hmm._run_genotyping, hmm._run_phasing,
+                               hmm._uniform), []).append(hmm)
 
-        for members in groups.values():
-            run = [h for h in members if h._run_genotyping]
-            if not run:
+        for (_key, run_g, run_p, _uniform), members in groups.items():
+            if not (run_g or run_p):
                 continue
             stacked = ColumnArrays(
-                *[torch.stack(xs) for xs in zip(*[h.device_cols for h in run])]
+                *[torch.stack(xs) for xs in zip(*[h.device_cols for h in members])]
             )
-            posteriors, log_corr = forward_backward_batch(stacked)
-            posteriors = posteriors.cpu().numpy()
-            log_corr = log_corr.cpu().numpy()
-            for i, hmm in enumerate(run):
-                hmm._finish_genotyping(posteriors[i], log_corr[i])
+            if run_g:
+                posteriors, log_corr = forward_backward_batch(stacked)
+                posteriors = posteriors.cpu().numpy()
+                log_corr = log_corr.cpu().numpy()
+                for i, hmm in enumerate(members):
+                    hmm._finish_genotyping(posteriors[i], log_corr[i])
+            if run_p:
+                members[0]._phase(stacked, members)
 
     def combine_likelihoods(self, other: "PairHMM") -> None:
         if len(self.genotyping_result) != len(other.genotyping_result):

@@ -11,9 +11,10 @@
 
 dim3 threadIdx, blockIdx, blockDim;
 alignas(16) float smem[232448 / sizeof(float)];
-// K3/K4 and S1 declare their dynamic shared memory under these names
+// K1-K4, S1 and V1 declare their dynamic shared memory under these names
 extern float fbe_shm[232448 / sizeof(float)] __attribute__((alias("smem")));
 extern float s1_shm[232448 / sizeof(float)] __attribute__((alias("smem")));
+extern float v1_shm[232448 / sizeof(float)] __attribute__((alias("smem")));
 
 size_t emu_shared_bytes() { return sizeof(smem); }
 

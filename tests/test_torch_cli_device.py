@@ -48,7 +48,7 @@ def test_hmm_dtype_rule():
     pytest.param(["genotype", "-i", "r.fa", "-f", "prefix"], RuntimeError,
                  "File: r.fa does not exist", id="argv4-genotype -f"),
     pytest.param(["genotype", "-i", "r.fa", "-r", "a.fa", "-v", "b.vcf", "-p"],
-                 NotImplementedError, "phasing", id="argv5-phasing"),
+                 RuntimeError, "File: a.fa does not exist", id="argv5-phasing"),
 ])
 def test_commands_not_ported_yet_name_their_roadmap_item(tmp_path, monkeypatch,
                                                          argv, exc, match):

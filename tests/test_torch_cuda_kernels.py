@@ -1,5 +1,5 @@
-"""Kernels K1-K4 (csrc/fb.cu) and S1 (csrc/sampling_dp.cu) against
-their plain torch versions, on the card.
+"""Kernels K1-K4 (csrc/fb.cu), S1 (csrc/sampling_dp.cu) and V1
+(csrc/viterbi.cu) against their plain torch versions, on the card.
 
 Marked ``cuda``: a CUDA kernel has no interpret mode, so these skip
 where there is no GPU. Run them on a GPU machine with
@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from pangenie_tpu_torch import _build
-from pangenie_tpu_torch.hmm import fb_generic, fb_kernels, sampling
+from pangenie_tpu_torch.hmm import fb_generic, fb_kernels, sampling, v1_kernels, viterbi
 from pangenie_tpu_torch.hmm.forward_backward import (
     allele_emissions,
     backward_plain,
@@ -726,3 +726,156 @@ def test_k1_one_warp_tier_gives_the_cta_bits_on_subnormal_cells(cuda, P, A):
     assert int(((ea != 0) & (ea < tiny)).sum()) > 0
     got = fb_kernels.forward(ea, cols.allele_local, cols.trans)
     _cta_bits(ea, cols.allele_local, cols.trans, got)
+
+
+def _v1_inputs(seed, B, N, P, A, ties=False, uniform=False, pad_from=None, device="cpu"):
+    """Float32 inputs of kernel V1 for B chains: log emissions (from a
+    small set of values with ``ties``, else continuous, some -inf),
+    alleles with a duplicated path, every chain's column 1 of zero
+    emissions (all -inf), log transitions with stay >= switch one >=
+    switch both (zeros with ``uniform``); chain b > 0 padded from column
+    pad_from[b - 1] on as PairHMM pads a bucket (emissions 0, allele
+    0, lt (0, -inf, -inf))."""
+    rng = np.random.default_rng(seed)
+    if ties:
+        logea = rng.choice([0.0, -1.0, -2.0], size=(B, N, A, A))
+    else:
+        logea = np.log(rng.random((B, N, A, A))) * 4.0
+        logea[rng.random((B, N, A, A)) < 0.05] = -np.inf
+    logea = np.minimum(logea, np.swapaxes(logea, 2, 3))   # symmetric, as emissions are
+    al = rng.integers(0, A, size=(B, N, P))
+    if P > 3:
+        al[:, :, 3] = al[:, :, 2]
+    if N > 2:
+        logea[:, 1] = -np.inf
+    switch = rng.random((B, N)) * 0.2
+    trans = np.stack([(1 - switch) ** 2, (1 - switch) * switch, switch ** 2], axis=-1)
+    if pad_from is not None:
+        for b, lo in enumerate(pad_from, start=1):
+            logea[b, lo:] = 0.0
+            al[b, lo:] = 0
+            trans[b, lo:] = (1.0, 0.0, 0.0)
+    with np.errstate(divide="ignore"):
+        lt = np.zeros_like(trans) if uniform else np.log(trans)
+    return viterbi.Inputs(torch.from_numpy(logea.astype(np.float32)).to(device),
+                          torch.from_numpy(al.astype(np.int32)).to(device),
+                          torch.from_numpy(lt.astype(np.float32)).to(device))
+
+
+def _v1_start(B, P, device="cpu"):
+    return (torch.zeros((B, P * P), dtype=torch.float32, device=device),
+            torch.ones((B,), dtype=torch.bool, device=device))
+
+
+def _v1_matches_plain(inputs, carry, first):
+    """V1 and its plain version on the same inputs on the card: the
+    same states, state before the first column, backtraces and exit
+    carry bits."""
+    launches = v1_kernels.V1.launches
+    got = v1_kernels.sweep(inputs, carry, first)
+    torch.cuda.synchronize()
+    assert v1_kernels.V1.launches == launches + 1
+    want = viterbi.segment_plain(inputs, carry, first)
+    assert torch.equal(got.states, want.states)
+    assert torch.equal(got.state_out, want.state_out)
+    assert torch.equal(got.bt.int(), want.bt)
+    assert _same_bits(got.carry, want.carry)
+
+
+@pytest.mark.parametrize("A", [2, 8])
+@pytest.mark.parametrize("P", range(1, 33))
+def test_v1_matches_plain(cuda, P, A):
+    """Every P of V1's lane layouts, B=3 chains of 90 columns (past its
+    ring), one padded from column 50."""
+    inputs = _v1_inputs(P + A, 3, 90, P, A, pad_from=(90, 50), device=cuda)
+    _v1_matches_plain(inputs, *_v1_start(3, P, cuda))
+
+
+@pytest.mark.parametrize("P", [5, 16, 30])
+def test_v1_ties_and_zero_columns(cuda, P):
+    """Emissions from three values (ties everywhere) and all-zero
+    columns, with and without ``uniform`` transitions."""
+    for uniform in (False, True):
+        inputs = _v1_inputs(P, 3, 200, P, 4, ties=True, uniform=uniform,
+                            pad_from=(150, 9), device=cuda)
+        _v1_matches_plain(inputs, *_v1_start(3, P, cuda))
+
+
+def test_v1_at_a_long_chain(cuda):
+    """A chain of 65,536 columns at P=30 (the phasing run's most paths)
+    against the plain version, two launches bit-identical."""
+    inputs = _v1_inputs(30, 1, 65536, 30, 8, device=cuda)
+    carry, first = _v1_start(1, 30, cuda)
+    _v1_matches_plain(inputs, carry, first)
+    a = v1_kernels.sweep(inputs, carry, first)
+    b = v1_kernels.sweep(inputs, carry, first)
+    assert _same_bits(a.carry, b.carry) and torch.equal(a.bt, b.bt)
+    assert torch.equal(a.states, b.states)
+
+
+def test_v1_small_budget_equals_the_full_run(cuda):
+    """``viterbi`` under a budget that holds only a few hundred columns
+    of backtraces runs the checkpointed form (forward launches without
+    backtraces, then each segment again) and gives the one launch's
+    states."""
+    cols = synthetic_columns(n_columns=3000, n_paths=30, n_kmers=8, n_alleles=4,
+                             batch_dims=(2,), seed=5, dtype=np.float32)
+    cols = columns_from_numpy(cols, cuda, torch.float32)
+    launches = v1_kernels.V1.launches
+    full = viterbi.viterbi(cols)
+    assert v1_kernels.V1.launches == launches + 1
+    budget = 2 * 1024 * 1024
+    segment = viterbi.segment_columns(budget, 2, 3000, 30)
+    assert segment < 3000
+    got = viterbi.viterbi(cols, budget=budget)
+    n_segs = -(-3000 // segment)
+    assert v1_kernels.V1.launches == launches + 1 + 2 * n_segs - 1
+    assert torch.equal(got, full)
+
+
+def test_v1_refuses_what_it_does_not_take(cuda):
+    inputs = _v1_inputs(1, 1, 4, 33, 2, device=cuda)
+    with pytest.raises(ValueError, match="at most 32 paths"):
+        v1_kernels.sweep(inputs, *_v1_start(1, 33, cuda))
+    inputs = _v1_inputs(1, 1, 4, 8, 2, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        v1_kernels.sweep(inputs._replace(logea=inputs.logea.double()), *_v1_start(1, 8, cuda))
+
+
+_PHASING_RUN = """
+import json, sys
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+from pangenie_tpu_torch.commands import run_single_command
+from pangenie_tpu_torch.hmm import v1_kernels
+from pangenie_tpu_torch.utils import simulate as sim
+
+d = sys.argv[1]
+rng = np.random.default_rng(3)
+reference = sim.random_reference(20_000, rng)
+variants = sim.simulate_panel(reference, nr_samples=4, rng=rng)
+sim.write_inputs(d, reference, variants)
+hap1, hap2 = sim.haplotype_sequences(reference, variants, sample=0)
+sim.simulate_reads(hap1, hap2, coverage=20, read_length=100, rng=rng, outfile=d + "/reads.fa")
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    run_single_command(d + "/reads.fa", d + "/ref.fa", d + "/panel.vcf", 31, d + "/out",
+                       only_genotyping=False, device="cuda")
+    torch.cuda.synchronize()
+print(json.dumps({"names": sorted({e.key for e in prof.key_averages()}),
+                  "launches": v1_kernels.V1.launches}))
+"""
+
+
+def test_phasing_launches_v1(cuda, tmp_path):
+    """``single -g -p`` on the card launches V1 (by torch.profiler, in a
+    process of its own) and writes the phasing VCF."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    proc = subprocess.run([sys.executable, "-c", _PHASING_RUN, str(tmp_path)], env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["launches"] >= 1
+    assert any("v1_viterbi_kernel" in name for name in out["names"]), out["names"]
+    with open(tmp_path / "out_phasing.vcf") as f:
+        assert sum(not line.startswith("#") for line in f) > 10

@@ -260,7 +260,26 @@ def test_deferred_batch_matches_single_runs():
     assert collect(runs[1]) == collect(single_b)
 
 
-def test_phasing_is_not_ported_yet():
-    u = rec(2000, [0, 1])
-    with pytest.raises(NotImplementedError, match="viterbi"):
-        PairHMM([u], ProbabilityTable(), True, True, 1.26, False, 0.25)
+def test_phasing_runs_beside_genotyping():
+    """PairHMM(run_genotyping=True, run_phasing=True) on HMMTest.cpp's 'HMM
+    no_unique_kmers3' (the middle column has no k-mers): the oracle's
+    likelihoods and haplotypes (one path each, either way round), and
+    the phasing run's k-mer counts and coverage written at the column
+    index (src/hmm.cpp:164-165)."""
+    u1 = rec(2000, [0, 1], kmers=[(10, [0]), (10, [1])], coverage=0)
+    u2 = rec(3000, [0, 1])
+    u3 = rec(4000, [0, 1], kmers=[(10, [0]), (9, [1])])
+    probs = probs_cov0({10: (0.1, 0.9, 0.1), 9: (0.1, 0.8, 0.1)})
+    hmm = PairHMM([u1, u2, u3], probs, True, True, 446.287102628, False, 0.25)
+    expected = [0.00264169937, 0.99471660125, 0.00264169937,
+                0.02552917716, 0.94894164567, 0.02552917716,
+                0.002961313333, 0.99407737333, 0.002961313333]
+    assert np.allclose(collect(hmm), expected, atol=1e-9)
+    h1 = [g.haplotype_1 for g in hmm.get_genotyping_result()]
+    h2 = [g.haplotype_2 for g in hmm.get_genotyping_result()]
+    assert sorted([h1, h2]) == [[0, 0, 0], [1, 1, 1]]
+    phasing_only = PairHMM([u1, u2, u3], probs, False, True, 446.287102628, False, 0.25)
+    got = phasing_only.get_genotyping_result()
+    assert [(g.haplotype_1, g.haplotype_2) for g in got] == list(zip(h1, h2))
+    assert [g.nr_unique_kmers for g in got] == [2, 0, 2]
+    assert all(not g.likelihoods for g in got)

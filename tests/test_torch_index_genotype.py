@@ -12,6 +12,9 @@ from the index on the CPU in float64; the genotyping VCF bodies
 the segment length lowered in both packages (``PairHMM.SEGMENT`` in the
 reference, ``fb_generic.SEGMENT`` in the port) the reference streams
 the chromosome in segments and the port walks it in several chunks.
+With ``-p`` (``only_genotyping=False``) the phasing VCF bodies must be
+identical too, also from ``-w`` + ``vcf -p``, and on the long
+chromosome, which both packages phase through the checkpointed Viterbi.
 """
 
 import os
@@ -22,6 +25,7 @@ import torch
 
 from pangenie_tpu.commands import run_genotype_command as jax_genotype
 from pangenie_tpu.commands import run_index_command as jax_index
+from pangenie_tpu.commands import run_vcf_command as jax_vcf
 from pangenie_tpu.hmm.genotyping import PairHMM as JaxPairHMM
 from pangenie_tpu.panel.sampling import reset_global_rand as jax_reset_rand
 from pangenie_tpu_torch import commands
@@ -97,9 +101,13 @@ def _genotype_both(d, tmp_path, **options):
     fb_generic.last_walk = (0, 0, 0)
     assert commands.run_genotype_command(
         str(d / "torch_index"), reads, torch_out, device="cpu", **options) == 0
-    ref = _body(jax_out + "_genotyping.vcf")
-    assert len(ref) > 50
-    assert _body(torch_out + "_genotyping.vcf") == ref
+    for kind, made in (("genotyping", not options.get("only_phasing")),
+                       ("phasing", options.get("only_genotyping") is False)):
+        assert os.path.exists(torch_out + f"_{kind}.vcf") == made
+        if made:
+            ref = _body(jax_out + f"_{kind}.vcf")
+            assert len(ref) > 50
+            assert _body(torch_out + f"_{kind}.vcf") == ref
     return torch_out
 
 
@@ -152,3 +160,44 @@ def test_single_agrees_with_index_then_genotype(workload, tmp_path):
         str(d / "torch_index"), str(d / "reads.fa"), staged, device="cpu") == 0
     assert _body(out + "_genotyping.vcf") == _body(staged + "_genotyping.vcf")
 
+
+
+@pytest.mark.parametrize("options", [
+    {"only_genotyping": False},                          # genotype -f -g -p
+    {"only_genotyping": False, "only_phasing": True},    # genotype -f -p
+    {"only_genotyping": False, "sampling_size": 5},      # -g -p over subsets
+], ids=["genotype_and_phase", "phase_only", "path_subsets"])
+def test_phasing_from_index_matches_reference(workload, tmp_path, options):
+    _genotype_both(workload, tmp_path, **options)
+
+
+def test_long_chromosome_phasing_is_checkpointed(workload, tmp_path, monkeypatch):
+    """Over the segment length both packages phase through the
+    checkpointed Viterbi, the columns padded to a bucket."""
+    monkeypatch.setattr(JaxPairHMM, "SEGMENT", 64)
+    monkeypatch.setattr(fb_generic, "SEGMENT", 64)
+    _genotype_both(workload, tmp_path, only_genotyping=False)
+    assert fb_generic.last_walk[2] > 1
+
+
+def test_serialized_results_then_vcf_phasing(workload, tmp_path):
+    """``genotype -f -g -p -w`` then ``vcf -p`` and ``vcf -g -p``, in both
+    packages: the phasing (and genotyping) VCF bodies are identical."""
+    d = workload
+    reads = str(d / "reads.fa")
+    jax_out, torch_out = str(tmp_path / "jax"), str(tmp_path / "torch")
+    assert jax_genotype(str(d / "jax_index"), reads, jax_out, only_genotyping=False,
+                        serialize_output=True) == 0
+    assert commands.run_genotype_command(
+        str(d / "torch_index"), reads, torch_out, device="cpu", only_genotyping=False,
+        serialize_output=True) == 0
+    for flags, kinds in (((False, True), ("phasing",)),
+                         ((False, False), ("genotyping", "phasing"))):
+        jax_vcf(str(d / "jax_index"), jax_out + "_genotyping.pkl", jax_out + "_v", "sample",
+                *flags)
+        commands.run_vcf_command(str(d / "torch_index"), torch_out + "_genotyping.pkl",
+                                 torch_out + "_v", "sample", *flags)
+        for kind in kinds:
+            ref = _body(jax_out + f"_v_{kind}.vcf")
+            assert len(ref) > 50
+            assert _body(torch_out + f"_v_{kind}.vcf") == ref

@@ -47,7 +47,12 @@ from pangenie_tpu_torch.hmm import bounds, fb_generic, fb_kernels, sampling
     # alphas, E, posts 3 x 5,898,240,000, c_fwd 16,384, u 49,152, e_after,
     # beta0, beta_out 3 x 2,880,000, u_after 24, is_last 16,384
     (bounds.k4(2, 2048, 600), 17_703_441_944, 5.2846095),
-], ids=["K1", "K2", "K3", "K4", "S1", "S1_chase", "K3_grid", "K4_grid"])
+    # V1 at the bench run's phasing batch B=2 N=65,536 P=16 A=4: logea
+    # 8,388,608 + al 8,388,608 + lt 1,572,864 + carry in and out 2 x 2,048
+    # + first 8 + backtraces (int16) 67,108,864 + states 524,288 +
+    # state_in and state_out 2 x 8
+    (bounds.v1(2, 65536, 16, 4), 85_987_352, 0.02566787),
+], ids=["K1", "K2", "K3", "K4", "S1", "S1_chase", "K3_grid", "K4_grid", "V1"])
 def test_bytes_and_bound_at_main_shapes(work, nbytes, ms):
     assert work.nbytes == nbytes
     got_ms, by = work.bound()
@@ -419,3 +424,24 @@ def test_fused_tier_rule_for_every_shape(fb_rule):
     for P in range(1, 129):
         for A in range(1, 17):
             assert fb_rule.pg_fb_threads(P, A) == fb_kernels.fused_threads(P, A), (P, A)
+
+
+@pytest.mark.parametrize("backtrace", [True, False])
+def test_v1_bytes_match_the_tensors_it_takes(backtrace):
+    """V1's byte count is the bytes of the tensors its wrapper hands the
+    kernel (alleles and first as int32, the backtraces without their two
+    spare entries) and gets back."""
+    from pangenie_tpu_torch.hmm import v1_kernels
+    from pangenie_tpu_torch.hmm.viterbi import Inputs
+
+    B, N, P, A = 3, 7, 5, 4
+    inputs = Inputs(torch.zeros((B, N, A, A)), torch.zeros((B, N, P), dtype=torch.int64),
+                    torch.zeros((B, N, 3)))
+    carry, first = torch.zeros((B, P * P)), torch.ones((B,), dtype=torch.bool)
+    inputs, carry, first = v1_kernels.checked_inputs(inputs, carry, first)
+    out = v1_kernels.launch(inputs, carry, first, None, backtrace, kernel=lambda *a: None)
+    taken = _nbytes(*inputs, carry, first, out.carry)
+    if backtrace:
+        taken += _nbytes(out.bt, out.states, out.state_out, torch.zeros((B,), dtype=torch.int32))
+    assert bounds.v1(B, N, P, A, backtrace).nbytes == taken
+    assert bounds.v1(B, N, P, A).ops == bounds.V1_OPS * B * N * P * P

@@ -5,7 +5,7 @@ simulated workload of tests/test_simulation_e2e.py (60 kb, 8 samples =
 17 paths, 25x reads). The genotyping VCF bodies (everything but the
 ``##`` header lines; ``##fileDate`` differs) must be identical, and
 where haplotype sampling runs (``panel_size=6``) so must the sampled
-paths and the sampled panel.
+paths and the sampled panel; with ``-p`` so must the phasing VCF bodies.
 """
 
 import os
@@ -75,9 +75,23 @@ def test_single_command_matches_reference(workload, tmp_path, options):
         assert _body(torch_out + "_panel.vcf") == _body(jax_out + "_panel.vcf")
 
 
-def test_phasing_raises_not_ported(workload, tmp_path):
+@pytest.mark.parametrize("options", [
+    {"only_genotyping": False},                          # single -g -p
+    {"only_genotyping": False, "only_phasing": True},    # single -p
+], ids=["genotype_and_phase", "phase_only"])
+def test_phasing_matches_reference(workload, tmp_path, options):
+    """``single`` with ``-p``: the phasing VCF body (and, with ``-g``, the
+    genotyping one) equals the reference package's; ``-p`` alone writes
+    no genotyping VCF."""
     d = str(workload)
-    with pytest.raises(NotImplementedError, match="phasing"):
-        torch_single(f"{d}/reads.fa", f"{d}/ref.fa", f"{d}/panel.vcf", 31,
-                     str(tmp_path / "x"), only_genotyping=False, device="cpu")
-    assert not os.path.exists(str(tmp_path / "x_genotyping.vcf"))
+    inputs = (f"{d}/reads.fa", f"{d}/ref.fa", f"{d}/panel.vcf", 31)
+    jax_out, torch_out = str(tmp_path / "jax"), str(tmp_path / "torch")
+    assert jax_single(*inputs, jax_out, **options) == 0
+    assert torch_single(*inputs, torch_out, device="cpu", **options) == 0
+    ref = _body(jax_out + "_phasing.vcf")
+    assert len(ref) > 50
+    assert _body(torch_out + "_phasing.vcf") == ref
+    genotyped = not options.get("only_phasing")
+    assert os.path.exists(torch_out + "_genotyping.vcf") == genotyped
+    if genotyped:
+        assert _body(torch_out + "_genotyping.vcf") == _body(jax_out + "_genotyping.vcf")
