@@ -98,9 +98,18 @@ Phases, each printed as it runs; any failure exits non-zero:
    12x 150 bp reads, seed 13; ``index`` then ``genotype -f`` on CUDA.
    The run must dispatch to the generic kernels, launch K3 and K4, walk
    the chromosome in more than one chunk and reach concordance >= 0.98;
-   ``genotype -f`` then runs once more under torch.profiler, for the
-   device time by kernel and the idle share, and its VCF body must equal
-   the first run's;
+   then ``genotype -f -g -p`` (genotyping and phasing over 30 paths)
+   under torch.profiler, for the device time by kernel (K3+K4 and V1
+   apart) and the idle share: its genotyping VCF body must equal the
+   first run's but for INFO's UK and the sample's KC, which under -p are
+   the phasing run's (the reference stores that run's results and
+   combines the genotyping likelihoods into them), V1 must launch and
+   its phasing VCF hold every variant;
+   then V1 on that run's phasing batch (the chromosome padded to
+   N=262,144, P=30): against its plain version on its first 4,096
+   columns and again at full N, as the bench run's batch (phase 5), and
+   through ``viterbi.viterbi`` in one launch and under a budget that
+   makes at least 4 segments, the same states;
 7. large panel: one 2 Mb chromosome, 1024 samples = 2049 paths, 12x
    150 bp reads, seed 17; ``index``, ``genotype -f`` (auto-sampling: S1
    past 1024 paths, then K1/K2 at 16 paths; concordance >= 0.98, the
@@ -110,7 +119,9 @@ Phases, each printed as it runs; any failure exits non-zero:
    budget); then ``genotype -f -a 200`` (11 path subsets of 200 paths:
    dispatch cuda_generic, K3/K4's cluster tier alone, concordance >=
    0.98), its launches counted alone, then once more under
-   torch.profiler (same VCF body; the cluster tier's device time); then
+   torch.profiler (both runs from an emptied allocator cache, so K3/K4's
+   chunk, sized from the free memory, is the same: same chunks, same VCF
+   body; the cluster tier's device time); then
    the cluster tier held against the plain versions and timed at the
    chunk shape (B, chunk, P=200) that run took, with drawn columns;
 8. widest panel: one 1 Mb chromosome, 3202 samples (the 1000 Genomes
@@ -226,6 +237,11 @@ V1_PLAIN_COLUMNS = 8192
 # differ
 V1_TIE_RTOL = 1e-6
 V1_CARRY_ATOL = 1e-5
+# the SV panel's phasing batch (P=30, S=900: the plain version's columns
+# cost about 3.5x the bench batch's) is held against the plain version on
+# this many columns, and walked again in at least this many segments
+SV_V1_PLAIN_COLUMNS = 4096
+SEGMENTS_AT_LEAST = 4
 # the bench workload (bench.py:191-192, not cut) and the SV panel
 BENCH = dict(mb=20.0, chroms=2, samples=61, distance=150, seed=11)
 SV_PANEL = dict(mb=20.0, chroms=1, samples=44, distance=100, seed=13,
@@ -1313,7 +1329,7 @@ def run_e2e(casedir: str, gpu: str):
           f"{result.total / wall:.1f} variants/s, concordance "
           f"{result.concordance:.5f}, launches {launches}, batches (B, N, P, A) and "
           f"routes {[(batch_shape(c), r) for c, r in batches]}, phasing batches "
-          f"{[batch_shape(c) for c, _u, _s in phasing['batches']]} ({phased - 1} phased "
+          f"{[batch_shape(c) for c, *_rest in phasing['batches']]} ({phased - 1} phased "
           f"variants)")
     print(f"  phase walls (s): "
           f"{json.dumps({k: round(v, 2) for k, v in timer.last_phases.items()})}",
@@ -1326,6 +1342,22 @@ def run_e2e(casedir: str, gpu: str):
 def _vcf_body(path: str) -> list:
     with open(path) as f:
         return [line for line in f if not line.startswith("##")]
+
+
+def without_kmer_counts(line: str) -> str:
+    """A genotyping VCF line without INFO's UK and the sample's KC. Under
+    ``-p`` the reference stores the phasing run's results and combines
+    the genotyping runs' likelihoods into them
+    (pangenie_tpu/commands.py:632-639), so those two counts are the
+    phasing run's (over its 30 paths) and may differ from ``-g``'s; the
+    rest of the line may not."""
+    if line.startswith("#"):
+        return line
+    cols = line.rstrip("\n").split("\t")
+    cols[7] = ";".join(f for f in cols[7].split(";") if not f.startswith("UK="))
+    keep = [i for i, key in enumerate(cols[8].split(":")) if key != "KC"]
+    cols[8:] = [":".join(field.split(":")[i] for i in keep) for field in cols[8:]]
+    return "\t".join(cols)
 
 
 def profile_device(fn):
@@ -1396,8 +1428,11 @@ def run_profiled(casedir: str, gpu: str) -> None:
 
 def run_sv_index_genotype(casedir: str, gpu: str):
     """``index`` then ``genotype -f`` on CUDA over the SV panel, then
-    ``genotype -f`` once more under torch.profiler. Returns the launch
-    counts of the first ``index`` + ``genotype -f``."""
+    ``genotype -f -g -p`` (genotyping and phasing) under torch.profiler,
+    whose genotyping VCF body must equal the first run's but for UK and
+    KC (:func:`without_kmer_counts`). Returns the
+    launch counts of the first ``index`` + ``genotype -f``, those of the
+    profiled run, and its phasing (``phasing_kept``)."""
     import torch
 
     from pangenie_tpu_torch import commands
@@ -1408,10 +1443,11 @@ def run_sv_index_genotype(casedir: str, gpu: str):
     prefix = os.path.join(casedir, "index")
     outpref = os.path.join(casedir, "out")
 
-    def genotype(out):
+    def genotype(out, phase=False):
         commands.run_genotype_command(
             prefix, os.path.join(casedir, "reads.fa"), out,
-            nr_jellyfish_threads=2, nr_core_threads=2, device="cuda",
+            nr_jellyfish_threads=2, nr_core_threads=2, only_genotyping=not phase,
+            device="cuda",
         )
 
     reset_launches()
@@ -1460,19 +1496,36 @@ def run_sv_index_genotype(casedir: str, gpu: str):
         raise AssertionError(f"concordance {result.concordance} < 0.98")
 
     profiled = outpref + "_profiled"
-    wall, busy, by_name = profile_device(lambda: genotype(profiled))
-    if _vcf_body(profiled + "_genotyping.vcf") != _vcf_body(outpref + "_genotyping.vcf"):
-        raise AssertionError("the profiled genotype -f VCF differs from the first run's")
-    print_profile("sv genotype -f", wall, busy, by_name, gpu)
+    phasing = {}
+    reset_launches()
+    with phasing_kept(phasing):
+        wall, busy, by_name = profile_device(lambda: genotype(profiled, phase=True))
+    phased_launches = launch_counts()
+    with_p, without_p = (_vcf_body(f + "_genotyping.vcf") for f in (profiled, outpref))
+    if list(map(without_kmer_counts, with_p)) != list(map(without_kmer_counts, without_p)):
+        raise AssertionError("the profiled genotype -f -g -p genotyping VCF differs from "
+                             "genotype -f's past UK and KC")
+    counts_apart = sum(a != b for a, b in zip(with_p, without_p))
+    phased = len(_vcf_body(profiled + "_phasing.vcf"))
+    if phased != len(_vcf_body(profiled + "_genotyping.vcf")) or phased_launches["V1"] < 1:
+        raise AssertionError(f"the SV phasing VCF has {phased} lines, V1 launched "
+                             f"{phased_launches['V1']} times")
+    print_profile("sv genotype -f -g -p", wall, busy, by_name, gpu)
     # K3/K4 are templates: the profiler names them "void fbe_forward_kernel<6, 3>(...)"
     k34 = sum(dt for name, (dt, _n) in by_name.items() if "fbe_" in name)
+    v1 = sum(dt for name, (dt, _n) in by_name.items() if "v1_viterbi" in name)
     copies = sum(dt for name, (dt, _n) in by_name.items() if "Memcpy" in name
                  or "Memset" in name)
-    print(f"  sv genotype -f device time: K3+K4 {k34:.3f} s, copies {copies:.3f} s, "
-          f"other kernels (emissions, collapse, ...) {busy - k34 - copies:.3f} s of "
-          f"{busy:.3f} s busy; HMM phase wall "
-          f"{timer.last_phases.get('genotyping (HMM)', float('nan')):.2f} s", flush=True)
-    return launches
+    print(f"  sv genotype -f -g -p device time: K3+K4 {k34:.3f} s, V1 {v1:.3f} s, copies "
+          f"{copies:.3f} s, other kernels (emissions, collapse, ...) "
+          f"{busy - k34 - v1 - copies:.3f} s of {busy:.3f} s busy; HMM phase wall "
+          f"{timer.last_phases.get('genotyping (HMM)', float('nan')):.2f} s; launches "
+          f"{phased_launches}; phasing batches "
+          f"{[(batch_shape(c), length) for c, _u, _s, length in phasing['batches']]} "
+          f"({phased - 1} phased variants); its genotyping VCF body equal to genotype -f's "
+          f"but for UK and KC, the phasing run's as the reference writes them under -p, "
+          f"which differ on {counts_apart} of {len(with_p)} lines", flush=True)
+    return launches, phased_launches, phasing
 
 
 @contextlib.contextmanager
@@ -1507,11 +1560,13 @@ def phasing_kept(captured: dict):
     ``captured``: under "runs" each phasing PairHMM's arguments (records,
     probabilities, recombination rate, uniform, effective N, paths) in
     the order the commands make them, under "batches" each batch it
-    phases as (its columns, uniform, the states it got)."""
+    phases as (its columns, uniform, the states it got, the length a long
+    run's columns are padded to or None)."""
     from pangenie_tpu_torch.hmm import genotyping
 
     captured.update(runs=[], batches=[])
     init, phase_batch = genotyping.PairHMM.__init__, genotyping.viterbi
+    phase_long = genotyping.viterbi_segmented
 
     def kept_init(self, records, probabilities, run_genotyping, run_phasing,
                   recombrate=1.26, uniform=False, effective_N=25000.0, only_paths=None, **kw):
@@ -1525,11 +1580,17 @@ def phasing_kept(captured: dict):
 
     def kept_batch(columns, uniform=False, *args, **kw):
         states = phase_batch(columns, uniform, *args, **kw)
-        captured["batches"].append((columns, uniform, states))
+        captured["batches"].append((columns, uniform, states, None))
+        return states
+
+    def kept_long(columns, segment=None, uniform=False, length=None, *args, **kw):
+        states = phase_long(columns, segment, uniform, length, *args, **kw)
+        captured["batches"].append((columns, uniform, states, length))
         return states
 
     with patched(genotyping.PairHMM, "__init__", kept_init), \
-            patched(genotyping, "viterbi", kept_batch):
+            patched(genotyping, "viterbi", kept_batch), \
+            patched(genotyping, "viterbi_segmented", kept_long):
         yield
 
 
@@ -1558,26 +1619,27 @@ def path_scores(inputs, b: int, states) -> list:
     return scores + [s]
 
 
-def check_phasing_batch(phasing: dict, gpu: str) -> dict:
-    """V1 on the bench run's phasing batch (its own columns): against the
-    plain version on its first V1_PLAIN_COLUMNS columns (the same states,
-    or where they part two paths that tie within V1_TIE_RTOL, rescored
-    in float64, printed with the column; exit carries within
-    V1_CARRY_ATOL where their bits differ), then launched on the whole
-    batch, whose states must be the run's, and timed there beside its
-    bound. Returns the times and the largest error."""
+def check_phasing_batch(batch: tuple, label: str, plain_columns: int, gpu: str) -> dict:
+    """V1 on a phasing batch a run captured (its own columns, padded as
+    the run padded them): against the plain version on its first
+    ``plain_columns`` columns (the same states, or where they part two
+    paths that tie within V1_TIE_RTOL, rescored in float64, printed with
+    the column; exit carries within V1_CARRY_ATOL where their bits
+    differ), then launched on the whole batch, whose states must be the
+    run's, and timed there beside its bound. Returns the times and the
+    largest error."""
     import numpy as np
     import torch
 
     from pangenie_tpu_torch.hmm import bounds, v1_kernels, viterbi
 
-    cols, uniform, run_states = phasing["batches"][0]
-    inputs = viterbi.viterbi_inputs(cols, uniform)
+    cols, uniform, run_states, length = batch
+    inputs = viterbi.viterbi_inputs(cols, uniform, length)
     B, N, P = inputs.al.shape
     A = inputs.logea.shape[-1]
     carry = torch.zeros((B, P * P), dtype=torch.float32, device=inputs.al.device)
     first = torch.ones((B,), dtype=torch.bool, device=inputs.al.device)
-    n = min(N, V1_PLAIN_COLUMNS)
+    n = min(N, plain_columns)
     part = viterbi.Inputs(*(x[:, :n].contiguous() for x in inputs))
     got = v1_kernels.sweep(part, carry, first)
     want, plain_ms = timed(lambda: viterbi.segment_plain(part, carry, first))
@@ -1595,18 +1657,63 @@ def check_phasing_batch(phasing: dict, gpu: str) -> dict:
         torch.testing.assert_close(got.carry, want.carry, rtol=0, atol=V1_CARRY_ATOL)
     finite = torch.isfinite(want.carry)
     err = float((got.carry - want.carry)[finite].abs().max()) if bool(finite.any()) else 0.0
+    del got, want, part
     whole = v1_kernels.sweep(inputs, carry, first)
     if not torch.equal(whole.states, run_states):
-        raise AssertionError("V1 on the bench run's phasing batch did not give the run's states")
+        raise AssertionError(f"V1 on {label} did not give the run's states")
+    del whole
     t = {"V1": cuda_ms(lambda: v1_kernels.sweep(inputs, carry, first), 3), "V1_plain": plain_ms,
          "V1_work": bounds.v1(B, N, P, A), "V1_cols": N, "V1_err": err,
-         "shape": f"B={B} N={N} P={P} A={A}", "plain_at": f"B={B} N={n} P={P} A={A}"}
-    print(f"  V1 on the bench run's phasing batch {t['shape']} [{gpu}]: states "
+         "shape": f"B={B} N={N} P={P} A={A}", "plain_at": f"B={B} N={n} P={P} A={A}",
+         "warps": v1_kernels.warps(P)}
+    print(f"  V1 on {label} {t['shape']} [{gpu}]: states "
           f"{'equal' if not ties else f'equal but {ties} near-tie(s)'} and exit carries "
           f"{'the same bits' if same else f'within {err:.3e}'} against the plain version on "
           f"its first {n} columns (plain {plain_ms:.3f} ms); the run's states again at full "
-          f"N; V1 {t['V1']:.3f} ms (one warp a chain); {against_bound(t, 'V1')}", flush=True)
+          f"N; V1 {t['V1']:.3f} ms (a CTA of {t['warps']} warps a chain); "
+          f"{against_bound(t, 'V1')}", flush=True)
     return t
+
+
+def check_phasing_segments(batch: tuple, label: str, gpu: str) -> None:
+    """A phasing batch through ``viterbi.viterbi`` twice: in one V1
+    launch (the free memory's budget), and under a budget whose
+    segments number at least SEGMENTS_AT_LEAST (the checkpointed form:
+    forward launches without backtraces, then each segment again); the
+    two must give the same states, and the run's."""
+    import torch
+
+    from pangenie_tpu_torch.hmm import v1_kernels, viterbi
+
+    cols, uniform, run_states, length = batch
+    B, N, P = cols.allele_local.shape
+    N = max(N, length or 0)
+    S = P * P
+    # a budget that holds about a fifth of the columns' backtraces
+    per_column, fixed = 2 * B * S, 4 * B * N + 16 * B * S + 4
+    budget = (fixed + per_column * (N // (SEGMENTS_AT_LEAST + 1))
+              + 4 * B * S * (SEGMENTS_AT_LEAST + 2)) * 16 // 15
+    segment = viterbi.segment_columns(budget, B, N, P)
+    n_segs = -(-N // segment)
+    if n_segs < SEGMENTS_AT_LEAST:
+        raise AssertionError(f"a budget of {budget} bytes gives {n_segs} segments")
+    reset = v1_kernels.V1.launches
+    one = viterbi.viterbi(cols, uniform, length)
+    one_launches = v1_kernels.V1.launches - reset
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    seg = viterbi.viterbi(cols, uniform, length, budget=budget)
+    torch.cuda.synchronize()
+    seg_wall = time.monotonic() - t0
+    seg_launches = v1_kernels.V1.launches - reset - one_launches
+    if one_launches != 1 or seg_launches != 2 * n_segs - 1:
+        raise AssertionError(f"{one_launches} and {seg_launches} V1 launches for one launch "
+                             f"and {n_segs} segments")
+    if not (torch.equal(one, seg) and torch.equal(one, run_states)):
+        raise AssertionError(f"V1 on {label}: the segmented states differ from one launch's")
+    print(f"  V1 on {label} through viterbi.viterbi [{gpu}]: one launch, and {n_segs} segments "
+          f"of {segment} columns under a budget of {budget} bytes ({seg_launches} launches, "
+          f"{seg_wall:.2f} s): the same states, the run's", flush=True)
 
 
 def float64_phasing(runs: list, outpref: str, chroms: list) -> float:
@@ -1792,9 +1899,12 @@ def run_large_panel(casedir: str, gpu: str, device: str = "cuda"):
     subsets past the fused kernels: dispatch cuda_generic, K3/K4's
     cluster tier and no other; concordance >= 0.98), with the launch
     counts set to 0 just before it, then once more under torch.profiler
-    (same VCF body; the cluster tier's device time). Returns the launch counts of the three
+    (both from an emptied allocator cache: the same chunks and the same
+    VCF body; the cluster tier's device time). Returns the launch counts of the three
     commands, S1's largest difference from the plain DP and times, the
     launch counts of the subset run and the (B, N, P, K) of its chunks."""
+    import torch
+
     from pangenie_tpu_torch import commands
     from pangenie_tpu_torch.eval.concordance import genotype_concordance
     from pangenie_tpu_torch.hmm import batch, fb_generic, sampling
@@ -1861,8 +1971,12 @@ def run_large_panel(casedir: str, gpu: str, device: str = "cuda"):
 
     def genotype_subsets(out):
         # the subsets are drawn from the process-wide rand() stream: the
-        # same stream state gives the profiled rerun the same subsets
+        # same stream state gives the profiled rerun the same subsets; and
+        # K3/K4's chunk is sized from the card's free memory
+        # (fb_generic.pick_chunk), so both runs start from an emptied cache
+        # and take the same chunks, whose boundaries float32 results follow
         reset_global_rand()
+        torch.cuda.empty_cache()
         commands.run_genotype_command(
             prefix, reads, os.path.join(casedir, out), nr_jellyfish_threads=2,
             nr_core_threads=2, sampling_size=LARGE_SUBSET, device=device)
@@ -1906,7 +2020,11 @@ def run_large_panel(casedir: str, gpu: str, device: str = "cuda"):
     if subset_result.concordance < 0.98:
         raise AssertionError(f"{subsets}: concordance {subset_result.concordance} < 0.98")
 
-    wall, busy, by_name = profile_device(lambda: genotype_subsets("out_subsets_profiled"))
+    with patched(fb_generic, "pick_chunk", chunk_kept):
+        wall, busy, by_name = profile_device(lambda: genotype_subsets("out_subsets_profiled"))
+    if chunks[1:] != chunks[:1]:
+        raise AssertionError(f"the profiled {subsets} took chunks of {chunks[1:]}, the first "
+                             f"run {chunks[0]}")
     if _vcf_body(os.path.join(casedir, "out_subsets_profiled_genotyping.vcf")) != _vcf_body(
             os.path.join(casedir, "out_subsets_genotyping.vcf")):
         raise AssertionError(f"the profiled {subsets} VCF differs from the first run's")
@@ -2143,13 +2261,22 @@ def smoke(device, gpu, inputs) -> int:
 
     phase("the bench run's own phasing batch: V1 against the plain version")
     with float64_phasing_beside(phasing, os.path.join(casedir, "out")) as compare_phasing:
-        v1_times = check_phasing_batch(phasing, gpu)
+        v1_times = check_phasing_batch(phasing["batches"][0], "the bench run's phasing batch",
+                                       V1_PLAIN_COLUMNS, gpu)
         del phasing
 
         phase("sv panel: index + genotype -f")
         sv_dir, seconds = inputs["sv"].get()
         print(f"  sv inputs ({SV_PANEL}) simulated in {seconds:.1f} s", flush=True)
-        sv_launches = run_sv_index_genotype(sv_dir, gpu)
+        sv_launches, sv_phased_launches, sv_phasing = run_sv_index_genotype(sv_dir, gpu)
+
+        phase("the SV panel's phasing batch (P=30): V1 against the plain version, one "
+              "launch against segments")
+        sv_v1_times = check_phasing_batch(sv_phasing["batches"][0], "the SV panel's phasing "
+                                          "batch", SV_V1_PLAIN_COLUMNS, gpu)
+        check_phasing_segments(sv_phasing["batches"][0], "the SV panel's phasing batch", gpu)
+        del sv_phasing
+        torch.cuda.empty_cache()
 
         phase("the bench run's phasing VCF against the port's float64 run on the CPU")
         compare_phasing()
@@ -2252,10 +2379,20 @@ def smoke(device, gpu, inputs) -> int:
                    s1_src, "pangenie_tpu/hmm/sampling.py:174",
                    widest_launches["S1"], widest_err, widest_times, "S1"),
              at=widest_times["shape"], **cluster_keys(widest_p)),
-        dict(entry("viterbi (V1: v1_viterbi_kernel, one warp a chain, the chase in the same "
-                   "launch)", v1_src, "pangenie_tpu/hmm/viterbi.py:214", launches["V1"],
-                   v1_times["V1_err"], v1_times, "V1"),
-             at=v1_times["shape"], plain_at=v1_times["plain_at"]),
+        dict(entry(f"viterbi (V1: v1_viterbi_kernel, a CTA of {v1_times['warps']} warps a "
+                   f"chain, the top-2 statistics as merge trees, the chase in the same "
+                   f"launch)", v1_src, "pangenie_tpu/hmm/viterbi.py:214",
+                   launches["V1"] + sv_phased_launches["V1"],
+                   max(v1_times["V1_err"], sv_v1_times["V1_err"]), v1_times, "V1"),
+             at=v1_times["shape"], plain_at=v1_times["plain_at"],
+             launches_by_path={"bench single -g -p": launches["V1"],
+                               "sv genotype -f -g -p": sv_phased_launches["V1"]},
+             sv=dict(at=sv_v1_times["shape"], plain_at=sv_v1_times["plain_at"],
+                     ms=sv_v1_times["V1"], plain_ms=sv_v1_times["V1_plain"],
+                     bound_ms=sv_v1_times["V1_work"].bound()[0],
+                     bound_by=sv_v1_times["V1_work"].bound()[1],
+                     us_per_column=sv_v1_times["V1"] * 1e3 / sv_v1_times["V1_cols"],
+                     max_abs_err=sv_v1_times["V1_err"], warps=sv_v1_times["warps"])),
         dict(entry(f"viterbi_iteration_segmented (S1-seg: s1_sweep_kernel as "
                    f"{s1_layout(BEYOND_SHAPE[2])} a chromosome, sweeps with entry and exit "
                    f"rows, chases from handed-back states)", s1_src,

@@ -1,7 +1,9 @@
 """Wrapper of kernel V1, the phasing Viterbi, in ``csrc/viterbi.cu``.
 
-V1 runs one warp a chain for B chains of N columns at P <= 32 paths (S =
-P^2 states) and A <= 32 alleles: the factored max-plus step of
+V1 runs a CTA of W warps a chain (W by one rule on Q, P rounded up to a
+power of two: :func:`warps`, which mirrors ``v1_warps`` in the source)
+for B chains of N columns at P <= 32 paths (S = P^2 states) and A <= 32
+alleles, the top-2 statistics as merge trees: the factored max-plus step of
 ``viterbi.py`` (its plain version) a column, the int16 backtraces of
 every state and column written to device memory, and, in the same
 launch, the chase from the last column back. With entry and exit
@@ -36,6 +38,14 @@ V1 = CudaKernel("viterbi", "pg_v1_viterbi", "v1", [_P] * 10 + [_I] * 4 + [ctypes
 
 MAX_PATHS = 32
 MAX_ALLELES = 32
+
+
+def warps(P: int) -> int:
+    """The warps of V1's CTA a chain at P paths: 8 at Q >= 16 (Q: P
+    rounded up to a power of two), 2 at Q = 8, 1 below (``v1_warps`` in
+    ``csrc/viterbi.cu``; ``pg_v1_warps`` answers the same)."""
+    Q = 1 << max(0, P - 1).bit_length()
+    return 8 if Q >= 16 else 2 if Q == 8 else 1
 
 
 def launch(inputs: Inputs, carry, first, state_in=None, backtrace: bool = True,

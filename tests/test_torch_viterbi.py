@@ -100,6 +100,58 @@ def test_top2_last_on_an_all_minus_inf_slice():
     assert jm[1].tolist() == a1.tolist() and jm[3].tolist() == a2.tolist()
 
 
+def _merge_top2(x, y):
+    """The top 2 of two (m1, a1, m2, a2) summaries' entries under the
+    order (value, index), an empty place (-inf, -1): kernel V1's merge."""
+    def after(v, i, w, j):
+        return v > w or (v == w and i > j)
+    c = after(x[0], x[1], y[0], y[1])
+    win, lose = (x, y) if c else (y, x)
+    d = after(lose[0], lose[1], win[2], win[3])
+    return (win[0], win[1], *((lose[0], lose[1]) if d else (win[2], win[3])))
+
+
+def _merge_tree_top2(values, rng):
+    """``values``' top-2 as V1 forms it: the slice cut at random places
+    into parts, each part's entries merged as a pairwise tree, the parts
+    merged as a pairwise tree in a shuffled order, then the fix-up at
+    the root (a second of -inf takes the slice's last index)."""
+    n = len(values)
+    leaves = [(float(v), i, float("-inf"), -1) for i, v in enumerate(values)]
+    cuts = sorted(rng.choice(np.arange(1, n), size=rng.integers(0, n), replace=False)) \
+        if n > 1 else []
+    parts = [leaves[a:b] for a, b in zip([0, *cuts], [*cuts, n])]
+
+    def tree(items):
+        while len(items) > 1:
+            items = [_merge_top2(*items[k:k + 2]) if k + 1 < len(items) else items[k]
+                     for k in range(0, len(items), 2)]
+        return items[0]
+
+    sums = [tree(p) for p in parts]
+    rng.shuffle(sums)
+    m1, a1, m2, a2 = tree(sums)
+    return m1, a1, m2, (a2 if m2 > float("-inf") else n - 1)
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_top2_merge_tree_equals_top2_last(seed):
+    """The premise of V1's merge trees: a (value, index) top-2 merge tree
+    over any split of a slice, in any order, with the fix-up at the root,
+    is ``_top2_last`` (the port's and the reference's) bit for bit, on
+    slices of 1-32 entries drawn with ties and -inf."""
+    rng = np.random.default_rng(seed)
+    for _ in range(250):
+        n = int(rng.integers(1, 33))
+        pool = np.array([-np.inf, -1.0, 0.0, 0.5, rng.normal()])
+        x = pool[rng.integers(0, len(pool), size=n)]
+        want = [t.item() for t in V._top2_last(torch.from_numpy(x)[None], 1)]
+        got = _merge_tree_top2(x, rng)
+        assert list(got) == want, (x.tolist(), got, want)
+        jm = [np.asarray(v)[0].item() for v in jax_viterbi_mod._top2_last(jnp.asarray(x[None]), 1)]
+        assert jm == want
+
+
 def _numpy_cols(N, P, K, A=2, seed=0):
     return synthetic_columns(n_columns=N, n_paths=P, n_kmers=K, n_alleles=A, seed=seed)
 

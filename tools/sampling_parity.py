@@ -14,9 +14,10 @@ file differs, and without a GPU.
 
 ``--genotype`` also genotypes with both checkouts and compares the VCF
 bodies (the lines past the ``##`` header, which holds the date):
-``genotype -f`` over the large panel's index, ``single`` on
-chip_smoke.py's bench workload (20 Mb, 123 paths) and ``genotype -f``
-over an index of its SV panel (20 Mb, 89 paths, one chromosome); and
+``genotype -f`` over the large panel's index, ``single -g -p`` on
+chip_smoke.py's bench workload (20 Mb, 123 paths) and ``genotype -f -g
+-p`` over an index of its SV panel (20 Mb, 89 paths, one chromosome),
+both the genotyping and the phasing VCF (kernel V1 at P=16 and 30); and
 ``genotype -f -a 600`` over an index of its wide-subsets panel (601
 paths, 0.2 Mb: K3/K4 past 471 paths), whose body may differ from the
 other tree's in float32 rounding where the two take other kernels:
@@ -69,21 +70,28 @@ def index_call(casedir: str, prefix: str) -> str:
             f"{os.path.join(casedir, 'panel.vcf')!r}, 31, {prefix!r}, nr_jellyfish_threads=2)")
 
 
-def compare_genotyping(name: str, casedir: str, call, trees: dict, record: dict) -> bool:
-    """``call(out)`` (a commands call writing ``out``_genotyping.vcf) in
-    each tree; whether the VCF bodies are identical, and how many lines
-    differ, into ``record``."""
-    bodies = {}
+def compare_genotyping(name: str, casedir: str, call, trees: dict, record: dict,
+                       phasing: bool = False) -> bool:
+    """``call(out)`` (a commands call writing ``out``_genotyping.vcf and,
+    with ``phasing``, ``out``_phasing.vcf) in each tree; whether the VCF
+    bodies are identical, and how many lines differ, into ``record``
+    (the phasing VCF's under ``<name>_phasing_...``)."""
+    kinds = {"genotyping": name, **({"phasing": f"{name}_phasing"} if phasing else {})}
+    bodies = {kind: {} for kind in kinds}
     for tree, root in trees.items():
         out = os.path.join(casedir, f"parity_{tree}_{name}")
         record[f"{name}_{tree}_s"] = run(root, call(out))
-        bodies[tree] = vcf_body(out + "_genotyping.vcf")
-    record[f"{name}_variants"] = len(bodies["change"]) - 1
-    record[f"{name}_identical"] = bodies["change"] == bodies["other"]
-    record[f"{name}_lines_differing"] = sum(
-        a != b for a, b in zip(bodies["change"], bodies["other"])) + abs(
-        len(bodies["change"]) - len(bodies["other"]))
-    return record[f"{name}_identical"]
+        for kind in kinds:
+            bodies[kind][tree] = vcf_body(f"{out}_{kind}.vcf")
+    same = True
+    for kind, key in kinds.items():
+        ours, theirs = bodies[kind]["change"], bodies[kind]["other"]
+        record[f"{key}_variants"] = len(ours) - 1
+        record[f"{key}_identical"] = ours == theirs
+        record[f"{key}_lines_differing"] = sum(a != b for a, b in zip(ours, theirs)) + abs(
+            len(ours) - len(theirs))
+        same &= record[f"{key}_identical"]
+    return same
 
 
 def main() -> int:
@@ -121,8 +129,9 @@ def main() -> int:
                 "single", casedir, lambda out: (
                     f"run_single_command({reads!r}, {os.path.join(casedir, 'ref.fa')!r}, "
                     f"{os.path.join(casedir, 'panel.vcf')!r}, 31, {out!r}, "
-                    f"nr_jellyfish_threads=2, nr_core_threads=2, device='cuda')"),
-                trees, record)
+                    f"nr_jellyfish_threads=2, nr_core_threads=2, only_genotyping=False, "
+                    f"device='cuda')"),
+                trees, record, phasing=True)
             print(json.dumps(record), flush=True)
             continue
         record["index_s"] = run(ROOT, index_call(casedir, prefix))
@@ -130,8 +139,9 @@ def main() -> int:
             same_everywhere &= compare_genotyping(
                 "genotype", casedir, lambda out: (
                     f"run_genotype_command({prefix!r}, {reads!r}, {out!r}, "
-                    f"nr_jellyfish_threads=2, nr_core_threads=2, device='cuda')"),
-                trees, record)
+                    f"nr_jellyfish_threads=2, nr_core_threads=2, "
+                    f"only_genotyping={name != 'sv'}, device='cuda')"),
+                trees, record, phasing=name == "sv")
         if name == "sv":
             print(json.dumps(record), flush=True)
             continue
