@@ -6,8 +6,9 @@ Phases, each printed as it runs; any failure exits non-zero:
 
 1. environment: torch/CUDA versions, GPU name and power limit, nvcc;
 2. build: the CUDA kernels (K1-K4 in csrc/fb.cu, S1's sweep and chase
-   in csrc/sampling_dp.cu, V1 in csrc/viterbi.cu) and the host k-mer
-   engine, from this checkout, one compiler per source, all at once.
+   in csrc/sampling_dp.cu, V1 in csrc/viterbi.cu, D1-extract and
+   D1-count in csrc/kmer_count.cu) and the host k-mer engine, from this
+   checkout, one compiler per source, all at once.
    The five end-to-end workloads below are simulated meanwhile, in
    four worker processes, once each into build/smoke_inputs/;
 3. kernel vs plain on the card, with the times of both (float32,
@@ -71,7 +72,8 @@ Phases, each printed as it runs; any failure exits non-zero:
    A=2/4/16, in turns; their posteriors must agree;
 4. end to end: the bench workload (20 Mb, 2 chromosomes, 61 samples =
    123 paths, 12x 150 bp reads, seed 11) genotyped and phased with the
-   port's ``single -g -p`` on CUDA; the run must dispatch to the fused
+   port's ``single -g -p`` on CUDA; the run must count read k-mers
+   through D1-count (the graph table given), dispatch to the fused
    kernels, launch K1, K2, S1 (sweep and chase) and V1 (the phasing
    Viterbi, one launch a phasing batch), write a phasing VCF of every
    variant, load the native k-mer engine and reach genotype concordance
@@ -96,7 +98,9 @@ Phases, each printed as it runs; any failure exits non-zero:
    2^17 HMM columns), 44 samples = 89 paths (no auto-sampling), 1% SV
    sites each rewritten into 8-15 distinct 100-400 bp insertion ALTs,
    12x 150 bp reads, seed 13; ``index`` then ``genotype -f`` on CUDA.
-   The run must dispatch to the generic kernels, launch K3 and K4, walk
+   The run must build its k-mer table on the card (D1-extract) and
+   count through D1-count, dispatch to the generic kernels, launch K3
+   and K4, walk
    the chromosome in more than one chunk and reach concordance >= 0.98;
    then ``genotype -f -g -p`` (genotyping and phasing over 30 paths)
    under torch.profiler, for the device time by kernel (K3+K4 and V1
@@ -110,6 +114,16 @@ Phases, each printed as it runs; any failure exits non-zero:
    columns and again at full N, as the bench run's batch (phase 5), and
    through ``viterbi.viterbi`` in one launch and under a budget that
    makes at least 4 segments, the same states;
+   then D1 on the first 250,000 reads of the bench and of the SV reads,
+   each packed as one block (within the block the commands stream at
+   the default -e): the table (the bench run's graph table given; the
+   SV one built on the card from the index's path segments, equal to
+   the host's key set), D1-extract's keys and D1-count's counts equal
+   to their plain versions', the counts equal to the host engine's on
+   the same reads, both timed beside their bounds, their plain versions
+   and, for D1-count, torch.searchsorted then torch.bincount; and
+   D1-extract on the SV corpus's first round, as the table build
+   launches it;
 7. large panel: one 2 Mb chromosome, 1024 samples = 2049 paths, 12x
    150 bp reads, seed 17; ``index``, ``genotype -f`` (auto-sampling: S1
    past 1024 paths, then K1/K2 at 16 paths; concordance >= 0.98, the
@@ -242,6 +256,12 @@ V1_CARRY_ATOL = 1e-5
 # this many columns, and walked again in at least this many segments
 SV_V1_PLAIN_COLUMNS = 4096
 SEGMENTS_AT_LEAST = 4
+# D1 is held and timed on the first reads of a run's read stream, as one
+# block of the size the commands stream at the default -e (3e9 // 64
+# bases); 250,000 reads of 150 bases take 1,250,000 of its 1,464,843
+# pieces of 32 bases
+D1_BLOCK_BASES = 3_000_000_000 // 64
+D1_SLICE_READS = 250_000
 # the bench workload (bench.py:191-192, not cut) and the SV panel
 BENCH = dict(mb=20.0, chroms=2, samples=61, distance=150, seed=11)
 SV_PANEL = dict(mb=20.0, chroms=1, samples=44, distance=100, seed=13,
@@ -1311,7 +1331,7 @@ def run_e2e(casedir: str, gpu: str):
     fused = [cols for cols, route in batches if route == "cuda_fused"]
     if len(fused) != launches["K2"]:
         raise AssertionError(f"{len(fused)} fused batches but {launches['K2']} K2 launches")
-    for name in ("K1", "K2", "S1", "S1_CHASE", "V1"):
+    for name in ("K1", "K2", "S1", "S1_CHASE", "V1", "D1_COUNT"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the bench path")
     if not phasing["batches"] or len(phasing["batches"]) != launches["V1"]:
@@ -1470,7 +1490,7 @@ def run_sv_index_genotype(casedir: str, gpu: str):
     walk = fb_generic.last_walk
     if batch.last_dispatch != "cuda_generic":
         raise AssertionError(f"dispatch was {batch.last_dispatch}, not cuda_generic")
-    for name in ("K3", "K4"):
+    for name in ("K3", "K4", "D1_EXTRACT", "D1_COUNT"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the SV path")
     if not (walk[1] > fb_generic.SEGMENT and walk[2] > 1):
@@ -1514,11 +1534,13 @@ def run_sv_index_genotype(casedir: str, gpu: str):
     # K3/K4 are templates: the profiler names them "void fbe_forward_kernel<6, 3>(...)"
     k34 = sum(dt for name, (dt, _n) in by_name.items() if "fbe_" in name)
     v1 = sum(dt for name, (dt, _n) in by_name.items() if "v1_viterbi" in name)
+    d1 = sum(dt for name, (dt, _n) in by_name.items() if "d1_" in name)
     copies = sum(dt for name, (dt, _n) in by_name.items() if "Memcpy" in name
                  or "Memset" in name)
-    print(f"  sv genotype -f -g -p device time: K3+K4 {k34:.3f} s, V1 {v1:.3f} s, copies "
-          f"{copies:.3f} s, other kernels (emissions, collapse, ...) "
-          f"{busy - k34 - v1 - copies:.3f} s of {busy:.3f} s busy; HMM phase wall "
+    print(f"  sv genotype -f -g -p device time: K3+K4 {k34:.3f} s, V1 {v1:.3f} s, D1 "
+          f"{d1:.3f} s, copies {copies:.3f} s, other kernels (emissions, collapse, the "
+          f"table's sort, ...) {busy - k34 - v1 - d1 - copies:.3f} s of {busy:.3f} s busy; "
+          f"HMM phase wall "
           f"{timer.last_phases.get('genotyping (HMM)', float('nan')):.2f} s; launches "
           f"{phased_launches}; phasing batches "
           f"{[(batch_shape(c), length) for c, _u, _s, length in phasing['batches']]} "
@@ -2134,12 +2156,125 @@ def run_wide_subsets(casedir: str, gpu: str, device: str = "cuda"):
     return launches, (walk[0], min(chunks[0], walk[1]), WIDE_SUBSET, 32)
 
 
+def d1_slice(reads: str, n_reads: int) -> str:
+    """The first ``n_reads`` records of the FASTA ``reads`` as a file of
+    their own beside it (made once)."""
+    out = f"{reads}.first{n_reads}.fa"
+    if not os.path.exists(out):
+        with open(reads) as src, open(out + ".tmp", "w") as dst:
+            seen = 0
+            for line in src:
+                if line.startswith(">"):
+                    seen += 1
+                    if seen > n_reads:
+                        break
+                dst.write(line)
+        os.replace(out + ".tmp", out)
+    return out
+
+
+def hold_d1(reads: str, segments: str, keys, label: str, gpu: str) -> dict:
+    """D1 on the first D1_SLICE_READS reads of ``reads`` as one block
+    (within the main path's block at the default -e) against its plain versions
+    and the host engine: the table (``keys``, or None: built on the card
+    from ``segments`` and held equal to the host's key set), D1-extract's
+    keys and D1-count's counts on the block equal to the plain versions'
+    and to the host engine's counts of the same reads. Times both kernels beside their bounds, their plain
+    versions and, for D1-count, the library calls that compute its
+    function (torch.searchsorted, then torch.bincount); with ``keys``
+    None, D1-extract also on the corpus's first round, as the table
+    build launches it. Returns the times."""
+    import numpy as np
+    import torch
+
+    from pangenie_tpu_torch.hmm import bounds
+    from pangenie_tpu_torch.kmers import device_counter as dc
+    from pangenie_tpu_torch.kmers.counter import ExactKmerCounter, iter_sequences
+
+    dev, k = torch.device("cuda", 0), 31
+    host_keys = keys
+    if keys is None:
+        host_keys = ExactKmerCounter.count_file(segments, k, n_threads=8).keys
+    counter = dc.PrimedDeviceCounter(k, keys, corpus_files=[segments], device=dev)
+    table = counter.table
+    if not np.array_equal(table.keys.cpu().numpy().view(np.uint64), host_keys):
+        raise AssertionError(f"{label}: D1's table differs from the host's key set")
+    sliced = d1_slice(reads, D1_SLICE_READS)
+    data, offsets = dc._joined(list(iter_sequences(sliced)))
+    words, vwords, n_bases = dc.pack_sequences(data, offsets[:-1], np.diff(offsets))
+    if n_bases > D1_BLOCK_BASES:
+        raise AssertionError(f"{label}: the slice's {n_bases} bases exceed a block")
+    words, vwords = dc._on(dev, words), dc._on(dev, vwords)
+    t = {"shape": f"T={n_bases} bases, n={len(host_keys)} keys, k={k}"}
+    (keys_got, t["D1_EXTRACT"]) = timed(lambda: dc.extract(words, vwords, n_bases, k))
+    keys_want, t["D1_EXTRACT_plain"] = timed(lambda: dc.extract_plain(words, vwords, n_bases, k))
+    if not torch.equal(keys_got, keys_want):
+        raise AssertionError(f"{label}: D1-extract's keys differ from the plain version's")
+    got = torch.zeros(table.keys.shape, dtype=torch.int32, device=dev)
+    want = torch.zeros_like(got)
+    _, t["D1_COUNT_first"] = timed(lambda: dc.count(words, vwords, n_bases, k, table, got))
+    _, t["D1_COUNT_plain"] = timed(
+        lambda: dc.count_plain(words, vwords, n_bases, k, table, want))
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label}: D1-count's counts differ from the plain version's")
+    host = ExactKmerCounter.count_file_primed(sliced, [segments], k, n_threads=8, keys=host_keys)
+    if not np.array_equal(got.cpu().numpy(), host.counts):
+        raise AssertionError(f"{label}: D1's counts on the slice differ from the host engine's")
+    t["D1_EXTRACT"] = cuda_ms(lambda: dc.extract(words, vwords, n_bases, k), 5)
+    t["D1_COUNT"] = cuda_ms(lambda: dc.count(words, vwords, n_bases, k, table, got), 5)
+    queries = keys_want[keys_want != dc.SENTINEL]
+    n = len(host_keys)
+
+    def library():
+        idx = torch.searchsorted(table.keys, queries).clamp_(max=n - 1)
+        return torch.bincount(idx[table.keys[idx] == queries], minlength=n)
+
+    if not torch.equal(library().to(torch.int32), want):
+        raise AssertionError(f"{label}: the library calls' counts differ from D1-count's")
+    t["D1_COUNT_library"] = cuda_ms(library, 5)
+    steps = dc.search_steps(table, keys_want)
+    t["D1_EXTRACT_work"] = bounds.d1_extract(n_bases)
+    t["D1_COUNT_work"] = bounds.d1_count(n_bases, n, k, steps)
+    t["D1_EXTRACT_cols"] = t["D1_COUNT_cols"] = n_bases
+    t["valid_windows"] = len(queries)
+    t["hits"] = int(want.sum())
+    print(f"  {label} [{gpu}]: slice of {D1_SLICE_READS} reads, {t['shape']}, "
+          f"{len(queries)} valid windows, {t['hits']} counted; D1-extract {t['D1_EXTRACT']:.3f} "
+          f"ms (plain {t['D1_EXTRACT_plain']:.3f}), D1-count {t['D1_COUNT']:.3f} ms (first "
+          f"launch {t['D1_COUNT_first']:.3f}, plain {t['D1_COUNT_plain']:.3f}, "
+          f"torch.searchsorted + torch.bincount {t['D1_COUNT_library']:.3f}), "
+          f"{t['D1_COUNT'] * 1e3 / (n_bases / 1e6):.1f} us per million windows; "
+          f"{against_bound(t, 'D1_EXTRACT')}; {against_bound(t, 'D1_COUNT')}; keys, counts "
+          f"and the host engine's counts equal", flush=True)
+    if keys is None:
+        words, vwords, n_corpus = next(dc.packed_blocks([segments], k, dc.round_windows(dev)))
+        words, vwords = dc._on(dev, words), dc._on(dev, vwords)
+        corpus_keys = dc.extract(words, vwords, n_corpus, k)
+        if not torch.equal(corpus_keys, dc.extract_plain(words, vwords, n_corpus, k)):
+            raise AssertionError(f"{label}: D1-extract differs from the plain version on "
+                                 f"the corpus")
+        t["corpus"] = {
+            "shape": f"T={n_corpus} bases (the corpus's first round)",
+            "ms": cuda_ms(lambda: dc.extract(words, vwords, n_corpus, k), 5),
+            "plain_ms": timed(lambda: dc.extract_plain(words, vwords, n_corpus, k))[1],
+            "work": bounds.d1_extract(n_corpus), "cols": n_corpus}
+        c = t["corpus"]
+        print(f"  {label}: D1-extract on {c['shape']}: {c['ms']:.3f} ms (plain "
+              f"{c['plain_ms']:.3f}), bound {c['work'].bound()[0]:.4f} ms by "
+              f"{c['work'].bound()[1]}", flush=True)
+    del counter, table, got, want, keys_got, keys_want, queries
+    torch.cuda.empty_cache()
+    return t
+
+
 def kernels():
     from pangenie_tpu_torch.hmm import fb_kernels, sampling, v1_kernels
+    from pangenie_tpu_torch.kmers import device_counter
 
     return {"K1": fb_kernels.K1, "K2": fb_kernels.K2, "K3": fb_kernels.K3,
             "K4": fb_kernels.K4, "S1": sampling.S1, "S1_CHASE": sampling.S1_CHASE,
-            "V1": v1_kernels.V1}
+            "V1": v1_kernels.V1, "D1_EXTRACT": device_counter.D1_EXTRACT,
+            "D1_COUNT": device_counter.D1_COUNT}
 
 
 def reset_launches() -> None:
@@ -2213,9 +2348,10 @@ def smoke(device, gpu, inputs) -> int:
 
     ks = kernels()
     t0 = time.monotonic()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         for f in [pool.submit(fn) for fn in (
-                ks["K1"].lib, ks["S1"].lib, ks["V1"].lib, native._build_and_load)]:
+                ks["K1"].lib, ks["S1"].lib, ks["V1"].lib, ks["D1_COUNT"].lib,
+                native._build_and_load)]:
             f.result()
     print(f"  built in {time.monotonic() - t0:.1f} s")
     for lib, info in _build.build_log.items():
@@ -2281,6 +2417,18 @@ def smoke(device, gpu, inputs) -> int:
         phase("the bench run's phasing VCF against the port's float64 run on the CPU")
         compare_phasing()
 
+    phase("D1 on the first block of the bench and SV reads: against the plain versions "
+          "and the host engine")
+    from pangenie_tpu_torch.kmers.counter import ExactKmerCounter
+
+    bench_segments = os.path.join(casedir, "out_path_segments.fasta")
+    d1_bench = hold_d1(os.path.join(casedir, "reads.fa"), bench_segments,
+                       ExactKmerCounter.count_file(bench_segments, 31, n_threads=8).keys,
+                       "bench reads (the graph table given, as single passes it)", gpu)
+    d1_sv = hold_d1(os.path.join(sv_dir, "reads.fa"),
+                    os.path.join(sv_dir, "index_path_segments.fasta"), None,
+                    "SV reads (the table built on the card, as genotype -f builds it)", gpu)
+
     phase("large panel: index + genotype -f + sampling at 2049 paths")
     large_dir, seconds = inputs["large"].get()
     print(f"  large panel inputs ({LARGE_PANEL}) simulated in {seconds:.1f} s", flush=True)
@@ -2333,6 +2481,14 @@ def smoke(device, gpu, inputs) -> int:
     v1_src = "pangenie_tpu_torch/csrc/viterbi.cu"
     s1_src = "pangenie_tpu_torch/csrc/sampling_dp.cu"
     pallas = "pangenie_tpu/hmm/pallas_fb.py"
+    d1_src = "pangenie_tpu_torch/csrc/kmer_count.cu"
+    corpus = d1_sv["corpus"]
+    d1_corpus = {"D1_EXTRACT": corpus["ms"], "D1_EXTRACT_plain": corpus["plain_ms"],
+                 "D1_EXTRACT_work": corpus["work"], "D1_EXTRACT_cols": corpus["cols"]}
+
+    def per_million(t, key):
+        return t[key] * 1e3 / (t[key + "_cols"] / 1e6)
+
     record = {"kernels": [
         dict(entry(f"fb_forward (K1: {fused_kernel('forward')}, {fb_times['tier']})",
                    fb_src, f"{pallas}:122", launches["K1"], fb_times["K1_err"], fb_times,
@@ -2399,6 +2555,31 @@ def smoke(device, gpu, inputs) -> int:
                    "pangenie_tpu/hmm/sampling.py:652", sum(seg_launches.values()), seg_err,
                    seg_times, "S1_SEG"), plain_at=seg_plain_shape,
              **cluster_keys(BEYOND_SHAPE[2])),
+        dict(entry("canonical k-mers of packed blocks (D1-extract: d1_extract_kernel, one "
+                   "thread a window), the SV run's table build", d1_src,
+                   "pangenie_tpu/kmers/device_counter.py:142",
+                   launches["D1_EXTRACT"] + sv_launches["D1_EXTRACT"], 0, d1_corpus,
+                   "D1_EXTRACT"), at=corpus["shape"],
+             us_per_million_windows=per_million(d1_corpus, "D1_EXTRACT"),
+             launches_by_path={"bench single -g -p": launches["D1_EXTRACT"],
+                               "sv index + genotype -f": sv_launches["D1_EXTRACT"]},
+             reads=dict(at=d1_sv["shape"], ms=d1_sv["D1_EXTRACT"],
+                        plain_ms=d1_sv["D1_EXTRACT_plain"])),
+        dict(entry("read k-mer counting into the sorted table (D1-count: d1_count_kernel, "
+                   "one thread a window, a directory bucket's binary search, atomicAdd)",
+                   d1_src, "pangenie_tpu/kmers/device_counter.py:430",
+                   launches["D1_COUNT"] + sv_launches["D1_COUNT"], 0, d1_bench, "D1_COUNT"),
+             at=d1_bench["shape"], library_ms=d1_bench["D1_COUNT_library"],
+             library="torch.searchsorted, then torch.bincount(minlength=n)",
+             us_per_million_windows=per_million(d1_bench, "D1_COUNT"),
+             also_replaces="pangenie_tpu/kmers/device_counter.py:458, :474",
+             launches_by_path={"bench single -g -p": launches["D1_COUNT"],
+                               "sv index + genotype -f": sv_launches["D1_COUNT"]},
+             sv=dict(at=d1_sv["shape"], ms=d1_sv["D1_COUNT"], plain_ms=d1_sv["D1_COUNT_plain"],
+                     library_ms=d1_sv["D1_COUNT_library"],
+                     bound_ms=d1_sv["D1_COUNT_work"].bound()[0],
+                     bound_by=d1_sv["D1_COUNT_work"].bound()[1],
+                     us_per_million_windows=per_million(d1_sv, "D1_COUNT"))),
     ]}
     print(json.dumps(record))
     print(gpu_line())

@@ -11,12 +11,13 @@ selection, VCF writing) are the reference package's code; the device
 stages — haplotype sampling (kernel S1), genotyping forward-backward
 (kernels K1/K2, or K3/K4 for many-allele batches and long chromosomes)
 and phasing, ``-p`` (the Viterbi, kernel V1) — run in torch on the
-chosen device.
+chosen device, and so does read k-mer counting on the card (kernels
+D1-extract and D1-count, ``kmers/device_counter.py``).
 
 Pickles hold the port's own classes: an index or result pickled by
 ``pangenie_tpu`` cannot be read here (unpickling it imports JAX).
 
-Not ported yet: the device k-mer counter; multi-process runs.
+Not ported yet: multi-process runs (with the sharded k-mer counter).
 """
 
 from __future__ import annotations
@@ -97,15 +98,36 @@ def _load(filename: str):
         return pickle.load(f)
 
 
+def _device_counter(device: torch.device) -> bool:
+    """Route read k-mer counting through D1 (``kmers/device_counter.py``):
+    PANGENIE_TORCH_COUNTER=device forces it (on the CPU: D1's plain
+    versions), =host forbids it; otherwise on the card, and never on the
+    CPU, as the reference routes (``pangenie_tpu/commands.py:113``), but
+    without its TPU read-volume threshold."""
+    env = os.environ.get("PANGENIE_TORCH_COUNTER", "").lower()
+    if env in ("device", "host"):
+        return env == "device"
+    if env:
+        raise RuntimeError(f"PANGENIE_TORCH_COUNTER={env!r}: expected device or host")
+    return device.type == "cuda"
+
+
 def _read_counter(
     readfile: str,
     segment_file: str,
     kmersize: int,
     count_only_graph: bool,
     nr_threads: int = 1,
+    hash_size: int = 3_000_000_000,
     prime_keys=None,
+    device: torch.device = torch.device("cpu"),
 ) -> KmerCounter:
-    """Read k-mer counts on the host engine (csrc/kmercount.cpp)."""
+    """Read k-mer counts. Counting only graph k-mers (every command
+    without -c) runs on D1 where :func:`_device_counter` routes it and
+    the table fits the card (``device_counter.table_fits``, from D1's own
+    footprint; without ``prime_keys`` the card builds the table, and the
+    path-segments FASTA's size bounds its keys); else, and for -c, on the
+    host engine (csrc/kmercount.cpp)."""
     if readfile.endswith(".jf"):
         from .kmers.jf_reader import read_jf
 
@@ -113,6 +135,23 @@ def _read_counter(
         return read_jf(readfile, kmersize)
     _log("Count kmers in reads ...")
     if count_only_graph:
+        if _device_counter(device):
+            from .kmers import device_counter
+
+            # the `-e` hash size bounds the streaming block (the table
+            # itself is O(graph kmers)); /64 maps the reference's 3e9
+            # entry default to ~48 Mb blocks
+            block = int(min(max(hash_size // 64, 1 << 22), 1 << 28))
+            n_keys = (len(prime_keys) if prime_keys is not None
+                      else os.path.getsize(segment_file))
+            if device_counter.table_fits(n_keys, device, block):
+                _log(f"  using device PRIME+UPDATE counter (D1) on {device}")
+                return device_counter.count_file_primed_device(
+                    readfile, [segment_file], kmersize, block_bases=block,
+                    keys=prime_keys, device=device,
+                )
+            _log("  graph table exceeds the card's memory; counting on the "
+                 "host engine")
         return ExactKmerCounter.count_file_primed(
             readfile, [segment_file], kmersize, n_threads=nr_threads,
             keys=prime_keys,
@@ -530,8 +569,8 @@ def run_genotype_command(
 ) -> int:
     """PanGenie genotype from an index written by :func:`run_index_command`
     (reference src/commands.cpp:730-1086). ``device`` as in
-    :func:`run_single_command`; ``hash_size`` (-e) is accepted for
-    compatibility."""
+    :func:`run_single_command`; ``hash_size`` (-e) bounds the read
+    k-mer counter's streaming block on the card."""
     check_input_file(readfile)
     segment_file = precomputed_prefix + "_path_segments.fasta"
     check_input_file(segment_file)
@@ -572,6 +611,7 @@ def run_genotype_command(
     kmersize = unique_kmers_list.kmersize
     read_kmer_counts = _read_counter(
         readfile, segment_file, kmersize, count_only_graph, nr_jellyfish_threads,
+        hash_size, device=dev,
     )
     summary.phase("counting kmers in reads")
 
@@ -698,10 +738,11 @@ def run_single_command(
 
     read_kmer_counts = _read_counter(
         readfile, segment_file, kmersize, count_only_graph,
-        nr_jellyfish_threads,
+        nr_jellyfish_threads, hash_size,
         prime_keys=(
             genomic_kmer_counts.keys if count_only_graph else None
         ),
+        device=dev,
     )
     summary.phase("counting kmers in reads")
 
@@ -847,8 +888,8 @@ def run_sampling(
     an index's panel to ``panel_size`` haplotypes from one sample's reads
     and write them as ``<outname>_panel.vcf``, with the per-column
     ``<outname>_paths_<chromosome>.tsv`` files. ``device`` as in
-    :func:`run_single_command`; ``hash_size`` (-e) is accepted for
-    compatibility."""
+    :func:`run_single_command`; ``hash_size`` (-e) bounds the read
+    k-mer counter's streaming block on the card."""
     check_input_file(readfile)
     segment_file = precomputed_prefix + "_path_segments.fasta"
     check_input_file(segment_file)
@@ -865,7 +906,7 @@ def run_sampling(
 
     read_kmer_counts = _read_counter(
         readfile, segment_file, unique_kmers_list.kmersize, count_only_graph,
-        nr_jellyfish_threads,
+        nr_jellyfish_threads, hash_size, device=dev,
     )
     kmer_abundance_peak = read_kmer_counts.compute_histogram(
         10000, count_only_graph, outname + "_histogram.histo"

@@ -4,8 +4,9 @@ A kernel's bound is the larger of two times: the bytes its function
 must move (each input read once, each output written once, at the dtypes
 the kernel takes) over the card's memory rate, and the operations it
 does over the card's float32 rate outside the tensor cores (NVIDIA's
-data sheet, at the full 700 W power limit). No kernel here ends a loop
-early or skips work by the data, so both counts follow from the shapes.
+data sheet, at the full 700 W power limit). No kernel here but D1's
+ends a loop early or skips work by the data, so both counts follow from
+the shapes; D1-count's search is counted at the steps its data needs.
 ``chip_smoke.py`` prints each kernel's bound beside its measured time.
 """
 
@@ -33,6 +34,15 @@ S1_OPS = 4
 # in double precision, counted at the float32 rate) and the
 # normalization (1)
 V1_OPS = 24
+# integer operations a window of read k-mer counting (D1) needs at
+# least, with its packed words read at once: the forward key (two funnel
+# shifts and the 2k-bit mask: 3), its reverse complement (the
+# complement, five swap steps of 3 and the shift: 17), the window's
+# validity bits (a funnel shift, a mask and a compare: 3) and the
+# smaller key (1); and a step of D1-count's binary search (the middle,
+# the compare and the bound: 3)
+D1_WINDOW_OPS = 24
+D1_SEARCH_OPS = 3
 
 
 class Work(NamedTuple):
@@ -117,3 +127,27 @@ def v1(B: int, N: int, P: int, A: int, backtrace: bool = True) -> Work:
     if backtrace:
         nbytes += 2 * cols * S + 4 * cols + 8 * B
     return Work(nbytes, V1_OPS * cols * S)
+
+
+def _packed(n_bases: int) -> int:
+    """Bytes of a flat block of D1: words and vwords (int32)."""
+    return 4 * ((n_bases + 15) // 16 + (n_bases + 31) // 32)
+
+
+def d1_extract(n_bases: int) -> Work:
+    """D1-extract over a flat block of T bases: words (int32)
+    [ceil(T/16)] and vwords (int32) [ceil(T/32)] in (0.375 bytes a
+    base); keys (int64) [T] out. Integer operations count at the float32
+    rate."""
+    return Work(_packed(n_bases) + 8 * n_bases, D1_WINDOW_OPS * n_bases)
+
+
+def d1_count(n_bases: int, n_keys: int, k: int, search_steps: int) -> Work:
+    """D1-count over a flat block of T bases into a table of n keys:
+    words and vwords, the table (int64) [n], its directory (int32) [2^d
+    + 1] and counts (int32) [n] in, counts out. ``search_steps``: the
+    binary search's steps the block's valid windows take
+    (``device_counter.search_steps``)."""
+    d = min(16, 2 * k)
+    return Work(_packed(n_bases) + 8 * n_keys + 4 * ((1 << d) + 1) + 8 * n_keys,
+                D1_WINDOW_OPS * n_bases + D1_SEARCH_OPS * search_steps)

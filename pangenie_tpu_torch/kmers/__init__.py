@@ -8,6 +8,7 @@ from .mer import (
 )
 from .counter import ExactKmerCounter, KmerCounter
 from .histogram import Histogram, compute_kmer_coverage_from_peaks
+from .device_counter import DeviceKmerCounter
 from .jf_reader import read_jf
 from .unique import (
     StepwiseUniqueKmerComputer,

@@ -1,5 +1,6 @@
-"""Kernels K1-K4 (csrc/fb.cu), S1 (csrc/sampling_dp.cu) and V1
-(csrc/viterbi.cu) against their plain torch versions, on the card.
+"""Kernels K1-K4 (csrc/fb.cu), S1 (csrc/sampling_dp.cu), V1
+(csrc/viterbi.cu) and D1-extract and D1-count (csrc/kmer_count.cu)
+against their plain torch versions, on the card.
 
 Marked ``cuda``: a CUDA kernel has no interpret mode, so these skip
 where there is no GPU. Run them on a GPU machine with
@@ -879,3 +880,81 @@ def test_phasing_launches_v1(cuda, tmp_path):
     assert any("v1_viterbi_kernel" in name for name in out["names"]), out["names"]
     with open(tmp_path / "out_phasing.vcf") as f:
         assert sum(not line.startswith("#") for line in f) > 10
+
+
+def _d1_block(seed, n_reads, length, device, n_rate=0.01):
+    """n_reads reads of 1 - length bases (N at n_rate) as one flat block
+    on ``device``: (words, vwords, bases, the reads)."""
+    from pangenie_tpu_torch.kmers import device_counter as dc
+
+    rng = np.random.default_rng(seed)
+    p = [(1 - n_rate) / 4] * 4 + [n_rate]
+    reads = [bytes(rng.choice(list(b"ACGTN"), int(n), p=p).astype(np.uint8))
+             for n in rng.integers(1, length + 1, n_reads)]
+    offsets = np.concatenate([[0], np.cumsum([len(r) for r in reads])])
+    words, vwords, n_bases = dc.pack_sequences(np.frombuffer(b"".join(reads), np.uint8),
+                                               offsets[:-1], np.diff(offsets))
+    return dc._on(device, words), dc._on(device, vwords), n_bases, reads
+
+
+@pytest.mark.parametrize("k", [1, 5, 11, 21, 31])
+def test_d1_kernels_match_plain(cuda, k):
+    """D1-extract's keys and D1-count's counts equal their plain
+    versions on the same block, one launch each, and the keys the host
+    engine's."""
+    from pangenie_tpu_torch.kmers import device_counter as dc
+    from pangenie_tpu_torch.kmers.counter import ExactKmerCounter
+
+    words, vwords, n_bases, reads = _d1_block(k, 20_000, 160, cuda)
+    launches = dc.D1_EXTRACT.launches, dc.D1_COUNT.launches
+    keys = dc.extract(words, vwords, n_bases, k)
+    torch.cuda.synchronize()
+    assert torch.equal(keys, dc.extract_plain(words, vwords, n_bases, k))
+    host = ExactKmerCounter._extract_canonical(reads, k)
+    valid = keys[keys != dc.SENTINEL].cpu().numpy().view(np.uint64)
+    assert np.array_equal(np.sort(valid), np.sort(host))
+    table = dc.make_table(torch.unique(keys[keys != dc.SENTINEL])[::2].contiguous(), k)
+    got = torch.zeros(table.keys.shape, dtype=torch.int32, device=cuda)
+    want = torch.zeros_like(got)
+    dc.count(words, vwords, n_bases, k, table, got)
+    dc.count_plain(words, vwords, n_bases, k, table, want)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and got.sum() > 0
+    assert (dc.D1_EXTRACT.launches, dc.D1_COUNT.launches) == (launches[0] + 1, launches[1] + 1)
+
+
+def test_d1_refuses_what_it_does_not_take(cuda):
+    from pangenie_tpu_torch.kmers import device_counter as dc
+
+    words, vwords, n_bases, _ = _d1_block(1, 10, 50, cuda)
+    with pytest.raises(ValueError, match="int32"):
+        dc.extract(words.long(), vwords, n_bases, 31)
+    with pytest.raises(ValueError, match="k in"):
+        dc.extract(words, vwords, n_bases, 32)
+    table = dc.make_table(torch.arange(5, dtype=torch.int64, device=cuda), 31)
+    with pytest.raises(ValueError, match="counts"):
+        dc.count(words, vwords, n_bases, 31, table, torch.zeros(5, dtype=torch.int64,
+                                                                device=cuda))
+
+
+@pytest.mark.parametrize("given", [False, True], ids=["table_built", "keys_given"])
+def test_d1_file_counter_equals_the_host_engine(cuda, tmp_path, given):
+    """count_file_primed_device on the card (the table built there or
+    given, blocks small enough for several launches) gives the host
+    engine's keys and counts."""
+    from pangenie_tpu_torch.kmers import device_counter as dc
+    from pangenie_tpu_torch.kmers.counter import ExactKmerCounter
+
+    rng = np.random.default_rng(5)
+    genome = bytes(rng.choice(list(b"ACGT"), 50_000).astype(np.uint8))
+    (tmp_path / "c.fa").write_text(f">g\n{genome.decode()}\n")
+    with open(tmp_path / "r.fa", "w") as out:
+        for i, s in enumerate(rng.integers(0, len(genome) - 150, 4000)):
+            out.write(f">r{i}\n{genome[s:s + 150].decode()}\n")
+    reads, corpus = str(tmp_path / "r.fa"), str(tmp_path / "c.fa")
+    host = ExactKmerCounter.count_file_primed(reads, [corpus], 31)
+    launches = dc.D1_COUNT.launches
+    dev = dc.count_file_primed_device(reads, [corpus], 31, block_bases=1 << 16,
+                                      keys=host.keys if given else None, device=cuda)
+    assert np.array_equal(dev.keys, host.keys) and np.array_equal(dev.counts, host.counts)
+    assert dc.D1_COUNT.launches - launches >= 8

@@ -33,7 +33,7 @@ EDITED = {
     # committed binary and silently drops to numpy)
     "kmers/native.py": {"<docstring>", "from .._build import",
                         "_CSRC", "_LIB_FAILED", "_build_and_load"},
-    # no device k-mer counter in the port
+    # no sharded counter until M1 (multi-GPU)
     "kmers/__init__.py": {"from .device_counter import"},
 }
 

@@ -52,7 +52,14 @@ from pangenie_tpu_torch.hmm import bounds, fb_generic, fb_kernels, sampling
     # + first 8 + backtraces (int16) 67,108,864 + states 524,288 +
     # state_in and state_out 2 x 8
     (bounds.v1(2, 65536, 16, 4), 85_987_352, 0.02566787),
-], ids=["K1", "K2", "K3", "K4", "S1", "S1_chase", "K3_grid", "K4_grid", "V1"])
+    # D1 over a block of 48,000,000 bases: words 12,000,000 + vwords
+    # 6,000,000 + keys 384,000,000; D1-count into 24,000,000 keys: the
+    # block, table 192,000,000, directory 262,148, counts in and out
+    # 192,000,000
+    (bounds.d1_extract(48_000_000), 402_000_000, 0.1200000),
+    (bounds.d1_count(48_000_000, 24_000_000, 31, 400_000_000), 402_262_148, 0.1200783),
+], ids=["K1", "K2", "K3", "K4", "S1", "S1_chase", "K3_grid", "K4_grid", "V1", "D1_extract",
+        "D1_count"])
 def test_bytes_and_bound_at_main_shapes(work, nbytes, ms):
     assert work.nbytes == nbytes
     got_ms, by = work.bound()
@@ -66,6 +73,30 @@ def test_operations_bound_when_bytes_are_few():
 
 def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def test_d1_bytes_and_steps_match_the_plain_versions():
+    """D1's byte counts are the bytes of the block, table, directory and
+    counts the plain versions take (counts twice: read and written) and
+    of the keys D1-extract returns; its search steps are floor(log2(w +
+    1)) a valid window in a bucket of w keys."""
+    from pangenie_tpu_torch.kmers import device_counter as dc
+
+    rng = np.random.default_rng(2)
+    seqs = [bytes(rng.choice(list(b"ACGT"), 70).astype(np.uint8)) for _ in range(40)]
+    offsets = np.concatenate([[0], np.cumsum([len(x) for x in seqs])])
+    words, vwords, T = dc.pack_sequences(np.frombuffer(b"".join(seqs), np.uint8),
+                                         offsets[:-1], np.diff(offsets))
+    words, vwords = (torch.from_numpy(x.view(np.int32)) for x in (words, vwords))
+    keys = dc.extract_plain(words, vwords, T, 11)
+    table = dc.make_table(torch.unique(keys[keys != dc.SENTINEL])[::2].contiguous(), 11)
+    counts = torch.zeros(table.keys.shape, dtype=torch.int32)
+    assert bounds.d1_extract(T).nbytes == _nbytes(words, vwords, keys)
+    steps = dc.search_steps(table, keys)
+    assert bounds.d1_count(T, len(table.keys), 11, steps).nbytes == _nbytes(
+        words, vwords, table.keys, table.directory, counts, counts)
+    widths = np.diff(table.directory.numpy())[(keys[keys != dc.SENTINEL] >> table.shift).numpy()]
+    assert steps == sum(int(w + 1).bit_length() - 1 for w in widths) > 0
 
 
 def test_generic_bytes_match_the_plain_versions_tensors():

@@ -21,6 +21,7 @@ SCRIPT = textwrap.dedent("""
     import pangenie_tpu_torch.commands
     import pangenie_tpu_torch.hmm.fb_generic
     import pangenie_tpu_torch.hmm.fb_kernels
+    import pangenie_tpu_torch.kmers.device_counter
     import pangenie_tpu_torch.utils.multiallelic
     from pangenie_tpu_torch import cli
     from pangenie_tpu_torch.utils import simulate as sim
