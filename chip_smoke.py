@@ -2205,7 +2205,10 @@ def hold_d1(reads: str, segments: str, keys, label: str, gpu: str) -> dict:
     if n_bases > D1_BLOCK_BASES:
         raise AssertionError(f"{label}: the slice's {n_bases} bases exceed a block")
     words, vwords = dc._on(dev, words), dc._on(dev, vwords)
-    t = {"shape": f"T={n_bases} bases, n={len(host_keys)} keys, k={k}"}
+    t = {"shape": f"T={n_bases} bases, n={len(host_keys)} keys, k={k}, d={table.bits}",
+         "d": table.bits}
+    if table.bits != dc.directory_bits(len(host_keys), k):
+        raise AssertionError(f"{label}: the table's directory is not the rule's")
     (keys_got, t["D1_EXTRACT"]) = timed(lambda: dc.extract(words, vwords, n_bases, k))
     keys_want, t["D1_EXTRACT_plain"] = timed(lambda: dc.extract_plain(words, vwords, n_bases, k))
     if not torch.equal(keys_got, keys_want):
@@ -2234,12 +2237,14 @@ def hold_d1(reads: str, segments: str, keys, label: str, gpu: str) -> dict:
     t["D1_COUNT_library"] = cuda_ms(library, 5)
     steps = dc.search_steps(table, keys_want)
     t["D1_EXTRACT_work"] = bounds.d1_extract(n_bases)
-    t["D1_COUNT_work"] = bounds.d1_count(n_bases, n, k, steps)
+    t["D1_COUNT_work"] = bounds.d1_count(n_bases, n, steps)
     t["D1_EXTRACT_cols"] = t["D1_COUNT_cols"] = n_bases
     t["valid_windows"] = len(queries)
+    t["table_reads"] = steps
     t["hits"] = int(want.sum())
     print(f"  {label} [{gpu}]: slice of {D1_SLICE_READS} reads, {t['shape']}, "
-          f"{len(queries)} valid windows, {t['hits']} counted; D1-extract {t['D1_EXTRACT']:.3f} "
+          f"{len(queries)} valid windows, {t['hits']} counted, {steps} table reads (the "
+          f"directory at d={table.bits}); D1-extract {t['D1_EXTRACT']:.3f} "
           f"ms (plain {t['D1_EXTRACT_plain']:.3f}), D1-count {t['D1_COUNT']:.3f} ms (first "
           f"launch {t['D1_COUNT_first']:.3f}, plain {t['D1_COUNT_plain']:.3f}, "
           f"torch.searchsorted + torch.bincount {t['D1_COUNT_library']:.3f}), "
@@ -2556,7 +2561,8 @@ def smoke(device, gpu, inputs) -> int:
                    seg_times, "S1_SEG"), plain_at=seg_plain_shape,
              **cluster_keys(BEYOND_SHAPE[2])),
         dict(entry("canonical k-mers of packed blocks (D1-extract: d1_extract_kernel, one "
-                   "thread a window), the SV run's table build", d1_src,
+                   "thread a window, its key from funnel shifts), the SV run's table build",
+                   d1_src,
                    "pangenie_tpu/kmers/device_counter.py:142",
                    launches["D1_EXTRACT"] + sv_launches["D1_EXTRACT"], 0, d1_corpus,
                    "D1_EXTRACT"), at=corpus["shape"],
@@ -2566,16 +2572,19 @@ def smoke(device, gpu, inputs) -> int:
              reads=dict(at=d1_sv["shape"], ms=d1_sv["D1_EXTRACT"],
                         plain_ms=d1_sv["D1_EXTRACT_plain"])),
         dict(entry("read k-mer counting into the sorted table (D1-count: d1_count_kernel, "
-                   "one thread a window, a directory bucket's binary search, atomicAdd)",
+                   "one thread a window, a directory sized to the table, the bucket read "
+                   "in 16-byte pairs, atomicAdd)",
                    d1_src, "pangenie_tpu/kmers/device_counter.py:430",
                    launches["D1_COUNT"] + sv_launches["D1_COUNT"], 0, d1_bench, "D1_COUNT"),
-             at=d1_bench["shape"], library_ms=d1_bench["D1_COUNT_library"],
+             at=d1_bench["shape"], directory_bits=d1_bench["d"],
+             library_ms=d1_bench["D1_COUNT_library"],
              library="torch.searchsorted, then torch.bincount(minlength=n)",
              us_per_million_windows=per_million(d1_bench, "D1_COUNT"),
              also_replaces="pangenie_tpu/kmers/device_counter.py:458, :474",
              launches_by_path={"bench single -g -p": launches["D1_COUNT"],
                                "sv index + genotype -f": sv_launches["D1_COUNT"]},
-             sv=dict(at=d1_sv["shape"], ms=d1_sv["D1_COUNT"], plain_ms=d1_sv["D1_COUNT_plain"],
+             sv=dict(at=d1_sv["shape"], directory_bits=d1_sv["d"], ms=d1_sv["D1_COUNT"],
+                     plain_ms=d1_sv["D1_COUNT_plain"],
                      library_ms=d1_sv["D1_COUNT_library"],
                      bound_ms=d1_sv["D1_COUNT_work"].bound()[0],
                      bound_by=d1_sv["D1_COUNT_work"].bound()[1],

@@ -39,8 +39,9 @@ V1_OPS = 24
 # shifts and the 2k-bit mask: 3), its reverse complement (the
 # complement, five swap steps of 3 and the shift: 17), the window's
 # validity bits (a funnel shift, a mask and a compare: 3) and the
-# smaller key (1); and a step of D1-count's binary search (the middle,
-# the compare and the bound: 3)
+# smaller key (1); and a table read of D1-count's search (a binary
+# step: the middle, the compare and the bound; a pair of keys: two
+# compares and the select: 3)
 D1_WINDOW_OPS = 24
 D1_SEARCH_OPS = 3
 
@@ -142,12 +143,12 @@ def d1_extract(n_bases: int) -> Work:
     return Work(_packed(n_bases) + 8 * n_bases, D1_WINDOW_OPS * n_bases)
 
 
-def d1_count(n_bases: int, n_keys: int, k: int, search_steps: int) -> Work:
+def d1_count(n_bases: int, n_keys: int, search_steps: int) -> Work:
     """D1-count over a flat block of T bases into a table of n keys:
-    words and vwords, the table (int64) [n], its directory (int32) [2^d
-    + 1] and counts (int32) [n] in, counts out. ``search_steps``: the
-    binary search's steps the block's valid windows take
+    words and vwords, the table (int64) [n] and counts (int32) [n] in,
+    counts out. The directory is the kernel's own lookup structure, its
+    size the kernel's choice, so its bytes are not counted.
+    ``search_steps``: the table reads the block's valid windows make
     (``device_counter.search_steps``)."""
-    d = min(16, 2 * k)
-    return Work(_packed(n_bases) + 8 * n_keys + 4 * ((1 << d) + 1) + 8 * n_keys,
+    return Work(_packed(n_bases) + 8 * n_keys + 8 * n_keys,
                 D1_WINDOW_OPS * n_bases + D1_SEARCH_OPS * search_steps)

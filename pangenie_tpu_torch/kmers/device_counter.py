@@ -18,10 +18,12 @@ order.
   ``torch.unique_consecutive`` (:class:`PrimedDeviceCounter` without
   keys).
 - Kernel D1-count extracts each read window's key, finds it by a
-  directory of the key's top bits and a binary search in the table, and
-  adds one to its count with an atomic (the reference's sort-merge join
-  was the TPU's answer to having no scatter). Counts are integers, so
-  the result is exact in any order.
+  directory of the key's top d bits, d sized to the table so a bucket
+  holds a few keys (:func:`directory_bits`), reads the bucket's keys in
+  16-byte pairs (narrowing a wide one by binary steps first), and adds
+  one to its count with an atomic (the reference's sort-merge join was
+  the TPU's answer to having no scatter). Counts are integers, so the
+  result is exact in any order.
 - :class:`DeviceKmerCounter` (COUNT mode) builds sorted count tables
   from D1-extract and library sorts.
 
@@ -47,8 +49,9 @@ from . import native
 
 # the key of an invalid window (a valid key is below 4^31 = 2^62)
 SENTINEL = (1 << 63) - 1
-# the directory buckets the table by the key's top min(DIR_BITS, 2k) bits
-DIR_BITS = 16
+# D1-count reads a bucket of at most SCAN keys whole (csrc/kmer_count.cu:
+# D1_SCAN, which pg_d1_scan answers)
+SCAN = 4
 # bases a packed piece: 2 words and 1 validity word (pack_sequences)
 PIECE = 32
 # device bytes a window of a table-building round may take (its key,
@@ -66,7 +69,7 @@ D1_EXTRACT = CudaKernel("kmer_count", "pg_d1_extract", "d1", [_P, _P, _L, _I, _P
 # kernel D1-count: replaces lookup_pair_directed + primed_update_batch
 # (and the sort-merge join primed_update_merge)
 D1_COUNT = CudaKernel("kmer_count", "pg_d1_count", "d1",
-                      [_P, _P, _L, _I, _P, _P, _I, _P, _P])
+                      [_P, _P, _L, _I, _P, _I, _P, _I, _P, _P])
 
 
 # ---------------------------------------------------------------------------
@@ -222,21 +225,40 @@ def _on(device: torch.device, array: np.ndarray) -> torch.Tensor:
 
 
 class Table(NamedTuple):
-    """A sorted, unique int64 key table [n] and its directory [2^d + 1]
-    int32: bucket b (a key's top d = min(DIR_BITS, 2k) bits, key >> shift)
-    holds table[directory[b]:directory[b + 1]]."""
+    """A sorted, unique int64 key table [n], 16-byte aligned, and its
+    directory [2^d + 1] int32: bucket b (a key's top d bits, key >>
+    shift) holds table[directory[b]:directory[b + 1]]."""
 
     keys: torch.Tensor
     directory: torch.Tensor
     shift: int
 
+    @property
+    def bits(self) -> int:
+        """d, the directory's bits."""
+        return (self.directory.shape[0] - 1).bit_length() - 1
 
-def make_table(keys: torch.Tensor, k: int) -> Table:
-    """The :class:`Table` of sorted, unique int64 ``keys`` of k-mers."""
-    d = min(DIR_BITS, 2 * k)
+
+def directory_bits(n_keys: int, k: int) -> int:
+    """The directory's bits for a table of ``n_keys`` k-mers: floor(log2
+    n), so a bucket holds 1-2 keys on average (24 at the 24-30 M keys of a
+    20 Mb graph: 64 MB), at most 2k. D1-count's time fell with every step
+    of d from 16 to 24 on 24-30 M keys, and rose past it (PERF.md)."""
+    return min(2 * k, max(0, n_keys.bit_length() - 1))
+
+
+def make_table(keys: torch.Tensor, k: int, d: Optional[int] = None) -> Table:
+    """The :class:`Table` of sorted, unique int64 ``keys`` of k-mers, with
+    a directory of ``d`` bits (default :func:`directory_bits`)."""
+    if d is None:
+        d = directory_bits(keys.shape[0], k)
+    if not 0 <= d <= 2 * k:
+        raise ValueError(f"a directory of {k}-mers takes 0 to {2 * k} bits, got {d}")
+    if keys.data_ptr() % 16:
+        keys = keys.clone()
     shift = 2 * k - d
     bounds = torch.arange((1 << d) + 1, dtype=torch.int64, device=keys.device) << shift
-    return Table(keys, torch.searchsorted(keys, bounds).to(torch.int32), shift)
+    return Table(keys, torch.searchsorted(keys, bounds, out_int32=True), shift)
 
 
 def extract_plain(words: torch.Tensor, vwords: torch.Tensor, n_bases: int, k: int
@@ -325,7 +347,7 @@ def count(words: torch.Tensor, vwords: torch.Tensor, n_bases: int, k: int, table
     :func:`extract`)."""
     _check_block(words, vwords, n_bases, k)
     n = table.keys.shape[0]
-    d = min(DIR_BITS, 2 * k)
+    d = table.bits
     for name, t, dtype, shape in (("table", table.keys, torch.int64, (n,)),
                                   ("directory", table.directory, torch.int32, ((1 << d) + 1,)),
                                   ("counts", counts, torch.int32, (n,))):
@@ -333,26 +355,43 @@ def count(words: torch.Tensor, vwords: torch.Tensor, n_bases: int, k: int, table
                 or t.device != words.device):
             raise ValueError(f"D1-count: {name} must be contiguous {dtype} {shape} on "
                              f"{words.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if table.shift != 2 * k - d:
+    if table.shift != 2 * k - d or d > 2 * k:
         raise ValueError(f"D1-count: the table's directory is not one of {k}-mers")
+    if table.keys.data_ptr() % 16:
+        raise ValueError("D1-count: the table must be 16-byte aligned (make_table)")
     if words.device.type == "cpu" and kernel is D1_COUNT:
         count_plain(words, vwords, n_bases, k, table, counts)
         return
     if n_bases:
         if stream is None:
             stream = launch_stream(words.device)
-        kernel(words.data_ptr(), vwords.data_ptr(), n_bases, k, table.keys.data_ptr(),
+        kernel(words.data_ptr(), vwords.data_ptr(), n_bases, k, table.keys.data_ptr(), n,
                table.directory.data_ptr(), table.shift, counts.data_ptr(), stream)
 
 
-def search_steps(table: Table, keys: torch.Tensor) -> int:
-    """The binary search's steps D1-count takes for ``keys`` (extracted
-    keys, SENTINEL for invalid windows): at least floor(log2(w + 1)) a
-    valid window whose bucket holds w keys (hmm/bounds.py: d1_count)."""
+def search_steps(table: Table, keys: torch.Tensor, scan: int = SCAN) -> int:
+    """The table reads D1-count makes for ``keys`` (extracted keys,
+    SENTINEL for invalid windows), as its search makes them: for each
+    valid window, the binary steps that narrow its bucket to at most
+    ``scan`` keys (the library's D1_SCAN), then the pairs of keys that
+    cover the rest from an even index (hmm/bounds.py: d1_count)."""
     keys = keys[keys != SENTINEL]
     d = table.directory.to(torch.int64)
-    widths = (d[1:] - d[:-1])[keys >> table.shift]
-    return int(torch.floor(torch.log2(widths.to(torch.float64) + 1)).sum().item())
+    bucket = keys >> table.shift
+    lo, hi = d[bucket], d[bucket + 1]
+    steps = 0
+    while True:
+        wide = hi - lo > scan
+        n_wide = int(wide.sum())
+        if not n_wide:
+            break
+        steps += n_wide
+        mid = lo + ((hi - lo) >> 1)
+        below = table.keys[torch.where(wide, mid, 0)] <= keys
+        lo = torch.where(wide & below, mid, lo)
+        hi = torch.where(wide & ~below, mid, hi)
+    # the pairs at even i, lo - 1 <= i < hi
+    return steps + int((((hi + 1) >> 1) - (lo >> 1)).sum())
 
 
 def extract_canonical(codes, k: int, device=None):
@@ -415,11 +454,12 @@ def round_windows(device: torch.device) -> int:
 
 def footprint_bytes(n_keys: int, rounds: int, block_bases: int) -> int:
     """The most device bytes D1 holds for a table of ``n_keys``: the
-    table and its counts (12 bytes a key) and directory, a block of
+    table and its counts (12 bytes a key) and directory (4 bytes a
+    bucket of :func:`directory_bits`, at k = 31 the most), a block of
     packed reads (0.375 bytes a base), and a fold of the table build: a
     round's keys and their sort (32 bytes a window), the table with the
     round's keys and their sort (32 bytes an entry)."""
-    return (12 * n_keys + 4 * ((1 << DIR_BITS) + 1) + 3 * block_bases // 8
+    return (12 * n_keys + 4 * ((1 << directory_bits(n_keys, 31)) + 1) + 3 * block_bases // 8
             + 32 * rounds + 32 * (n_keys + rounds))
 
 

@@ -923,6 +923,44 @@ def test_d1_kernels_match_plain(cuda, k):
     assert (dc.D1_EXTRACT.launches, dc.D1_COUNT.launches) == (launches[0] + 1, launches[1] + 1)
 
 
+@pytest.mark.parametrize("d", ["0", "16", "rule", "24"])
+def test_d1_count_at_each_directory_size(cuda, d):
+    """D1-count's counts equal the plain version's with the directory at
+    0 bits (one bucket, narrowed by binary steps), 16, the rule's and 24,
+    on a block whose table holds every other key."""
+    from pangenie_tpu_torch.kmers import device_counter as dc
+
+    words, vwords, n_bases, _ = _d1_block(9, 20_000, 160, cuda)
+    keys = dc.extract(words, vwords, n_bases, 31)
+    table = dc.make_table(torch.unique(keys[keys != dc.SENTINEL])[::2].contiguous(), 31,
+                          None if d == "rule" else int(d))
+    got = torch.zeros(table.keys.shape, dtype=torch.int32, device=cuda)
+    want = torch.zeros_like(got)
+    dc.count(words, vwords, n_bases, 31, table, got)
+    dc.count_plain(words, vwords, n_bases, 31, table, want)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and got.sum() > 0
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_d1_count_into_tiny_tables(cuda, n):
+    """Tables of 1-3 keys whose next int64 is a key the reads hold, with
+    counts whose next int32 is watched: nothing is read past the table."""
+    from pangenie_tpu_torch.kmers import device_counter as dc
+
+    words, vwords, n_bases, _ = _d1_block(10, 2_000, 160, cuda)
+    keys = dc.extract(words, vwords, n_bases, 31)
+    present = torch.unique(keys[keys != dc.SENTINEL])
+    held = torch.cat([present[:n], present[-1:]])
+    counts = torch.zeros(n + 1, dtype=torch.int32, device=cuda)
+    table = dc.make_table(held[:n], 31)
+    dc.count(words, vwords, n_bases, 31, table, counts[:n])
+    want = torch.zeros(n, dtype=torch.int32, device=cuda)
+    dc.count_plain(words, vwords, n_bases, 31, table, want)
+    torch.cuda.synchronize()
+    assert torch.equal(counts[:n], want) and counts[n].item() == 0
+
+
 def test_d1_refuses_what_it_does_not_take(cuda):
     from pangenie_tpu_torch.kmers import device_counter as dc
 

@@ -54,10 +54,10 @@ from pangenie_tpu_torch.hmm import bounds, fb_generic, fb_kernels, sampling
     (bounds.v1(2, 65536, 16, 4), 85_987_352, 0.02566787),
     # D1 over a block of 48,000,000 bases: words 12,000,000 + vwords
     # 6,000,000 + keys 384,000,000; D1-count into 24,000,000 keys: the
-    # block, table 192,000,000, directory 262,148, counts in and out
-    # 192,000,000
+    # block, table 192,000,000, counts in and out 192,000,000 (not the
+    # directory, the kernel's own)
     (bounds.d1_extract(48_000_000), 402_000_000, 0.1200000),
-    (bounds.d1_count(48_000_000, 24_000_000, 31, 400_000_000), 402_262_148, 0.1200783),
+    (bounds.d1_count(48_000_000, 24_000_000, 400_000_000), 402_000_000, 0.1200000),
 ], ids=["K1", "K2", "K3", "K4", "S1", "S1_chase", "K3_grid", "K4_grid", "V1", "D1_extract",
         "D1_count"])
 def test_bytes_and_bound_at_main_shapes(work, nbytes, ms):
@@ -75,11 +75,28 @@ def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _table_reads(table, key: int, scan: int) -> int:
+    """The table reads D1-count's search makes for one valid key, step by
+    step as csrc/kmer_count.cu takes them: binary steps while its range
+    holds more than ``scan`` keys, then the pairs from the range's even
+    neighbour."""
+    directory, keys = table.directory.tolist(), table.keys.tolist()
+    lo, hi = directory[key >> table.shift], directory[(key >> table.shift) + 1]
+    steps = 0
+    while hi - lo > scan:
+        mid = lo + (hi - lo) // 2
+        lo, hi = (mid, hi) if keys[mid] <= key else (lo, mid)
+        steps += 1
+    return steps + len(range(lo & ~1, hi, 2))
+
+
 def test_d1_bytes_and_steps_match_the_plain_versions():
-    """D1's byte counts are the bytes of the block, table, directory and
-    counts the plain versions take (counts twice: read and written) and
-    of the keys D1-extract returns; its search steps are floor(log2(w +
-    1)) a valid window in a bucket of w keys."""
+    """D1's byte counts are the bytes of the block, table keys and counts
+    that the plain versions read (counts twice: read and written; the
+    plain count reads no directory) and of the keys D1-extract returns;
+    its search steps are the table reads its search makes, at the rule's
+    directory and at one of 4 bits whose buckets are narrowed first, and
+    at a scan of 8 keys as at the default."""
     from pangenie_tpu_torch.kmers import device_counter as dc
 
     rng = np.random.default_rng(2)
@@ -89,14 +106,17 @@ def test_d1_bytes_and_steps_match_the_plain_versions():
                                          offsets[:-1], np.diff(offsets))
     words, vwords = (torch.from_numpy(x.view(np.int32)) for x in (words, vwords))
     keys = dc.extract_plain(words, vwords, T, 11)
-    table = dc.make_table(torch.unique(keys[keys != dc.SENTINEL])[::2].contiguous(), 11)
-    counts = torch.zeros(table.keys.shape, dtype=torch.int32)
+    table_keys = torch.unique(keys[keys != dc.SENTINEL])[::2].contiguous()
+    counts = torch.zeros(table_keys.shape, dtype=torch.int32)
     assert bounds.d1_extract(T).nbytes == _nbytes(words, vwords, keys)
-    steps = dc.search_steps(table, keys)
-    assert bounds.d1_count(T, len(table.keys), 11, steps).nbytes == _nbytes(
-        words, vwords, table.keys, table.directory, counts, counts)
-    widths = np.diff(table.directory.numpy())[(keys[keys != dc.SENTINEL] >> table.shift).numpy()]
-    assert steps == sum(int(w + 1).bit_length() - 1 for w in widths) > 0
+    for d, scan in ((dc.directory_bits(len(table_keys), 11), dc.SCAN), (4, dc.SCAN), (4, 8)):
+        table = dc.make_table(table_keys, 11, d)
+        steps = dc.search_steps(table, keys, scan)
+        assert bounds.d1_count(T, len(table.keys), steps).nbytes == _nbytes(
+            words, vwords, table.keys, counts, counts)
+        reads = [_table_reads(table, key, scan) for key in keys[keys != dc.SENTINEL].tolist()]
+        assert steps == sum(reads) > 0
+        assert d != 4 or max(reads) > 1 + scan // 2
 
 
 def test_generic_bytes_match_the_plain_versions_tensors():

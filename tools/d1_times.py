@@ -1,6 +1,7 @@
 """Read k-mer counting on one NVIDIA GPU: the host engine's phases beside D1's.
 
-    python3 tools/d1_times.py [--panels sv,bench] [--threads 2]
+    python3 tools/d1_times.py [--panels sv,bench] [--threads 2] [--no-routes]
+                              [--root DIR] [--sweep] [--reps 5]
 
 Simulates (or reuses) chip_smoke.py's SV panel (20 Mb, 89 paths, one
 chromosome) and bench workload (20 Mb, 2 chromosomes, 123 paths), both
@@ -28,16 +29,33 @@ Then both kernels on the first block of the reads (and D1-extract on
 the SV corpus's first round) against their plain versions, beside their
 bounds and the library calls (``torch.searchsorted`` then
 ``torch.bincount``) that compute D1-count's function
-(``chip_smoke.hold_d1``). Prints one JSON line a workload with the
-card's name and power limit. Exits non-zero where a check fails, and
-without a GPU.
+(``chip_smoke.hold_d1``). ``--no-routes`` skips the two routes.
+
+``--root DIR`` builds DIR's ``pangenie_tpu_torch/csrc/kmer_count.cu``
+beside this tree's and times both trees' kernels in turns (other, this,
+this, other) on the block of reads and, for the SV panel, the corpus's
+first round; every launch is held equal to the plain versions. Where
+DIR's ``pg_d1_count`` takes no key count (the entry point of the design
+with a fixed directory of min(16, 2k) bits, before the directory
+followed the table), it is called so, with that directory: this fork
+exists only to time that design beside this one. ``--sweep`` times this
+tree's D1-count on the same block with the directory at d = 16-26 bits
+and, at the rule's d, built with D1_SCAN = 8 and 16 beside the default
+4, each with its table reads (``device_counter.search_steps`` at the
+library's ``pg_d1_scan``). Every source is built with nvcc at once, one
+process a source.
+
+Prints one JSON line a workload with the card's name and power limit.
+Exits non-zero where a check fails, and without a GPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
+import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -106,10 +124,186 @@ def d1_route(reads: str, segments: str, k: int, keys, threads: int):
     return counter, wall, parts
 
 
+SWEEP_BITS = (16, 18, 20, 22, 23, 24, 25, 26)
+SWEEP_SCANS = (8, 16)
+# D1-count's arguments where its source takes no key count (the fixed
+# directory of min(16, 2k) bits; --root only)
+COUNT_ARGS_FIXED_DIRECTORY = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                              ctypes.c_void_p]
+
+
+def build_libraries(out_dir: str, variants: dict) -> dict:
+    """Each variant {name: (source text, [-D defines])} built with nvcc
+    at once, one process a source; {name: (pg_d1_extract, pg_d1_count,
+    its D1_SCAN, or None where D1-count takes no key count)}."""
+    from pangenie_tpu_torch import _build
+    from pangenie_tpu_torch.kmers import device_counter as dc
+
+    os.makedirs(out_dir, exist_ok=True)
+    procs = {}
+    for name, (text, defines) in variants.items():
+        src = os.path.join(out_dir, f"kmer_count_{name}.cu")
+        with open(src, "w") as f:
+            f.write(text)
+        lib = os.path.join(out_dir, f"libkmer_count_{name}.so")
+        procs[name] = (lib, "int n_keys" in text, subprocess.Popen(
+            [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+             *(f"-D{d}" for d in defines), "-o", lib, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for name, (lib, sized, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"building the {name} variant failed:\n{out}")
+        report = [line.split("ptxas info    : ")[-1].strip() for line in out.splitlines()
+                  if "registers" in line or "spill" in line]
+        print(json.dumps({"built": name, "ptxas": report}), flush=True)
+        cdll = ctypes.CDLL(lib)
+        extract, count = cdll.pg_d1_extract, cdll.pg_d1_count
+        extract.argtypes = dc.D1_EXTRACT._argtypes
+        count.argtypes = dc.D1_COUNT._argtypes if sized else COUNT_ARGS_FIXED_DIRECTORY
+        extract.restype = count.restype = ctypes.c_int
+        fns[name] = (extract, count, cdll.pg_d1_scan() if sized else None)
+    return fns
+
+
+def d1_inputs(reads: str, segments: str, keys, dev):
+    """chip_smoke.hold_d1's block of reads and table, and the corpus's
+    first round where the table is built on the card: (words, vwords,
+    T, table keys, corpus block or None)."""
+    import numpy as np
+
+    import chip_smoke
+    from pangenie_tpu_torch.kmers import device_counter as dc
+    from pangenie_tpu_torch.kmers.counter import iter_sequences
+
+    k = 31
+    table_keys = dc.PrimedDeviceCounter(k, keys, corpus_files=[segments], device=dev).table.keys
+    data, offsets = dc._joined(list(iter_sequences(
+        chip_smoke.d1_slice(reads, chip_smoke.D1_SLICE_READS))))
+    words, vwords, n_bases = dc.pack_sequences(data, offsets[:-1], np.diff(offsets))
+    corpus = None
+    if keys is None:
+        w, v, n = next(dc.packed_blocks([segments], k, dc.round_windows(dev)))
+        corpus = (dc._on(dev, w), dc._on(dev, v), n)
+    return dc._on(dev, words), dc._on(dev, vwords), n_bases, table_keys, corpus
+
+
+def kernel_times(fns: dict, order, inputs, reps: int, table_bits=None) -> dict:
+    """Each of ``order``'s libraries' D1-extract on the block (and the
+    corpus round) and D1-count on the block into the table (with the
+    directory of ``table_bits``, by default the rule's, where its source
+    takes the key count, else of 16), in that order, each held equal to
+    the plain versions; {name: {what: ms}} with each name's runs in a
+    list."""
+    import torch
+
+    import chip_smoke
+    from pangenie_tpu_torch import _build
+    from pangenie_tpu_torch.kmers import device_counter as dc
+
+    k = 31
+    words, vwords, n_bases, table_keys, corpus = inputs
+    dev = words.device
+    stream = _build.launch_stream(dev)
+    tables = {}
+    want_keys = {"block": dc.extract_plain(words, vwords, n_bases, k)}
+    if corpus is not None:
+        want_keys["corpus"] = dc.extract_plain(*corpus, k)
+    want_counts = torch.zeros(table_keys.shape, dtype=torch.int32, device=dev)
+    dc.count_plain(words, vwords, n_bases, k, dc.make_table(table_keys, k), want_counts)
+
+    def ok(code):
+        if code:
+            raise RuntimeError(f"a D1 launch returned CUDA error {code}")
+
+    out = {}
+    for name in order:
+        extract, count, scan = fns[name]
+        sized = scan is not None
+        d = (table_bits if table_bits is not None else dc.directory_bits(len(table_keys), k)
+             ) if sized else 16
+        if d not in tables:
+            tables[d] = dc.make_table(table_keys, k, d)
+        table = tables[d]
+        runs = out.setdefault(name, {"d": d})
+        blocks = {"block": (words, vwords, n_bases)}
+        if corpus is not None:
+            blocks["corpus"] = corpus
+        for what, (w, v, n) in blocks.items():
+            keys = torch.empty(n, dtype=torch.int64, device=dev)
+
+            def run_extract():
+                ok(extract(w.data_ptr(), v.data_ptr(), n, k, keys.data_ptr(), stream))
+
+            run_extract()
+            torch.cuda.synchronize()
+            if not torch.equal(keys, want_keys[what]):
+                raise AssertionError(f"{name}: D1-extract's keys on the {what} differ")
+            runs.setdefault(f"extract_{what}_ms", []).append(chip_smoke.cuda_ms(run_extract, reps))
+        counts = torch.zeros(table_keys.shape, dtype=torch.int32, device=dev)
+        head = [words.data_ptr(), vwords.data_ptr(), n_bases, k, table.keys.data_ptr()]
+        tail = [table.directory.data_ptr(), table.shift, counts.data_ptr(), stream]
+        args = head + ([len(table_keys)] if sized else []) + tail
+
+        def run_count():
+            ok(count(*args))
+
+        run_count()
+        torch.cuda.synchronize()
+        if not torch.equal(counts, want_counts):
+            raise AssertionError(f"{name}: D1-count's counts at d={d} differ")
+        runs.setdefault("count_ms", []).append(chip_smoke.cuda_ms(run_count, reps))
+        runs["table_reads"] = dc.search_steps(table, want_keys["block"], scan) if sized else None
+    return out
+
+
+def against_parent(root: str, inputs, reps: int) -> dict:
+    """Both trees' kernels in turns (other, this, this, other)."""
+    from pangenie_tpu_torch import _build
+
+    with open(os.path.join(_build.CUDA_SRC_DIR, "kmer_count.cu")) as f:
+        this = f.read()
+    with open(os.path.join(os.path.abspath(root), "pangenie_tpu_torch", "csrc",
+                           "kmer_count.cu")) as f:
+        other = f.read()
+    fns = build_libraries(os.path.join(ROOT, "build", "tools", "d1_parent"),
+                          {"this": (this, []), "other": (other, [])})
+    return kernel_times(fns, ["other", "this", "this", "other"], inputs, reps)
+
+
+def sweep(inputs, reps: int) -> dict:
+    """This tree's D1-count at each of SWEEP_BITS, and at the rule's d
+    built with each of SWEEP_SCANS."""
+    from pangenie_tpu_torch import _build
+    from pangenie_tpu_torch.kmers import device_counter as dc
+
+    with open(os.path.join(_build.CUDA_SRC_DIR, "kmer_count.cu")) as f:
+        this = f.read()
+    fns = build_libraries(os.path.join(ROOT, "build", "tools", "d1_sweep"),
+                          {"this": (this, []), **{f"scan{s}": (this, [f"D1_SCAN={s}"])
+                                                  for s in SWEEP_SCANS}})
+    words, vwords, n_bases, table_keys, _ = inputs
+    block = (words, vwords, n_bases, table_keys, None)
+    out = {}
+    for d in SWEEP_BITS:
+        out[f"d{d}"] = kernel_times(fns, ["this"], block, reps, d)["this"]
+    rule = dc.directory_bits(len(table_keys), 31)
+    for s in SWEEP_SCANS:
+        out[f"scan{s}_d{rule}"] = kernel_times(fns, [f"scan{s}"], block, reps)[f"scan{s}"]
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--panels", default="sv,bench")
     ap.add_argument("--threads", type=int, default=2)
+    ap.add_argument("--no-routes", action="store_true")
+    ap.add_argument("--root", help="another checkout whose D1 is timed beside this one")
+    ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
 
@@ -159,7 +353,7 @@ def main() -> int:
         record["corpus_bases"] = os.path.getsize(segments)
         runs = []
         want = None
-        for route in ("host", "d1", "d1", "host"):
+        for route in () if args.no_routes else ("host", "d1", "d1", "host"):
             if route == "host":
                 got_keys, got_counts, parts = host_route(reads, segments, k, keys, args.threads)
                 wall = parts["total"]
@@ -173,7 +367,8 @@ def main() -> int:
                                      f"host route's")
             runs.append({"route": route, "wall_s": wall, **parts})
             print(f"  {name} {route}: {wall:.2f} s {json.dumps(parts)}", flush=True)
-        record.update(runs=runs, n_keys=int(len(want[0])), counted=int(want[1].sum()))
+        if runs:
+            record.update(runs=runs, n_keys=int(len(want[0])), counted=int(want[1].sum()))
         t = chip_smoke.hold_d1(reads, segments, keys, f"{name} reads", gpu)
         record["kernels"] = {
             key: (t[key] if not isinstance(t[key], dict) else
@@ -187,6 +382,14 @@ def main() -> int:
                 t[key + "_work"].bound()
             record["kernels"][key + "_us_per_million_windows"] = \
                 t[key] * 1e3 / (t[key + "_cols"] / 1e6)
+        if args.root or args.sweep:
+            inputs = d1_inputs(reads, segments, keys, torch.device("cuda", 0))
+            if args.root:
+                record["against_parent"] = against_parent(args.root, inputs, args.reps)
+            if args.sweep:
+                record["sweep"] = sweep(inputs, args.reps)
+            del inputs
+            torch.cuda.empty_cache()
         print(json.dumps(record), flush=True)
     return 0
 
