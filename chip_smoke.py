@@ -6,8 +6,8 @@ Phases, each printed as it runs; any failure exits non-zero:
 
 1. environment: torch/CUDA versions, GPU name and power limit, nvcc;
 2. build: the CUDA kernels (K1-K4 in csrc/fb.cu, S1's sweep and chase
-   in csrc/sampling_dp.cu, V1 in csrc/viterbi.cu, D1-extract and
-   D1-count in csrc/kmer_count.cu) and the host k-mer engine, from this
+   in csrc/sampling_dp.cu, V1 in csrc/viterbi.cu, D1-extract, D1-count
+   and D1-count-keys in csrc/kmer_count.cu) and the host k-mer engine, from this
    checkout, one compiler per source, all at once.
    The five end-to-end workloads below are simulated meanwhile, in
    four worker processes, once each into build/smoke_inputs/;
@@ -148,7 +148,32 @@ Phases, each printed as it runs; any failure exits non-zero:
    subsets of 600 paths, past what a cluster holds: dispatch
    cuda_generic, K3/K4's grid tier alone, concordance >= 0.98), its
    launches counted alone; then the grid tier held against the plain
-   versions and timed at the chunk shape that run took.
+   versions and timed at the chunk shape that run took;
+10. multi-GPU (M1), each rank a process of this script
+   (``--rank-job``) joined through a TCP store on localhost, the
+   variables the port reads set: (a) world 1 over NCCL: the partitioned
+   read k-mer counter (``count_file_primed_sharded``) on phase 6's block
+   of the bench reads, its counts equal to D1-count's, then
+   ``dryrun_multigpu(1)``; (b) two ranks sharing the card over gloo
+   (NCCL takes one rank a card): the bench ``single -g -p`` of phase 4
+   through the CLI, the coordinator's VCF bodies equal to phase 4's,
+   both ranks on cuda:0 launching D1-count and S1, and between them K1,
+   K2 and V1 (round-robin gives the phasing items to one rank, the
+   genotyping items to the other); then the partitioned counter over
+   the SV table built on the card (a partition a rank) on phase 6's
+   block of the SV reads, its counts equal to phase 6's; then the SV
+   ``genotype -f`` of phase 6 through the CLI with ``table_fits``
+   patched to refuse the whole table and take a half, so that
+   ``_read_counter`` takes its partitioned route: the coordinator's VCF
+   body equal to phase 6's first run's, its counts equal to one process's D1 count
+   of every SV read, and D1-count-keys' launches in the ``kernels`` line
+   taken from this run alone; each rank's walls printed; (c) ``run_grid_local_sharded`` with [cuda:0, cuda:0]
+   on the bench run's own fused and phasing batches, bit-identical to
+   the single call; (d) D1-count-keys on the SV block's valid keys
+   routed into 2 and 4 partitions of the SV table: every partition's
+   counts equal to the plain version's and to D1-count's, partition 0
+   timed beside its bound, its plain version and torch.searchsorted then
+   torch.bincount, and the routing (owner, sort, sizes) timed.
 
 Each end-to-end path, and the chromosome beyond one card, runs with
 every kernel's launch count set to 0 just before it and read just
@@ -1566,13 +1591,16 @@ def batches_kept(captured: list):
     forward_backward_batch goes to ``captured`` as (its columns, the
     route it took)."""
     from pangenie_tpu_torch.hmm import batch, genotyping
+    from pangenie_tpu_torch.parallel import genotyping as grid
 
     def kept(columns):
         out = batch.forward_backward_batch(columns)
         captured.append((columns, batch.last_dispatch))
         return out
 
-    with patched(genotyping, "forward_backward_batch", kept):
+    # a long run's batch, and every other batch (run_grid_local_sharded)
+    with patched(genotyping, "forward_backward_batch", kept), \
+            patched(grid, "forward_backward_batch", kept):
         yield
 
 
@@ -1585,9 +1613,10 @@ def phasing_kept(captured: dict):
     phases as (its columns, uniform, the states it got, the length a long
     run's columns are padded to or None)."""
     from pangenie_tpu_torch.hmm import genotyping
+    from pangenie_tpu_torch.parallel import genotyping as grid
 
     captured.update(runs=[], batches=[])
-    init, phase_batch = genotyping.PairHMM.__init__, genotyping.viterbi
+    init, phase_batch = genotyping.PairHMM.__init__, grid.viterbi
     phase_long = genotyping.viterbi_segmented
 
     def kept_init(self, records, probabilities, run_genotyping, run_phasing,
@@ -1611,7 +1640,7 @@ def phasing_kept(captured: dict):
         return states
 
     with patched(genotyping.PairHMM, "__init__", kept_init), \
-            patched(genotyping, "viterbi", kept_batch), \
+            patched(grid, "viterbi", kept_batch), \
             patched(genotyping, "viterbi_segmented", kept_long):
         yield
 
@@ -2267,9 +2296,388 @@ def hold_d1(reads: str, segments: str, keys, label: str, gpu: str) -> dict:
         print(f"  {label}: D1-extract on {c['shape']}: {c['ms']:.3f} ms (plain "
               f"{c['plain_ms']:.3f}), bound {c['work'].bound()[0]:.4f} ms by "
               f"{c['work'].bound()[1]}", flush=True)
+    # kept on the host for the multi-GPU phase: the table, the block's
+    # valid keys and D1-count's counts of them
+    t["table_keys"] = table.keys.cpu().numpy()
+    t["valid_keys"] = queries.cpu().numpy()
+    t["counts"] = want.cpu().numpy()
     del counter, table, got, want, keys_got, keys_want, queries
     torch.cuda.empty_cache()
     return t
+
+
+# -- multi-GPU (M1): ranks of torch.distributed on the one card ------------
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(job: str, world: int, args: dict, timeout: float) -> list:
+    """Run RANK_JOBS[job](args) in ``world`` processes of this script
+    joined in one process group (the variables the port reads, a TCP
+    store on localhost); returns each rank's result, in rank order. Every
+    process is stopped before this returns; a rank that fails, or a run
+    past ``timeout`` seconds, raises with the end of its log."""
+    logdir = os.path.join(ROOT, "build", "smoke_ranks", job)
+    os.makedirs(logdir, exist_ok=True)
+    port = _free_port()
+    procs = []
+    try:
+        for rank in range(world):
+            env = dict(os.environ, PANGENIE_TPU_COORDINATOR=f"localhost:{port}",
+                       PANGENIE_TPU_NUM_PROCESSES=str(world), PANGENIE_TPU_PROCESS_ID=str(rank))
+            env.pop("PANGENIE_TORCH_DEVICE", None)
+            out, log = (os.path.join(logdir, f"rank{rank}.{ext}") for ext in ("json", "log"))
+            if os.path.exists(out):
+                os.remove(out)
+            with open(log, "w") as log_file:
+                procs.append((subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--rank-job", job,
+                     json.dumps(args), out], env=env, cwd=ROOT, stdout=log_file,
+                    stderr=subprocess.STDOUT), out, log))
+        deadline = time.monotonic() + timeout
+        results = []
+        for proc, out, log in procs:
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"{job}: rank {len(results)} ran past {timeout} s: "
+                                     f"{_tail(log)}")
+            if proc.returncode != 0:
+                raise AssertionError(f"{job}: rank {len(results)} exited with "
+                                     f"{proc.returncode}: {_tail(log)}")
+            with open(out) as f:
+                results.append(json.load(f))
+        return results
+    finally:
+        for proc, _, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _tail(log: str) -> str:
+    with open(log) as f:
+        return f.read()[-3000:]
+
+
+def rank_job(job: str, args: dict, out: str) -> int:
+    """One rank of :func:`spawn_ranks`: join the group, run the job,
+    write its result (with the rank, the world, the backend and the
+    device) to ``out``."""
+    from pangenie_tpu_torch.device import resolve_device
+    from pangenie_tpu_torch.parallel import distributed as dist
+
+    dist.maybe_initialize()
+    result = dict(rank=dist.process_index(), world=dist.process_count(),
+                  backend=dist.layout().backend, device=str(resolve_device()))
+    result.update(RANK_JOBS[job](args))
+    dist.shutdown()
+    with open(out, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def _timed_launches(fn):
+    """(fn(), its wall in seconds, the launches it made), the counts set
+    to 0 just before it and read just after."""
+    import torch
+
+    reset_launches()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.monotonic() - t0, launch_counts()
+
+
+def job_world_one(args: dict) -> dict:
+    """World 1 over NCCL: the partitioned counter on a block of reads
+    (the whole table one partition), then dryrun_multigpu(1)."""
+    import numpy as np
+
+    from pangenie_tpu_torch.kmers import device_counter as dc
+    from pangenie_tpu_torch.parallel.dryrun import dryrun_multigpu
+
+    keys = np.load(args["keys"])
+    counter, wall, launches = _timed_launches(lambda: dc.count_file_primed_sharded(
+        args["reads"], 31, keys, block_bases=D1_BLOCK_BASES))
+    np.save(args["counts_out"], counter.counts)
+    dry, dry_wall, dry_launches = _timed_launches(lambda: dryrun_multigpu(1))
+    return dict(counter_wall=wall, counter_launches=launches, dryrun=dry,
+                dryrun_wall=dry_wall, dryrun_launches=dry_launches)
+
+
+def job_pair(args: dict) -> dict:
+    """Two ranks sharing the card: the bench ``single -g -p`` through the
+    CLI; the partitioned counter over the SV table built on the card (a
+    partition a rank) on a block of the SV reads; then the SV ``genotype
+    -f`` through the CLI with ``table_fits`` refusing the whole table and
+    taking a half, so that ``_read_counter`` takes its partitioned route,
+    whose counts are kept."""
+    import numpy as np
+
+    from pangenie_tpu_torch import cli
+    from pangenie_tpu_torch.kmers import device_counter as dc
+    from pangenie_tpu_torch.parallel import distributed as dist
+
+    rc, wall, launches = _timed_launches(lambda: cli.main([
+        "genotype", "-i", args["reads"], "-r", args["ref"], "-v", args["panel"], "-o",
+        args["out"], "-j", "2", "-t", "2", "-g", "-p"]))
+    if rc != 0:
+        raise AssertionError(f"single exited with {rc}")
+    counter, sv_wall, sv_launches = _timed_launches(lambda: dc.count_file_primed_sharded(
+        args["sv_reads"], 31, None, block_bases=D1_BLOCK_BASES,
+        corpus_files=[args["sv_segments"]]))
+    if dist.is_coordinator():
+        np.save(args["sv_counts_out"], counter.counts)
+        np.save(args["sv_keys_out"], counter.keys)
+
+    # the corpus's size bounds the table _read_counter sizes (no keys
+    # under -f): the whole refused, a half taken
+    half = -(-os.path.getsize(args["sv_segments"]) // 2)
+    sharded, taken = dc.count_file_primed_sharded, []
+
+    def kept(*a, **kw):
+        taken.append(sharded(*a, **kw))
+        return taken[-1]
+
+    with patched(dc, "table_fits", lambda n, device, block: n <= half), \
+            patched(dc, "count_file_primed_sharded", kept):
+        rc, gf_wall, gf_launches = _timed_launches(lambda: cli.main([
+            "genotype", "-i", args["sv_reads_all"], "-f", args["sv_prefix"], "-o",
+            args["sv_out"], "-j", "2", "-t", "2", "-g"]))
+    if rc != 0 or len(taken) != 1:
+        raise AssertionError(f"genotype -f exited with {rc}, the partitioned counter taken "
+                             f"{len(taken)} times")
+    if dist.is_coordinator():
+        np.save(args["gf_counts_out"], taken[0].counts)
+        np.save(args["gf_keys_out"], taken[0].keys)
+    return dict(single_wall=wall, single_launches=launches, sv_wall=sv_wall,
+                sv_launches=sv_launches, gf_wall=gf_wall, gf_launches=gf_launches)
+
+
+RANK_JOBS = {"world_one": job_world_one, "pair": job_pair}
+
+
+def run_multigpu(casedir: str, sv_dir: str, d1_bench: dict, d1_sv: dict, gpu: str) -> dict:
+    """(a) world 1 over NCCL and (b) two ranks sharing the card over gloo
+    (:func:`spawn_ranks`), checked against the one-process runs; returns
+    the launches of D1-count-keys on these paths and the walls."""
+    import numpy as np
+
+    work = os.path.join(ROOT, "build", "smoke_ranks")
+    os.makedirs(work, exist_ok=True)
+    bench_segments = os.path.join(casedir, "out_path_segments.fasta")
+    keys_path = os.path.join(work, "bench_keys.npy")
+    np.save(keys_path, d1_bench["table_keys"].view(np.uint64))
+    counts_out = os.path.join(work, "world_one_counts.npy")
+    t0 = time.monotonic()
+    (one,) = spawn_ranks("world_one", 1, dict(
+        reads=d1_slice(os.path.join(casedir, "reads.fa"), D1_SLICE_READS), keys=keys_path,
+        counts_out=counts_out), timeout=300)
+    wall_a = time.monotonic() - t0
+    if (one["backend"], one["device"]) != ("nccl", "cuda:0"):
+        raise AssertionError(f"world 1 ran on {one['backend']} / {one['device']}")
+    if not np.array_equal(np.load(counts_out), d1_bench["counts"]):
+        raise AssertionError("the partitioned counter's counts differ from D1-count's")
+    for what, launches, names in (
+            ("partitioned counter", one["counter_launches"], ("D1_EXTRACT", "D1_COUNT_KEYS")),
+            ("dryrun_multigpu(1)", one["dryrun_launches"], ("K1", "K2", "S1", "D1_COUNT_KEYS"))):
+        for name in names:
+            if launches[name] <= 0:
+                raise AssertionError(f"world 1: {name} was not launched by the {what}")
+    print(f"  (a) world 1 over NCCL on {one['device']} [{gpu}]: the partitioned counter on "
+          f"the bench block {one['counter_wall']:.2f} s, counts equal D1-count's; "
+          f"dryrun_multigpu(1) {one['dryrun_wall']:.2f} s ({one['dryrun']}); launches "
+          f"{one['counter_launches']} / {one['dryrun_launches']}; the process {wall_a:.1f} s",
+          flush=True)
+
+    out, sv_out = os.path.join(casedir, "ranks2"), os.path.join(sv_dir, "ranks2")
+    sv_counts, sv_keys, gf_counts, gf_keys = (
+        os.path.join(work, f"pair_{x}.npy") for x in ("sv_counts", "sv_keys", "gf_counts",
+                                                       "gf_keys"))
+    sv_reads_all = os.path.join(sv_dir, "reads.fa")
+    sv_segments = os.path.join(sv_dir, "index_path_segments.fasta")
+    t0 = time.monotonic()
+    pair = spawn_ranks("pair", 2, dict(
+        reads=os.path.join(casedir, "reads.fa"), ref=os.path.join(casedir, "ref.fa"),
+        panel=os.path.join(casedir, "panel.vcf"), out=out,
+        sv_reads=d1_slice(sv_reads_all, D1_SLICE_READS), sv_segments=sv_segments,
+        sv_counts_out=sv_counts, sv_keys_out=sv_keys, sv_reads_all=sv_reads_all,
+        sv_prefix=os.path.join(sv_dir, "index"), sv_out=sv_out, gf_counts_out=gf_counts,
+        gf_keys_out=gf_keys), timeout=540)
+    wall_b = time.monotonic() - t0
+    for r in pair:
+        if (r["backend"], r["device"]) != ("gloo", "cuda:0"):
+            raise AssertionError(f"rank {r['rank']} ran on {r['backend']} / {r['device']}")
+        for name in ("D1_COUNT", "S1"):
+            if r["single_launches"][name] <= 0:
+                raise AssertionError(f"rank {r['rank']}: {name} was not launched by single")
+        for name in ("D1_EXTRACT", "D1_COUNT_KEYS"):
+            if r["sv_launches"][name] <= 0 or r["gf_launches"][name] <= 0:
+                raise AssertionError(f"rank {r['rank']}: {name} was not launched by the SV "
+                                     f"partitioned counter or by genotype -f")
+    for name in ("K1", "K2", "V1"):
+        if sum(r["single_launches"][name] for r in pair) <= 0:
+            raise AssertionError(f"no rank launched {name} in single")
+    for name in ("K3", "K4"):
+        if sum(r["gf_launches"][name] for r in pair) <= 0:
+            raise AssertionError(f"no rank launched {name} in the SV genotype -f")
+    for kind in ("genotyping", "phasing"):
+        if _vcf_body(f"{out}_{kind}.vcf") != _vcf_body(os.path.join(casedir, f"out_{kind}.vcf")):
+            raise AssertionError(f"two ranks' {kind} VCF differs from the one-process run's")
+    if not (np.array_equal(np.load(sv_keys), d1_sv["table_keys"].view(np.uint64))
+            and np.array_equal(np.load(sv_counts), d1_sv["counts"])):
+        raise AssertionError("the SV partitioned counter's counts differ from D1-count's")
+    if _vcf_body(f"{sv_out}_genotyping.vcf") != _vcf_body(
+            os.path.join(sv_dir, "out_genotyping.vcf")):
+        raise AssertionError("two ranks' SV genotype -f VCF differs from the one-process run's")
+    # the one-process D1 count of every SV read, the table built on the card
+    import torch
+
+    from pangenie_tpu_torch.kmers import device_counter as dc
+
+    whole = dc.count_file_primed_device(sv_reads_all, [sv_segments], 31,
+                                        block_bases=D1_BLOCK_BASES, device="cuda")
+    if not (np.array_equal(np.load(gf_keys), whole.keys)
+            and np.array_equal(np.load(gf_counts), whole.counts)):
+        raise AssertionError("genotype -f's partitioned counts differ from one process's D1")
+    n_keys = len(whole.keys)
+    del whole
+    torch.cuda.empty_cache()
+    for r in pair:
+        print(f"  (b) rank {r['rank']} of 2 over {r['backend']} on {r['device']} [{gpu}]: "
+              f"single -g -p {r['single_wall']:.2f} s, launches {r['single_launches']}; the "
+              f"SV table partitioned {r['sv_wall']:.2f} s, launches {r['sv_launches']}; SV "
+              f"genotype -f, the partitioned route, {r['gf_wall']:.2f} s, launches "
+              f"{r['gf_launches']}", flush=True)
+    print(f"  (b) two ranks' genotyping and phasing VCF bodies equal the one-process run's, "
+          f"the SV block's counts phase 6's, the SV genotype -f VCF body the one-process "
+          f"run's and its counts of {n_keys} keys one process's D1 count of every SV read; "
+          f"both processes {wall_b:.1f} s", flush=True)
+    return dict(
+        # the command path alone: _read_counter's partitioned route
+        launches=sum(r["gf_launches"]["D1_COUNT_KEYS"] for r in pair),
+        check_launches={"world 1 over NCCL: the partitioned counter, bench block":
+                        one["counter_launches"]["D1_COUNT_KEYS"],
+                        "world 1 over NCCL: dryrun_multigpu(1)":
+                        one["dryrun_launches"]["D1_COUNT_KEYS"],
+                        "two ranks over gloo: the SV block partitioned":
+                        sum(r["sv_launches"]["D1_COUNT_KEYS"] for r in pair)},
+        walls=dict(world_one_process=wall_a, pair_processes=wall_b,
+                   world_one_counter=one["counter_wall"], world_one_dryrun=one["dryrun_wall"],
+                   pair_single=[r["single_wall"] for r in pair],
+                   pair_sv=[r["sv_wall"] for r in pair],
+                   pair_sv_genotype=[r["gf_wall"] for r in pair]))
+
+
+def check_grid_over_cards(fused_cpu, phasing_cpu, gpu: str) -> None:
+    """(c) run_grid_local_sharded with [cuda:0, cuda:0] on the bench run's
+    own fused and phasing batches: the single call's results bit for
+    bit, a launch of K1, K2 (V1) for each device's block."""
+    import numpy as np
+    import torch
+
+    from pangenie_tpu_torch.hmm.batch import forward_backward_batch
+    from pangenie_tpu_torch.hmm.forward_backward import ColumnArrays
+    from pangenie_tpu_torch.hmm.viterbi import viterbi
+    from pangenie_tpu_torch.parallel.genotyping import run_grid_local_sharded
+
+    dev = torch.device("cuda", 0)
+    for what, cpu_cols, uniform in (("fused", fused_cpu, False),
+                                    ("phasing", phasing_cpu[0], phasing_cpu[1])):
+        cols = ColumnArrays(*[x.to(dev) for x in cpu_cols])
+        B = cols.lp.shape[0]
+        members = [ColumnArrays(*[x[i] for x in cols]) for i in range(B)]
+        run_g = what == "fused"
+        (posts, corr, states), wall, launches = _timed_launches(
+            lambda: run_grid_local_sharded(members, run_g, not run_g, uniform, [dev, dev]))
+        if run_g:
+            want_posts, want_corr = forward_backward_batch(cols)
+            same = (np.array_equal(posts, want_posts.cpu().numpy())
+                    and np.array_equal(corr, want_corr.cpu().numpy()))
+            kernels_of = ("K1", "K2")
+        else:
+            same = np.array_equal(states, viterbi(cols, uniform).cpu().numpy())
+            kernels_of = ("V1",)
+        if not same:
+            raise AssertionError(f"(c) the {what} batch over [cuda:0, cuda:0] differs from "
+                                 f"the single call")
+        n_use = min(2, B)
+        if any(launches[k] != n_use for k in kernels_of):
+            raise AssertionError(f"(c) {launches} for {n_use} device blocks")
+        print(f"  (c) the bench run's {what} batch {batch_shape(cols)} over [cuda:0, cuda:0] "
+              f"[{gpu}]: bit-identical to the single call, {wall * 1e3:.1f} ms, launches "
+              f"{ {k: launches[k] for k in kernels_of} }", flush=True)
+
+
+def check_count_keys(d1_sv: dict, gpu: str) -> dict:
+    """(d) D1-count-keys on the SV block's valid keys, routed by their
+    owner into 2 and 4 partitions of the SV table on the one card: every
+    partition's counts equal the plain version's and D1-count's counts
+    of its keys; partition 0 timed beside its bound, its plain version
+    and torch.searchsorted then torch.bincount, and the routing (owner,
+    sort by owner, the sizes) timed. Returns the times by partitions."""
+    import torch
+
+    from pangenie_tpu_torch.hmm import bounds
+    from pangenie_tpu_torch.kmers import device_counter as dc
+
+    dev = torch.device("cuda", 0)
+    keys = torch.from_numpy(d1_sv["valid_keys"]).to(dev)
+    table_keys = torch.from_numpy(d1_sv["table_keys"]).to(dev)
+    whole = torch.from_numpy(d1_sv["counts"]).to(dev)
+    out = {}
+    for parts in (2, 4):
+        def route():
+            owner = dc.owner_of(keys, parts)
+            by_owner, order = torch.sort(owner, stable=True)
+            return keys[order], torch.bincount(by_owner, minlength=parts)
+
+        route_ms = cuda_ms(route, 3)
+        owner_t, owner_q = dc.owner_of(table_keys, parts), dc.owner_of(keys, parts)
+        t = {"route_ms": route_ms}
+        for p in range(parts):
+            table = dc.make_table(table_keys[owner_t == p].contiguous(), 31)
+            routed = keys[owner_q == p].contiguous()
+            got = torch.zeros(table.keys.shape, dtype=torch.int32, device=dev)
+            want = torch.zeros_like(got)
+            dc.count_keys(routed, 31, table, got)
+            _, plain_ms = timed(lambda: dc.count_keys_plain(routed, table, want))
+            if not (torch.equal(got, want) and torch.equal(got, whole[owner_t == p])):
+                raise AssertionError(f"(d) D1-count-keys differs in partition {p} of {parts}")
+            if p:
+                continue
+            n = len(table.keys)
+
+            def library():
+                idx = torch.searchsorted(table.keys, routed).clamp_(max=n - 1)
+                return torch.bincount(idx[table.keys[idx] == routed], minlength=n)
+
+            steps = dc.search_steps(table, routed)
+            t.update(D1_COUNT_KEYS=cuda_ms(lambda: dc.count_keys(routed, 31, table, got), 5),
+                     D1_COUNT_KEYS_plain=plain_ms, D1_COUNT_KEYS_library=cuda_ms(library, 5),
+                     D1_COUNT_KEYS_work=bounds.d1_count_keys(len(routed), n, steps),
+                     D1_COUNT_KEYS_cols=len(routed), d=table.bits,
+                     shape=f"m={len(routed)} routed keys into partition 0 of {parts}: "
+                           f"n={n} keys, k=31, d={table.bits}")
+        bound, by = t["D1_COUNT_KEYS_work"].bound()
+        print(f"  (d) {t['shape']} [{gpu}]: D1-count-keys {t['D1_COUNT_KEYS']:.3f} ms (plain "
+              f"{t['D1_COUNT_KEYS_plain']:.3f}, torch.searchsorted + torch.bincount "
+              f"{t['D1_COUNT_KEYS_library']:.3f}), bound {bound:.4f} ms by {by}, "
+              f"{t['D1_COUNT_KEYS'] * 1e3 / (t['D1_COUNT_KEYS_cols'] / 1e6):.1f} us per "
+              f"million keys; routing {len(keys)} keys (owner, sort, sizes) "
+              f"{route_ms:.3f} ms; every partition's counts equal the plain version's and "
+              f"D1-count's", flush=True)
+        out[parts] = t
+    del keys, table_keys, whole
+    torch.cuda.empty_cache()
+    return out
 
 
 def kernels():
@@ -2279,7 +2687,7 @@ def kernels():
     return {"K1": fb_kernels.K1, "K2": fb_kernels.K2, "K3": fb_kernels.K3,
             "K4": fb_kernels.K4, "S1": sampling.S1, "S1_CHASE": sampling.S1_CHASE,
             "V1": v1_kernels.V1, "D1_EXTRACT": device_counter.D1_EXTRACT,
-            "D1_COUNT": device_counter.D1_COUNT}
+            "D1_COUNT": device_counter.D1_COUNT, "D1_COUNT_KEYS": device_counter.D1_COUNT_KEYS}
 
 
 def reset_launches() -> None:
@@ -2305,6 +2713,8 @@ def launch_counts() -> dict:
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--rank-job"]:
+        return rank_job(sys.argv[2], json.loads(sys.argv[3]), sys.argv[4])
     phase("environment")
     print(f"  python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
@@ -2398,6 +2808,10 @@ def smoke(device, gpu, inputs) -> int:
 
     phase("the bench run's own batch: K1/K2 against the plain versions, and the routes")
     fb_times = check_bench_columns(bench_cols, gpu)
+    # the bench run's own batches, kept on the host for the grid over cards
+    fused_cpu = type(bench_cols)(*[x.cpu() for x in bench_cols])
+    phasing_cpu = (type(bench_cols)(*[x.cpu() for x in phasing["batches"][0][0]]),
+                   phasing["batches"][0][1])
     del bench_cols
 
     phase("the bench run's own phasing batch: V1 against the plain version")
@@ -2460,6 +2874,16 @@ def smoke(device, gpu, inputs) -> int:
           f"{wide_shape}")
     torch.cuda.empty_cache()
     w_err, w_times = check_wide(device, gpu, [wide_shape])
+
+    phase("multi-GPU (M1): (a) world 1 over NCCL, (b) two ranks sharing the card over gloo, "
+          "(c) the grid over [cuda:0, cuda:0], (d) D1-count-keys on routed keys")
+    t0 = time.monotonic()
+    torch.cuda.empty_cache()
+    m1 = run_multigpu(casedir, sv_dir, d1_bench, d1_sv, gpu)
+    check_grid_over_cards(fused_cpu, phasing_cpu, gpu)
+    del fused_cpu, phasing_cpu
+    keys_times = check_count_keys(d1_sv, gpu)
+    print(f"  multi-GPU phase wall {time.monotonic() - t0:.1f} s", flush=True)
     print(f"  smoke wall {time.monotonic() - t0_smoke:.1f} s", flush=True)
 
     def entry(name, source, replaces, n, e, t, key):
@@ -2589,6 +3013,23 @@ def smoke(device, gpu, inputs) -> int:
                      bound_ms=d1_sv["D1_COUNT_work"].bound()[0],
                      bound_by=d1_sv["D1_COUNT_work"].bound()[1],
                      us_per_million_windows=per_million(d1_sv, "D1_COUNT"))),
+        dict(entry("read k-mer counting of routed keys into a partition of the graph table "
+                   "(D1-count-keys: d1_count_keys_kernel, one thread a key, D1-count's "
+                   "search, atomicAdd)", d1_src,
+                   "pangenie_tpu/kmers/device_counter.py:593",
+                   m1["launches"], 0, keys_times[2], "D1_COUNT_KEYS"),
+             at=keys_times[2]["shape"], directory_bits=keys_times[2]["d"],
+             library_ms=keys_times[2]["D1_COUNT_KEYS_library"],
+             library="torch.searchsorted, then torch.bincount(minlength=n)",
+             launches_on="two ranks over gloo: SV genotype -f through the CLI, "
+                         "_read_counter's partitioned route",
+             route_ms=keys_times[2]["route_ms"], check_launches=m1["check_launches"],
+             walls=m1["walls"],
+             four=dict(at=keys_times[4]["shape"], ms=keys_times[4]["D1_COUNT_KEYS"],
+                       plain_ms=keys_times[4]["D1_COUNT_KEYS_plain"],
+                       library_ms=keys_times[4]["D1_COUNT_KEYS_library"],
+                       bound_ms=keys_times[4]["D1_COUNT_KEYS_work"].bound()[0],
+                       route_ms=keys_times[4]["route_ms"])),
     ]}
     print(json.dumps(record))
     print(gpu_line())

@@ -5,6 +5,7 @@
     python -m pangenie_tpu_torch vcf      -z results.pkl -f prefix -o out [...]
     python -m pangenie_tpu_torch sampling -i reads.fa -f prefix -o out -x size [...]
     python -m pangenie_tpu_torch analyze-uk -i prefix_UniqueKmersMap.pkl
+    python -m pangenie_tpu_torch concordance -c called.vcf -t truth.vcf
 
 Subcommands and flags follow the reference package
 (``pangenie_tpu/cli.py``): ``index`` once per panel, then
@@ -12,11 +13,16 @@ Subcommands and flags follow the reference package
 run; ``genotype -w`` serializes the results and ``vcf`` turns them into
 a VCF. ``sampling`` reduces an index's panel to ``-x`` haplotypes from
 one sample's reads and writes the panel VCF and per-chromosome paths
-TSVs; ``analyze-uk`` prints an index's unique k-mer matrices. An index
+TSVs; ``analyze-uk`` prints an index's unique k-mer matrices;
+``concordance`` prints a called VCF's genotype concordance with a truth
+VCF. An index
 or result written by ``pangenie_tpu`` is not readable here (its pickles
 hold that package's classes, and unpickling them imports JAX): index
 the panel with this port. The device comes from
-``PANGENIE_TORCH_DEVICE`` (default ``cuda``, see ``device.py``).
+``PANGENIE_TORCH_DEVICE`` (default ``cuda``, see ``device.py``). Several
+processes, one a card, run one command together when each sets the
+variables ``parallel/distributed.py`` reads (or under ``torchrun`` with
+PANGENIE_TPU_DISTRIBUTED=auto).
 ``-p`` phases (``<out>_phasing.vcf``): alone it phases only, with ``-g``
 it genotypes too (the reference's wiring, src/pangenie-genotype.cpp:98-109).
 """
@@ -124,6 +130,11 @@ def main(argv=None) -> int:
                        help="phasing output")
     p_vcf.add_argument("-u", dest="ignore_imputed", action="store_true")
 
+    p_cc = sub.add_parser("concordance",
+                          help="genotype concordance vs a truth VCF")
+    p_cc.add_argument("-c", dest="called_vcf", required=True)
+    p_cc.add_argument("-t", dest="truth_vcf", required=True)
+
     # flag for flag with the reference package's
     p_uk = sub.add_parser("analyze-uk", help="print unique-kmer matrices")
     p_uk.add_argument("-i", dest="precomputed_uk", required=True,
@@ -141,6 +152,25 @@ def main(argv=None) -> int:
     p_sm.add_argument("-b", dest="sampling_effective_N", type=float, default=0.01)
 
     args = parser.parse_args(argv)
+
+    # multi-process: join the process group the environment describes
+    # before the first device use; a no-op for single-process runs
+    from .parallel.distributed import maybe_initialize
+
+    maybe_initialize()
+
+    if args.command == "concordance":
+        from .eval.concordance import genotype_concordance
+
+        result = genotype_concordance(args.called_vcf, args.truth_vcf)
+        print(
+            f"total\t{result.total}\ncorrect\t{result.correct}\n"
+            f"wrong\t{result.wrong}\nno_call\t{result.no_call}\n"
+            f"concordance\t{result.concordance:.6f}"
+        )
+        for cls, (hit, tot) in sorted(result.by_class.items()):
+            print(f"{cls}\t{hit}/{tot}")
+        return 0
 
     from . import commands
 

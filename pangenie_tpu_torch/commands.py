@@ -17,7 +17,11 @@ D1-extract and D1-count, ``kmers/device_counter.py``).
 Pickles hold the port's own classes: an index or result pickled by
 ``pangenie_tpu`` cannot be read here (unpickling it imports JAX).
 
-Not ported yet: multi-process runs (with the sharded k-mer counter).
+Multi-process runs (``parallel/distributed.py``, one rank a card) follow
+the reference: each rank counts a shard of the reads, the HMM work list
+is split round-robin over the ranks and their partial results are
+merged on the coordinator (rank 0), which alone writes the output
+files.
 """
 
 from __future__ import annotations
@@ -88,6 +92,15 @@ def _log(msg: str) -> None:
     print(msg, file=sys.stderr)
 
 
+def _coordinator_file(filename: str) -> str:
+    """Output files are written by the coordinator only under multi-process
+    execution (peer ranks would race on a shared filesystem); ""
+    disables the write at every call site."""
+    from .parallel import distributed as dist
+
+    return filename if dist.is_coordinator() else ""
+
+
 def _save(obj, filename: str) -> None:
     with open(filename, "wb") as f:
         pickle.dump(obj, f, protocol=pickle.HIGHEST_PROTOCOL)
@@ -123,11 +136,21 @@ def _read_counter(
     device: torch.device = torch.device("cpu"),
 ) -> KmerCounter:
     """Read k-mer counts. Counting only graph k-mers (every command
-    without -c) runs on D1 where :func:`_device_counter` routes it and
-    the table fits the card (``device_counter.table_fits``, from D1's own
-    footprint; without ``prime_keys`` the card builds the table, and the
-    path-segments FASTA's size bounds its keys); else, and for -c, on the
-    host engine (csrc/kmercount.cpp)."""
+    without -c) runs on D1 where :func:`_device_counter` routes it: on the
+    rank's card against the whole table where it fits
+    (``device_counter.table_fits``, from D1's own footprint; without
+    ``prime_keys`` the card builds the table, and the path-segments
+    FASTA's size bounds its keys), else, with several ranks, on the table
+    hash-partitioned over their cards where a partition fits
+    (``count_file_primed_sharded``); else, and for -c, on the host engine
+    (csrc/kmercount.cpp).
+
+    With several ranks each counts every n-th read (the reference's
+    routing, ``pangenie_tpu/commands.py:191-266``), and the ranks' count
+    vectors are summed (``distributed.allreduce_sum``); the partitioned
+    counter's exchange has summed them already."""
+    from .parallel import distributed as dist
+
     if readfile.endswith(".jf"):
         from .kmers.jf_reader import read_jf
 
@@ -135,6 +158,15 @@ def _read_counter(
         return read_jf(readfile, kmersize)
     _log("Count kmers in reads ...")
     if count_only_graph:
+        # multi-process: each rank streams a disjoint read shard
+        shard = None
+        world = dist.process_count()
+        if world > 1:
+            shard = (dist.process_index(), world)
+            _log(f"  multi-process: rank {shard[0]}/{shard[1]} counts every "
+                 f"{shard[1]}-th read")
+        summed = shard is None
+        counter = None
         if _device_counter(device):
             from .kmers import device_counter
 
@@ -146,16 +178,29 @@ def _read_counter(
                       else os.path.getsize(segment_file))
             if device_counter.table_fits(n_keys, device, block):
                 _log(f"  using device PRIME+UPDATE counter (D1) on {device}")
-                return device_counter.count_file_primed_device(
+                counter = device_counter.count_file_primed_device(
                     readfile, [segment_file], kmersize, block_bases=block,
-                    keys=prime_keys, device=device,
+                    shard=shard, keys=prime_keys, device=device,
                 )
-            _log("  graph table exceeds the card's memory; counting on the "
-                 "host engine")
-        return ExactKmerCounter.count_file_primed(
-            readfile, [segment_file], kmersize, n_threads=nr_threads,
-            keys=prime_keys,
-        )
+            elif world > 1 and device_counter.table_fits(-(-n_keys // world), device, block):
+                _log(f"  using the device PRIME+UPDATE counter (D1) with the graph "
+                     f"table partitioned over {world} ranks' cards")
+                counter = device_counter.count_file_primed_sharded(
+                    readfile, kmersize, prime_keys, shard=shard, block_bases=block,
+                    corpus_files=[segment_file], device=device,
+                )
+                summed = True
+            else:
+                _log("  graph table exceeds the card's memory; counting on the "
+                     "host engine")
+        if counter is None:
+            counter = ExactKmerCounter.count_file_primed(
+                readfile, [segment_file], kmersize, n_threads=nr_threads,
+                shard=shard, keys=prime_keys,
+            )
+        if not summed:
+            counter.counts = dist.allreduce_sum(counter.counts)
+        return counter
     return ExactKmerCounter.count_file(readfile, kmersize)
 
 
@@ -199,9 +244,31 @@ def _genotyping_block(
         _log(f"Sampled {len(phasing_paths)} paths to be used for phasing.")
 
     _log("Construct HMM and run core algorithm ...")
+    from .parallel import distributed as dist
+
     t = time.monotonic()
     dtype = hmm_dtype(device)
     np_dtype = NP_DTYPE[dtype]
+    # per chromosome the phasing run first, then the genotyping subsets:
+    # the first run's results are the stored list (its haplotypes), the
+    # others' likelihoods are combined into it. Under multi-process
+    # execution the work list is split round-robin over the ranks (each
+    # runs its items on its card) and the partial results are gathered
+    # to the coordinator (reference pangenie_tpu/commands.py:541-699)
+    run_specs: List[tuple] = []  # (chromosome, genotyping?, paths)
+    for chromosome in chromosomes:
+        if not only_genotyping:
+            run_specs.append((chromosome, False, phasing_paths))
+        if not only_phasing:
+            run_specs.extend((chromosome, True, subset) for subset in subsets)
+    local_indices = dist.partition(len(run_specs))
+    if dist.process_count() > 1:
+        _log(f"  multi-process: rank {dist.process_index()}/{dist.process_count()} "
+             f"runs {len(local_indices)}/{len(run_specs)} HMM work items")
+    local_chroms: List[str] = []
+    for idx in local_indices:
+        if run_specs[idx][0] not in local_chroms:
+            local_chroms.append(run_specs[idx][0])
 
     def _densify(chromosome):
         records = unique_kmers_list.unique_kmers[chromosome]
@@ -213,31 +280,25 @@ def _genotyping_block(
 
     # chromosome-level densification shared by every subset run; built
     # in parallel (bulk numpy releases the GIL)
-    if len(chromosomes) > 1:
+    if len(local_chroms) > 1:
         from concurrent.futures import ThreadPoolExecutor
 
-        with ThreadPoolExecutor(max_workers=min(4, len(chromosomes))) as p:
-            dense_cache = dict(p.map(_densify, chromosomes))
+        with ThreadPoolExecutor(max_workers=min(4, len(local_chroms))) as p:
+            dense_cache = dict(p.map(_densify, local_chroms))
     else:
-        dense_cache = dict(map(_densify, chromosomes))
+        dense_cache = dict(map(_densify, local_chroms))
     # with a single subset no cross-subset combine follows, so
     # normalization happens vectorized inside the posterior scatter
     # (combine into the phasing run's empty likelihood maps is the
     # identity, so pre-normalized values survive it)
     normalize_in_run = len(subsets) == 1
-    # per chromosome the phasing run first, then the genotyping subsets:
-    # the first run's results are the stored list (its haplotypes), the
-    # others' likelihoods are combined into it
-    run_specs: List[tuple] = []  # (chromosome, genotyping?, paths)
-    for chromosome in chromosomes:
-        if not only_genotyping:
-            run_specs.append((chromosome, False, phasing_paths))
-        if not only_phasing:
-            run_specs.extend((chromosome, True, subset) for subset in subsets)
     all_runs: List[tuple] = []
+    base_index: Dict[str, int] = {}  # chromosome -> its first local run's index
     cols_cache: Dict[tuple, tuple] = {}  # (chromosome, paths) -> built columns
-    for chromosome, is_genotyping, paths in run_specs:
+    for idx in local_indices:
+        chromosome, is_genotyping, paths = run_specs[idx]
         records = unique_kmers_list.unique_kmers[chromosome]
+        base_index.setdefault(chromosome, idx)
         cols_key = (chromosome, tuple(paths))
         hmm = PairHMM(
             records, probabilities, is_genotyping, not is_genotyping,
@@ -273,6 +334,8 @@ def _genotyping_block(
         results.runtimes[chromosome] = (
             results.runtimes.get(chromosome, 0.0) + hmm.runtime
         )
+    if dist.process_count() > 1:
+        _merge_on_coordinator(results, base_index)
     results.runtimes["all"] = time.monotonic() - t
 
     if not only_phasing and not normalize_in_run:
@@ -289,6 +352,44 @@ def _genotyping_block(
                 )
 
 
+def _merge_on_coordinator(results: Results, base_index: Dict[str, int]) -> None:
+    """Gather every rank's partial results to the coordinator and merge
+    them there (the other ranks keep none). The partial whose first run
+    has the smallest global index becomes the stored list (the
+    one-process order: the phasing run's haplotypes live in it); the
+    other partials' likelihoods are combined into it in that order (the
+    combine is a sum, src/genotypingresult.cpp)."""
+    from .parallel import distributed as dist
+
+    gathered = dist.gather_objects(
+        (results.result, results.runtimes, base_index, results.bulk))
+    results.result, results.bulk = {}, {}
+    if gathered is None:
+        return
+    partials = sorted(
+        (bases[chrom], chrom, part_result[chrom])
+        for part_result, _, bases, _ in gathered
+        for chrom in part_result
+    )
+    for _, chrom, part in partials:
+        if chrom not in results.result:
+            results.result[chrom] = part
+        else:
+            stored = results.result[chrom]
+            for i, likelihoods in enumerate(part):
+                if likelihoods.likelihoods:
+                    stored[i].combine(likelihoods)
+    # bulk channels exist only on single-subset runs, where each
+    # chromosome's genotyping ran on one rank
+    for _, _, _, part_bulk in gathered:
+        results.bulk.update(part_bulk)
+    runtimes: Dict[str, float] = {}
+    for _, part_runtimes, _, _ in gathered:
+        for key, value in part_runtimes.items():
+            runtimes[key] = runtimes.get(key, 0.0) + value
+    results.runtimes = runtimes
+
+
 def _write_outputs(
     chromosomes: List[str],
     results: Results,
@@ -302,6 +403,10 @@ def _write_outputs(
     chrom_to_sampled: Dict[str, List[SampledPanel]],
     serialize_output: bool,
 ) -> None:
+    from .parallel import distributed as dist
+
+    if not dist.is_coordinator():
+        return  # results were gathered to the coordinator, which writes
     if serialize_output:
         _log("Serialize results ... ")
         _save(results, outname + "_genotyping.pkl")
@@ -616,7 +721,7 @@ def run_genotype_command(
     summary.phase("counting kmers in reads")
 
     kmer_abundance_peak = read_kmer_counts.compute_histogram(
-        10000, count_only_graph, outname + "_histogram.histo"
+        10000, count_only_graph, _coordinator_file(outname + "_histogram.histo")
     )
     _log(f"Computed kmer abundance peak: {kmer_abundance_peak}")
 
@@ -646,7 +751,7 @@ def run_genotype_command(
         path_outputs = {}
         if output_panel:
             path_outputs = {
-                chromosome: f"{outname}_paths_{chromosome}.tsv"
+                chromosome: _coordinator_file(f"{outname}_paths_{chromosome}.tsv")
                 for chromosome in chromosomes
             }
         sample_panels_batched(
@@ -714,6 +819,12 @@ def run_single_command(
     results = Results()
     chrom_to_sampled: Dict[str, List[SampledPanel]] = {}
     segment_file = outname + "_path_segments.fasta"
+    from .parallel import distributed as dist
+
+    if not dist.is_coordinator():
+        # every rank rebuilds the (deterministic) panel in memory but
+        # only the coordinator owns the shared-FS artifact names
+        segment_file += f".proc{dist.process_index()}"
     unique_kmers_list = UniqueKmersMap(kmersize=kmersize, add_reference=add_reference)
 
     _log("Determine allele sequences ...")
@@ -747,7 +858,7 @@ def run_single_command(
     summary.phase("counting kmers in reads")
 
     kmer_abundance_peak = read_kmer_counts.compute_histogram(
-        10000, count_only_graph, outname + "_histogram.histo"
+        10000, count_only_graph, _coordinator_file(outname + "_histogram.histo")
     )
     _log(f"Computed kmer abundance peak: {kmer_abundance_peak}")
 
@@ -774,8 +885,9 @@ def run_single_command(
     # serialize graphs so they can be re-loaded for output writing after
     # streaming deletion (reference src/commands.cpp:343-347)
     _log("Serialize Graph objects ...")
-    for chromosome in chromosomes:
-        _save(builder.graphs[chromosome], f"{outname}_{chromosome}_Graph.pkl")
+    if dist.is_coordinator():
+        for chromosome in chromosomes:
+            _save(builder.graphs[chromosome], f"{outname}_{chromosome}_Graph.pkl")
     summary.phase("writing Graph objects to disk")
 
     _log("Determine unique kmers ...")
@@ -814,7 +926,7 @@ def run_single_command(
         path_outputs = {}
         if output_panel:
             path_outputs = {
-                chromosome: f"{outname}_paths_{chromosome}.tsv"
+                chromosome: _coordinator_file(f"{outname}_paths_{chromosome}.tsv")
                 for chromosome in chromosomes
             }
         sample_panels_batched(
@@ -909,7 +1021,7 @@ def run_sampling(
         nr_jellyfish_threads, hash_size, device=dev,
     )
     kmer_abundance_peak = read_kmer_counts.compute_histogram(
-        10000, count_only_graph, outname + "_histogram.histo"
+        10000, count_only_graph, _coordinator_file(outname + "_histogram.histo")
     )
     probabilities = ProbabilityTable(
         kmer_abundance_peak // 4,

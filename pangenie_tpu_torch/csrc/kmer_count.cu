@@ -8,9 +8,12 @@
 // step, lookup_pair_directed (:430) + primed_update_batch (:458), and the
 // sorted merge join primed_update_merge (:474) with its buffered form
 // (_ingest_packed, _flush_tagged), which the TPU took for want of a
-// scatter; the card has atomics. Plain versions and wrappers:
-// pangenie_tpu_torch/kmers/device_counter.py (extract_plain, count_plain;
-// extract, count).
+// scatter; the card has atomics. D1-count-keys counts keys already
+// extracted (a partition's share of the read windows, routed to the rank
+// that holds it) and replaces the sharded counter's shard-local flush,
+// _flush_tagged (:593). Plain versions and wrappers:
+// pangenie_tpu_torch/kmers/device_counter.py (extract_plain, count_plain,
+// count_keys_plain; extract, count, count_keys).
 //
 // A block is a flat stream of T bases: base p is 2 bits of words (16 a
 // word, at bits 2 (p mod 16); A=0 C=1 G=2 T=3) and one bit of vwords (32 a
@@ -110,14 +113,11 @@ d1_extract_kernel(const uint32_t* words, const uint32_t* vwords, long long n_bas
     if (j < n_bases) keys[j] = d1_window(words, vwords, n_bases, j, k);
 }
 
-__global__ void __launch_bounds__(D1_THREADS)
-d1_count_kernel(const uint32_t* words, const uint32_t* vwords, long long n_bases, int k,
-                const long long* table, int n_keys, const int* directory, int shift,
-                int* counts) {
-    const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (j >= n_bases) return;
-    const long long key = d1_window(words, vwords, n_bases, j, k);
-    if (key == D1_SENTINEL) return;
+// The index of key in the sorted, unique table [n_keys], or -1: the
+// directory [2^d + 1] (bucket = key >> shift) bounds where it can lie.
+// D1-count and D1-count-keys both search through this one function.
+__device__ __forceinline__ int d1_find(const long long* table, int n_keys, const int* directory,
+                                       int shift, long long key) {
     const long long bucket = key >> shift;
     int lo = __ldg(directory + bucket), hi = __ldg(directory + bucket + 1);
     // the key, if the table holds it, lies in [lo, hi)
@@ -146,6 +146,33 @@ d1_count_kernel(const uint32_t* words, const uint32_t* vwords, long long n_bases
             }
         }
     }
+    return hit;
+}
+
+__global__ void __launch_bounds__(D1_THREADS)
+d1_count_kernel(const uint32_t* words, const uint32_t* vwords, long long n_bases, int k,
+                const long long* table, int n_keys, const int* directory, int shift,
+                int* counts) {
+    const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (j >= n_bases) return;
+    const long long key = d1_window(words, vwords, n_bases, j, k);
+    if (key == D1_SENTINEL) return;
+    const int hit = d1_find(table, n_keys, directory, shift, key);
+    if (hit >= 0) atomicAdd(counts + hit, 1);
+}
+
+// D1-count-keys: one thread a key of keys [n] (a partition's share of
+// the read windows, routed to it by their owner); a key of 2k bits
+// found at table[i] adds one to counts[i]. D1_SENTINEL, and any key of
+// more than 2k bits, matches nothing.
+__global__ void __launch_bounds__(D1_THREADS)
+d1_count_keys_kernel(const long long* keys, long long n, int k, const long long* table,
+                     int n_keys, const int* directory, int shift, int* counts) {
+    const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (j >= n) return;
+    const long long key = __ldg(keys + j);
+    if ((unsigned long long)key >> (2 * k)) return;
+    const int hit = d1_find(table, n_keys, directory, shift, key);
     if (hit >= 0) atomicAdd(counts + hit, 1);
 }
 
@@ -184,6 +211,18 @@ extern "C" int pg_d1_count(const uint32_t* words, const uint32_t* vwords, long l
         return (int)cudaErrorInvalidValue;
     return launch(d1_count_kernel, n_bases, stream, words, vwords, n_bases, k, table, n_keys,
                   directory, shift, counts);
+}
+
+// D1-count-keys: keys [n] int64 (k-mers of 2k bits, D1_SENTINEL skipped),
+// the table, directory and shift as D1-count's; counts [n_keys] int32
+// incremented in place.
+extern "C" int pg_d1_count_keys(const long long* keys, long long n, int k,
+                                const long long* table, int n_keys, const int* directory,
+                                int shift, int* counts, void* stream) {
+    if (!d1_takes(n, k) || shift < 0 || shift > 2 * k || n_keys < 0 || (uintptr_t)table % 16)
+        return (int)cudaErrorInvalidValue;
+    return launch(d1_count_keys_kernel, n, stream, keys, n, k, table, n_keys, directory, shift,
+                  counts);
 }
 
 // D1_SCAN as this library was built with it

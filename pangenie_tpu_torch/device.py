@@ -1,8 +1,10 @@
 """Device and dtype rule of the port.
 
 The device comes from the caller or from ``PANGENIE_TORCH_DEVICE``; the
-default is ``cuda``. Asking for CUDA where there is none raises: the
-port never carries on quietly on the CPU.
+default is ``cuda``. A rank of a process group finds its own card in
+``PANGENIE_TORCH_DEVICE``, which ``parallel/distributed.py`` sets. Asking
+for CUDA where there is none raises: the port never carries on quietly
+on the CPU.
 
 The HMM dtype mirrors the reference package (``commands.py:_hmm_dtype``):
 float64 on the CPU, for parity with the reference's long-double math;

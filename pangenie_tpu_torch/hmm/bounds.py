@@ -44,6 +44,10 @@ V1_OPS = 24
 # compares and the select: 3)
 D1_WINDOW_OPS = 24
 D1_SEARCH_OPS = 3
+# integer operations a routed key of D1-count-keys needs before its
+# search: the check that it is a k-mer (a shift and a compare) and its
+# bucket (a shift)
+D1_KEY_OPS = 3
 
 
 class Work(NamedTuple):
@@ -152,3 +156,13 @@ def d1_count(n_bases: int, n_keys: int, search_steps: int) -> Work:
     (``device_counter.search_steps``)."""
     return Work(_packed(n_bases) + 8 * n_keys + 8 * n_keys,
                 D1_WINDOW_OPS * n_bases + D1_SEARCH_OPS * search_steps)
+
+
+def d1_count_keys(n_queries: int, n_keys: int, search_steps: int) -> Work:
+    """D1-count-keys over m keys routed to a partition of n keys: the
+    keys (int64) [m], the partition's table (int64) [n] and counts
+    (int32) [n] in, counts out (the directory, as D1-count's, not
+    counted). ``search_steps``: the table reads the keys' search makes
+    (``device_counter.search_steps``)."""
+    return Work(8 * n_queries + 8 * n_keys + 8 * n_keys,
+                D1_KEY_OPS * n_queries + D1_SEARCH_OPS * search_steps)

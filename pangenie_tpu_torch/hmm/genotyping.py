@@ -42,7 +42,7 @@ from .batch import forward_backward_batch
 from .columns import HMMColumns, build_columns, transition_probs
 from .emissions import emission_scale
 from .forward_backward import ColumnArrays
-from .viterbi import viterbi, viterbi_segmented
+from .viterbi import viterbi_segmented
 
 
 # numpy dtype of the host-side grids for each HMM device dtype
@@ -143,6 +143,17 @@ def _to_device_columns(
         nr_local=dev(nr_local.astype(np.int64)),
         is_last=dev(is_last),
     )
+
+
+def _local_cards(device: torch.device) -> List[torch.device]:
+    """The devices a genotyping grid on ``device`` may spread over: every
+    visible card when it runs on a card and this process is the only
+    rank, else none (a rank keeps to its own card)."""
+    from ..parallel import distributed
+
+    if device.type != "cuda" or distributed.process_count() > 1:
+        return []
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 class PairHMM:
@@ -325,22 +336,15 @@ class PairHMM:
                 (ka[c], kb[c]): vn[c] for c in pair_cols[nr_local_list[n]]
             }
 
-    def _phase(self, stacked: ColumnArrays, run: Sequence["PairHMM"]) -> None:
-        """Viterbi over the stacked columns of ``run`` (one batch of V1
-        on a card), scattered into each run's haplotypes. A long run's
-        columns are padded to the bucket the reference pads them to and
-        walked by the checkpointed scan: in ``fb_generic.SEGMENT``
-        columns on the CPU, in the longest segments the free memory
-        holds on a card."""
-        if self.is_long():
-            segment = fb_generic.SEGMENT if stacked.lp.device.type == "cpu" else None
-            states = viterbi_segmented(stacked, segment, self._uniform,
-                                       length=_bucket(self.columns.n_columns))
-        else:
-            states = viterbi(stacked, self._uniform)
-        states = states.cpu().numpy()
-        for i, hmm in enumerate(run):
-            hmm._scatter_haplotypes(states[i])
+    def _phase_long(self, one: ColumnArrays) -> None:
+        """Viterbi over this long run's columns ``one`` [1, N, ...],
+        padded to the bucket the reference pads them to and walked by the
+        checkpointed scan: in ``fb_generic.SEGMENT`` columns on the CPU,
+        in the longest segments the free memory holds on a card."""
+        segment = fb_generic.SEGMENT if one.lp.device.type == "cpu" else None
+        states = viterbi_segmented(one, segment, self._uniform,
+                                   length=_bucket(self.columns.n_columns))
+        self._scatter_haplotypes(states[0].cpu().numpy())
 
     def _scatter_haplotypes(self, states: np.ndarray) -> None:
         columns = self.columns
@@ -395,7 +399,11 @@ class PairHMM:
         batch dimension, as in the reference's thread pool over the same
         grid (src/commands.cpp:955-978). A long run (over
         ``fb_generic.SEGMENT`` columns) executes alone, as the
-        reference's streaming path does.
+        reference's streaming path does. In a process of its own (no
+        other ranks) that sees more than one card, a batch of several
+        runs is split over the cards (``parallel/genotyping.py``), as
+        the reference splits it over a process's chips
+        (``pangenie_tpu/hmm/genotyping.py:486-509``).
         """
         groups = {}
         for hmm in hmms:
@@ -408,20 +416,32 @@ class PairHMM:
             groups.setdefault((key, hmm._run_genotyping, hmm._run_phasing,
                                hmm._uniform), []).append(hmm)
 
-        for (_key, run_g, run_p, _uniform), members in groups.items():
+        from ..parallel.genotyping import run_grid_local_sharded
+
+        for (_key, run_g, run_p, uniform), members in groups.items():
             if not (run_g or run_p):
                 continue
-            stacked = ColumnArrays(
-                *[torch.stack(xs) for xs in zip(*[h.device_cols for h in members])]
-            )
-            if run_g:
-                posteriors, log_corr = forward_backward_batch(stacked)
-                posteriors = posteriors.cpu().numpy()
-                log_corr = log_corr.cpu().numpy()
-                for i, hmm in enumerate(members):
+            if members[0].is_long():
+                (hmm,) = members
+                one = ColumnArrays(*[x.unsqueeze(0) for x in hmm.device_cols])
+                if run_g:
+                    posteriors, log_corr = forward_backward_batch(one)
+                    hmm._finish_genotyping(posteriors[0].cpu().numpy(),
+                                           log_corr[0].cpu().numpy())
+                if run_p:
+                    hmm._phase_long(one)
+                continue
+            # the batch over this process's cards, or its one device
+            # (bit-identical per-item math; see run_grid_local_sharded)
+            device = members[0].device_cols.lp.device
+            posteriors, log_corr, states = run_grid_local_sharded(
+                [h.device_cols for h in members], run_g, run_p, uniform,
+                _local_cards(device) or [device])
+            for i, hmm in enumerate(members):
+                if run_g:
                     hmm._finish_genotyping(posteriors[i], log_corr[i])
-            if run_p:
-                members[0]._phase(stacked, members)
+                if run_p:
+                    hmm._scatter_haplotypes(states[i])
 
     def combine_likelihoods(self, other: "PairHMM") -> None:
         if len(self.genotyping_result) != len(other.genotyping_result):

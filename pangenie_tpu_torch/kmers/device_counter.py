@@ -1,7 +1,7 @@
-"""Read k-mer counting on the device: kernels D1-extract and D1-count.
+"""Read k-mer counting on the device: kernels D1-extract, D1-count and
+D1-count-keys.
 
-Port of ``pangenie_tpu/kmers/device_counter.py``'s single-device engine
-(the sharded counters wait for the multi-GPU slice). The count table
+Port of ``pangenie_tpu/kmers/device_counter.py``. The count table
 keeps the host engine's layout (counter.py): the graph k-mers as a
 sorted array of canonical keys, a count beside each. Keys are int64: a
 k-mer of k <= 31 fits 62 bits, so int64 order is the host's uint64
@@ -26,10 +26,18 @@ order.
   result is exact in any order.
 - :class:`DeviceKmerCounter` (COUNT mode) builds sorted count tables
   from D1-extract and library sorts.
+- Over the ranks of a process group (``parallel/distributed.py``, one
+  rank a card), :class:`ShardedPrimedDeviceCounter` hash-partitions the
+  table: each rank holds the keys the reference's owner hash gives it,
+  and each ingest step routes every read window's key to its owner
+  (``all_to_all_single`` with exact sizes), where kernel D1-count-keys
+  counts it with D1-count's search. :func:`sharded_count_kmers` and
+  :func:`sharded_count_kmers_partitioned` are COUNT mode over the ranks.
 
-On CPU tensors the wrappers :func:`extract` and :func:`count` run the
-plain versions (:func:`extract_plain`, :func:`count_plain`); on CUDA
-tensors they launch the kernels or raise.
+On CPU tensors the wrappers :func:`extract`, :func:`count` and
+:func:`count_keys` run the plain versions (:func:`extract_plain`,
+:func:`count_plain`, :func:`count_keys_plain`); on CUDA tensors they
+launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -58,6 +66,9 @@ PIECE = 32
 # the round's sort and its fold into the table): a round is the card's
 # total memory over this
 ROUND_BYTES_PER_WINDOW = 256
+# keys whose owner a rank of the partitioned counter computes at a time
+# (ShardedPrimedDeviceCounter: 512 MB of int64 keys, and their owners)
+OWNER_CHUNK = 1 << 26
 # the last count_file_primed_device's phase walls in seconds ("prime",
 # "stream", "readback") and its launches ("blocks"), for the tools that
 # time it (chip_smoke.py, tools/d1_times.py)
@@ -70,6 +81,10 @@ D1_EXTRACT = CudaKernel("kmer_count", "pg_d1_extract", "d1", [_P, _P, _L, _I, _P
 # (and the sort-merge join primed_update_merge)
 D1_COUNT = CudaKernel("kmer_count", "pg_d1_count", "d1",
                       [_P, _P, _L, _I, _P, _I, _P, _I, _P, _P])
+# kernel D1-count-keys: D1-count's search on keys already extracted (a
+# partition's routed share); replaces the sharded counter's _flush_tagged
+D1_COUNT_KEYS = CudaKernel("kmer_count", "pg_d1_count_keys", "d1",
+                           [_P, _L, _I, _P, _I, _P, _I, _P, _P])
 
 
 # ---------------------------------------------------------------------------
@@ -193,25 +208,35 @@ def packed_blocks(filenames: Sequence[str], k: int, block_bases: int, shard=None
     4 pieces); a sequence longer than a block is cut into rows that
     overlap by k - 1. ``shard=(i, n)`` keeps every n-th sequence from the
     i-th, counted over the files' sequences (parallel/distributed.py)."""
+    blocks = (block for filename in filenames
+              for block in _sequence_blocks(filename, block_bases))
+    return pack_blocks(blocks, k, block_bases, shard)
+
+
+def pack_blocks(blocks, k: int, block_bases: int, shard=None
+                ) -> Iterator[Tuple[np.ndarray, np.ndarray, int]]:
+    """:func:`packed_blocks` of (data, offsets) blocks of sequences (the
+    native FASTA parser's output): sequence i of a block is
+    data[offsets[i]:offsets[i + 1]], as bytes."""
     shard_i, shard_n = shard if shard is not None else (0, 1)
     cap = max(4, block_bases // PIECE)
     max_row = (cap - 1) * PIECE
     base = 0
-    for filename in filenames:
-        for data, offsets in _sequence_blocks(filename, block_bases):
-            data = np.asarray(data, dtype=np.uint8)
-            lens = np.diff(offsets)
-            keep = lens >= k
-            if shard_n > 1:
-                keep &= (base + np.arange(len(lens))) % shard_n == shard_i
-            base += len(lens)
-            starts, lens = _rows(offsets[:-1][keep], lens[keep], k, max_row)
-            ends = np.cumsum(lens // PIECE + 1)
-            i = 0
-            while i < len(lens):
-                j = int(np.searchsorted(ends, (ends[i - 1] if i else 0) + cap, side="right"))
-                yield pack_sequences(data, starts[i:j], lens[i:j])
-                i = j
+    for data, offsets in blocks:
+        data = np.asarray(data, dtype=np.uint8)
+        offsets = np.asarray(offsets, dtype=np.int64)
+        lens = np.diff(offsets)
+        keep = lens >= k
+        if shard_n > 1:
+            keep &= (base + np.arange(len(lens))) % shard_n == shard_i
+        base += len(lens)
+        starts, lens = _rows(offsets[:-1][keep], lens[keep], k, max_row)
+        ends = np.cumsum(lens // PIECE + 1)
+        i = 0
+        while i < len(lens):
+            j = int(np.searchsorted(ends, (ends[i - 1] if i else 0) + cap, side="right"))
+            yield pack_sequences(data, starts[i:j], lens[i:j])
+            i = j
 
 
 def _on(device: torch.device, array: np.ndarray) -> torch.Tensor:
@@ -310,6 +335,15 @@ def count_plain(words, vwords, n_bases: int, k: int, table: Table, counts: torch
     counts.index_add_(0, hits, torch.ones(hits.shape, dtype=counts.dtype, device=counts.device))
 
 
+def count_keys_plain(keys: torch.Tensor, table: Table, counts: torch.Tensor) -> None:
+    """D1-count-keys' plain version: adds one to ``counts`` [n] int32 for
+    each of ``keys`` found in the table (in place): :func:`lookup`, then
+    ``index_add_``."""
+    idx, found = lookup(table.keys, keys)
+    hits = idx[found]
+    counts.index_add_(0, hits, torch.ones(hits.shape, dtype=counts.dtype, device=counts.device))
+
+
 def _check_block(words, vwords, n_bases: int, k: int):
     if not 1 <= k <= 31:
         raise ValueError(f"D1 takes k in [1, 31], got {k}")
@@ -346,26 +380,52 @@ def count(words: torch.Tensor, vwords: torch.Tensor, n_bases: int, k: int, table
     :func:`count_plain` on CPU tensors (``kernel``, ``stream``: as
     :func:`extract`)."""
     _check_block(words, vwords, n_bases, k)
-    n = table.keys.shape[0]
-    d = table.bits
-    for name, t, dtype, shape in (("table", table.keys, torch.int64, (n,)),
-                                  ("directory", table.directory, torch.int32, ((1 << d) + 1,)),
-                                  ("counts", counts, torch.int32, (n,))):
-        if (t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous()
-                or t.device != words.device):
-            raise ValueError(f"D1-count: {name} must be contiguous {dtype} {shape} on "
-                             f"{words.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if table.shift != 2 * k - d or d > 2 * k:
-        raise ValueError(f"D1-count: the table's directory is not one of {k}-mers")
-    if table.keys.data_ptr() % 16:
-        raise ValueError("D1-count: the table must be 16-byte aligned (make_table)")
+    _check_table("D1-count", k, table, counts, words.device)
     if words.device.type == "cpu" and kernel is D1_COUNT:
         count_plain(words, vwords, n_bases, k, table, counts)
         return
     if n_bases:
         if stream is None:
             stream = launch_stream(words.device)
-        kernel(words.data_ptr(), vwords.data_ptr(), n_bases, k, table.keys.data_ptr(), n,
+        kernel(words.data_ptr(), vwords.data_ptr(), n_bases, k, table.keys.data_ptr(),
+               table.keys.shape[0], table.directory.data_ptr(), table.shift,
+               counts.data_ptr(), stream)
+
+
+def _check_table(what: str, k: int, table: Table, counts: torch.Tensor, device) -> None:
+    n = table.keys.shape[0]
+    d = table.bits
+    for name, t, dtype, shape in (("table", table.keys, torch.int64, (n,)),
+                                  ("directory", table.directory, torch.int32, ((1 << d) + 1,)),
+                                  ("counts", counts, torch.int32, (n,))):
+        if (t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.device != device):
+            raise ValueError(f"{what}: {name} must be contiguous {dtype} {shape} on "
+                             f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if table.shift != 2 * k - d or d > 2 * k:
+        raise ValueError(f"{what}: the table's directory is not one of {k}-mers")
+    if table.keys.data_ptr() % 16:
+        raise ValueError(f"{what}: the table must be 16-byte aligned (make_table)")
+
+
+def count_keys(keys: torch.Tensor, k: int, table: Table, counts: torch.Tensor,
+               kernel=D1_COUNT_KEYS, stream=None) -> None:
+    """Adds each of ``keys`` [m] int64 (k-mers, SENTINEL for none) found
+    in ``table`` to ``counts`` [n] int32, in place: kernel D1-count-keys
+    on CUDA tensors, :func:`count_keys_plain` on CPU tensors
+    (``kernel``, ``stream``: as :func:`extract`)."""
+    if not 1 <= k <= 31:
+        raise ValueError(f"D1 takes k in [1, 31], got {k}")
+    if keys.dtype != torch.int64 or keys.dim() != 1 or not keys.is_contiguous():
+        raise ValueError("D1-count-keys: keys must be a contiguous 1-d int64 tensor")
+    _check_table("D1-count-keys", k, table, counts, keys.device)
+    if keys.device.type == "cpu" and kernel is D1_COUNT_KEYS:
+        count_keys_plain(keys, table, counts)
+        return
+    if keys.shape[0]:
+        if stream is None:
+            stream = launch_stream(keys.device)
+        kernel(keys.data_ptr(), keys.shape[0], k, table.keys.data_ptr(), table.keys.shape[0],
                table.directory.data_ptr(), table.shift, counts.data_ptr(), stream)
 
 
@@ -563,6 +623,19 @@ class PrimedDeviceCounter:
         return ExactKmerCounter(self.k, keys[keep], counts[keep])
 
 
+def _prefetched(blocks: Iterator) -> Iterator:
+    """``blocks`` with the next one parsed and packed on a host thread
+    while the caller works on this one."""
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        pending = pool.submit(next, blocks, None)
+        while True:
+            block = pending.result()
+            if block is None:
+                return
+            pending = pool.submit(next, blocks, None)
+            yield block
+
+
 def count_file_primed_device(
     read_file: str,
     corpus_files,
@@ -593,17 +666,10 @@ def count_file_primed_device(
         return ExactKmerCounter(k, np.zeros(0, dtype=np.uint64), np.zeros(0, dtype=np.int64))
     _synchronize(dev)
     t_prime = time.monotonic()
-    blocks = packed_blocks([read_file], k, block_bases, shard)
     n_blocks = 0
-    with ThreadPoolExecutor(max_workers=1) as pool:
-        pending = pool.submit(next, blocks, None)
-        while True:
-            block = pending.result()
-            if block is None:
-                break
-            pending = pool.submit(next, blocks, None)
-            counter.update_block(*block)
-            n_blocks += 1
+    for block in _prefetched(packed_blocks([read_file], k, block_bases, shard)):
+        counter.update_block(*block)
+        n_blocks += 1
     _synchronize(dev)
     t_stream = time.monotonic()
     keys_out, counts = counter.to_host_arrays()
@@ -660,3 +726,264 @@ class DeviceKmerCounter:
 
         keys, counts = self.to_host_arrays()
         return ExactKmerCounter(self.k, keys, counts)
+
+
+# ---------------------------------------------------------------------------
+# over the ranks of a process group (parallel/distributed.py)
+# ---------------------------------------------------------------------------
+
+
+def _mul32(a, c: int):
+    """(a * c) mod 2^32 for 0 <= a, c < 2^32, in int64 without overflow
+    (numpy or torch): a's two 16-bit halves multiplied apart."""
+    return (((((a >> 16) * c) & 0xFFFF) << 16) + (a & 0xFFFF) * c) & 0xFFFFFFFF
+
+
+def _mix(hi, lo):
+    """The reference's splitmix-style mix of a (hi, lo) pair of uint32
+    words, its uint32 wraparound as int64 arithmetic masked to 32 bits."""
+    return _mul32(hi ^ 0x9E3779B9, 0x85EBCA6B) ^ _mul32(lo, 0xC2B2AE35)
+
+
+def _owner_mix(thi, tlo, n_dev):
+    """Owner device of a tagged key: splitmix-style mix of the key bits
+    (tag stripped, so graph and read forms of the same k-mer agree),
+    mod device count. int64 numpy or torch, masked to 32 bits where the
+    reference wraps around in uint32."""
+    return _mix(thi, tlo & 0xFFFFFFFE) % n_dev
+
+
+def owner_of(keys, n_ranks: int):
+    """The rank that holds each int64 key (numpy or torch) among
+    ``n_ranks``: :func:`_owner_mix` of the key tagged as the reference
+    tags it (shifted left by one, split at bit 32), so a rank's
+    partition is the reference's device partition."""
+    tagged = keys << 1
+    return _owner_mix(tagged >> 32, tagged & 0xFFFFFFFF, n_ranks)
+
+
+def _route(keys: torch.Tensor, owner: torch.Tensor, n_ranks: int) -> torch.Tensor:
+    """Exchange ``keys`` so that each reaches the rank ``owner`` names:
+    sorted by owner (``torch.sort``), counted by owner
+    (``torch.bincount``), the sizes then the keys through
+    ``all_to_all_single`` (``distributed.all_to_all_exact``). Returns
+    the keys routed here."""
+    from ..parallel import distributed as dist
+
+    by_owner, order = torch.sort(owner, stable=True)
+    sizes = torch.bincount(by_owner, minlength=n_ranks)
+    return dist.all_to_all_exact(keys[order], sizes)
+
+
+class ShardedPrimedDeviceCounter:
+    """PRIME+UPDATE counting with the graph table hash-partitioned over
+    the ranks' cards (port of the reference's class of the same name,
+    whose partitions lie on one process's chips): a human graph holds
+    about 2.5-3 G distinct 31-mers, more than one card's D1 table holds
+    (``table_fits``), so each rank holds the keys whose owner
+    (:func:`owner_of`) it is, as a D1 :class:`Table` with its own
+    directory.
+
+    Each ingest step (:meth:`update_block`, a collective: every rank
+    calls it the same number of times, with an empty block where it has
+    none) extracts the rank's read windows (D1-extract), drops invalid
+    ones, routes each key to its owner (:func:`_route`) and counts what
+    it received into the rank's partition with D1-count-keys. The
+    exchange carries exact sizes, so nothing is padded and nothing can
+    overflow: the reference's [D, capacity] bins, slack, overflow error
+    and ingest buffer have no counterpart.
+
+    With ``keys`` None the partition is built on the card from
+    ``corpus_files``, as :class:`PrimedDeviceCounter` builds its table,
+    keeping the keys this rank owns.
+    """
+
+    def __init__(self, k: int, keys: Optional[np.ndarray] = None,
+                 corpus_files: Sequence[str] = (), device=None,
+                 round_windows: Optional[int] = None):
+        from ..parallel import distributed as dist
+
+        if not (1 <= k <= 31):
+            raise ValueError("supports k in [1, 31]")
+        self.k = k
+        self.device = resolve_device(device)
+        self.rank, self.n_ranks = dist.process_index(), dist.process_count()
+        self.primed_on_device = keys is None
+        if keys is None:
+            part = self._prime_partition(corpus_files, round_windows)
+        else:
+            part = self._partition_of(np.sort(np.asarray(keys, dtype=np.uint64)).view(np.int64))
+        self.table = make_table(part, k)
+        self.counts = torch.zeros(part.shape, dtype=torch.int32, device=self.device)
+
+    def _partition_of(self, keys: np.ndarray) -> torch.Tensor:
+        """The keys of the sorted int64 ``keys`` this rank owns, in order,
+        on its card, their owners computed there a chunk of OWNER_CHUNK
+        keys at a time (the whole table need not fit one card); each
+        rank's count of keys goes to ``_per_dev``, as the reference
+        keeps it."""
+        parts = []
+        self._per_dev = np.zeros(self.n_ranks, dtype=np.int64)
+        for start in range(0, len(keys), OWNER_CHUNK):
+            chunk = torch.from_numpy(keys[start:start + OWNER_CHUNK]).to(self.device)
+            owner = owner_of(chunk, self.n_ranks)
+            self._per_dev += torch.bincount(owner, minlength=self.n_ranks).cpu().numpy()
+            parts.append(chunk[owner == self.rank])
+            del chunk, owner
+        return torch.cat(parts) if parts else torch.empty(0, dtype=torch.int64,
+                                                           device=self.device)
+
+    def _prime_partition(self, corpus_files: Sequence[str], rounds: Optional[int]
+                         ) -> torch.Tensor:
+        """The sorted, unique canonical k-mers of ``corpus_files`` this
+        rank owns, built on the card in rounds (D1-extract, the owner's
+        filter, ``torch.sort``, ``torch.unique_consecutive``)."""
+        dev = self.device
+        held = torch.empty(0, dtype=torch.int64, device=dev)
+        for words, vwords, n_bases in packed_blocks(
+                corpus_files, self.k, rounds or round_windows(dev)):
+            keys = extract(_on(dev, words), _on(dev, vwords), n_bases, self.k)
+            keys = keys[keys != SENTINEL]
+            keys = torch.cat([held, keys[owner_of(keys, self.n_ranks) == self.rank]])
+            held = torch.unique_consecutive(torch.sort(keys).values)
+            del keys
+        return held
+
+    def update_block(self, words: np.ndarray, vwords: np.ndarray, n_bases: int) -> None:
+        """One ingest step: this rank's flat block (:func:`pack_sequences`;
+        ``n_bases`` 0 for none) through D1-extract, each valid key routed
+        to its owner, the keys routed here counted."""
+        dev = self.device
+        keys = torch.empty(0, dtype=torch.int64, device=dev)
+        if n_bases:
+            keys = extract(_on(dev, words), _on(dev, vwords), n_bases, self.k)
+            keys = keys[keys != SENTINEL]
+        received = _route(keys, owner_of(keys, self.n_ranks), self.n_ranks)
+        if len(self.table.keys):
+            count_keys(received, self.k, self.table, self.counts)
+
+    def update_batch(self, codes: np.ndarray) -> None:
+        """One ingest step on a [B, L] uint8 code batch (:func:`pack_read_batch`)."""
+        words, vwords, n_bases, _ = codes_block(np.asarray(codes, dtype=np.uint8))
+        self.update_block(words, vwords, n_bases)
+
+    def to_host_arrays(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(sorted keys uint64, counts int64) of the whole table, zero
+        counts kept: every rank's partition gathered to the host a chunk
+        at a time (``distributed.gather_to_host``, a collective) and put
+        back in key order. Every read window of every rank is counted in
+        it."""
+        from ..parallel import distributed as dist
+
+        keys = np.concatenate(dist.gather_to_host(self.table.keys))
+        counts = np.concatenate(dist.gather_to_host(self.counts)).astype(np.int64)
+        # the partitions are sorted runs: a stable sort merges them
+        order = np.argsort(keys, kind="stable")
+        return keys[order].view(np.uint64), counts[order]
+
+
+def _ingest_all(counter: ShardedPrimedDeviceCounter, packed: Iterator) -> None:
+    """Every flat block of ``packed`` (this rank's) through the counter's
+    ingest steps. The ranks step together: while any rank has a block,
+    each takes a step, with an empty block where it has run out."""
+    from ..parallel import distributed as dist
+
+    blocks = _prefetched(packed)
+    empty = np.zeros(0, np.uint32)
+    while True:
+        block = next(blocks, None)
+        if not dist.any_rank(block is not None):
+            return
+        counter.update_block(*(block if block is not None else (empty, empty, 0)))
+
+
+def count_stream_sharded(read_blocks, k: int, keys: Optional[np.ndarray],
+                         block_bases: int = 32 << 20, corpus_files: Sequence[str] = (),
+                         device=None) -> ShardedPrimedDeviceCounter:
+    """Drive a :class:`ShardedPrimedDeviceCounter` from this rank's
+    (data, offsets) read blocks (the native FASTA parser's output), packed
+    as flat blocks of at most ``block_bases`` bases (:func:`pack_blocks`:
+    each read's windows once, none across reads, any length mix)."""
+    counter = ShardedPrimedDeviceCounter(k, keys, corpus_files=corpus_files, device=device)
+    _ingest_all(counter, pack_blocks(read_blocks, k, block_bases))
+    return counter
+
+
+def count_file_primed_sharded(
+    read_file: str, k: int, keys: Optional[np.ndarray], shard=None,
+    block_bases: int = 32 << 20, corpus_files: Sequence[str] = (), device=None,
+):
+    """File driver for the partitioned counter: PRIME+UPDATE a read file
+    against a graph table hash-partitioned over the ranks' cards (given
+    as ``keys``, or built from ``corpus_files``). ``shard=(i, n)`` (default:
+    this rank's, every n-th read) picks the reads this rank streams.
+    Returns an ExactKmerCounter with the whole table's key set (zero
+    counts kept) and the counts of every rank's reads: the ranks' sum
+    already, so no all-reduce follows."""
+    from .counter import ExactKmerCounter
+    from ..parallel import distributed as dist
+
+    if shard is None:
+        shard = (dist.process_index(), dist.process_count())
+    t0 = time.monotonic()
+    counter = ShardedPrimedDeviceCounter(k, keys, corpus_files=corpus_files, device=device)
+    _ingest_all(counter, packed_blocks([read_file], k, block_bases, shard))
+    keys_out, counts = counter.to_host_arrays()
+    print(f"  [sharded device counter] rank {counter.rank}/{counter.n_ranks}: "
+          f"{len(counter.table.keys)} of {len(keys_out)} keys, "
+          f"{time.monotonic() - t0:.1f}s", file=sys.stderr)
+    return ExactKmerCounter(k, keys_out, counts)
+
+
+def sharded_count_kmers(codes: np.ndarray, k: int, device=None):
+    """COUNT mode over the ranks: a [B, L] read batch (the same on every
+    rank) split into contiguous row blocks, one a rank (padded with
+    invalid rows as the reference pads); each rank counts its block
+    (D1-extract, ``torch.sort``, ``torch.unique_consecutive``), then the
+    partial tables are gathered (``all_gather``) and merged.
+
+    Returns (sorted distinct keys int64, counts int64) on the rank's
+    device, the same on every rank: the reference's table with its mask
+    applied."""
+    from ..parallel import distributed as dist
+
+    local = _row_block(codes, dist.process_index(), dist.process_count())
+    keys, counts = count_kmers(*extract_canonical(local, k, device))
+    all_keys = torch.cat(dist.all_gather_varying(keys))
+    all_counts = torch.cat(dist.all_gather_varying(counts))
+    merged, order = torch.sort(all_keys)
+    distinct, inverse = torch.unique_consecutive(merged, return_inverse=True)
+    total = torch.zeros(distinct.shape, dtype=torch.int64, device=distinct.device)
+    return distinct, total.index_add_(0, inverse, all_counts[order])
+
+
+def sharded_count_kmers_partitioned(codes: np.ndarray, k: int, device=None):
+    """COUNT mode over the ranks, hash-partitioned: each rank extracts its
+    row block's k-mers, sends each to the rank the reference's mix of
+    the untagged (hi, lo) key names (``all_to_all_single`` with exact
+    sizes), and counts what it received. Each rank ends up holding a
+    disjoint partition of the key space, so table memory scales 1/D.
+
+    Returns this rank's partition: (sorted distinct keys int64, counts
+    int64) on its device. Nothing can overflow, so the reference's
+    ``slack`` and overflow count have no counterpart."""
+    from ..parallel import distributed as dist
+
+    n = dist.process_count()
+    local = _row_block(codes, dist.process_index(), n)
+    keys, valid = extract_canonical(local, k, device)
+    keys = keys.reshape(-1)[valid.reshape(-1)]
+    received = _route(keys, _mix(keys >> 32, keys & 0xFFFFFFFF) % n, n)
+    return count_kmers(received, torch.ones(received.shape, dtype=torch.bool,
+                                            device=received.device))
+
+
+def _row_block(codes: np.ndarray, i: int, n: int) -> np.ndarray:
+    """Rank i's contiguous block of a [B, L] batch padded to a multiple of
+    n rows with invalid codes (4)."""
+    codes = np.asarray(codes, dtype=np.uint8)
+    B = codes.shape[0]
+    if B % n:
+        codes = np.concatenate([codes, np.full((n - B % n,) + codes.shape[1:], 4, np.uint8)])
+    per = codes.shape[0] // n
+    return codes[i * per:(i + 1) * per]

@@ -1,6 +1,6 @@
 """Kernels K1-K4 (csrc/fb.cu), S1 (csrc/sampling_dp.cu), V1
-(csrc/viterbi.cu) and D1-extract and D1-count (csrc/kmer_count.cu)
-against their plain torch versions, on the card.
+(csrc/viterbi.cu) and D1-extract, D1-count and D1-count-keys
+(csrc/kmer_count.cu) against their plain torch versions, on the card.
 
 Marked ``cuda``: a CUDA kernel has no interpret mode, so these skip
 where there is no GPU. Run them on a GPU machine with
@@ -996,3 +996,34 @@ def test_d1_file_counter_equals_the_host_engine(cuda, tmp_path, given):
                                       keys=host.keys if given else None, device=cuda)
     assert np.array_equal(dev.keys, host.keys) and np.array_equal(dev.counts, host.counts)
     assert dc.D1_COUNT.launches - launches >= 8
+
+
+@pytest.mark.parametrize("k, d", [(1, "rule"), (31, "0"), (31, "16"), (31, "rule")])
+def test_d1_count_keys_matches_plain(cuda, k, d):
+    """D1-count-keys on a block's keys as a partition receives them
+    (SENTINEL, keys the table lacks, keys wider than 2k bits among them),
+    with the directory at 0, 16 and the rule's d: the plain version's
+    counts, one launch, the same counts as D1-count on the block; and an
+    empty partition is left untouched."""
+    from pangenie_tpu_torch.kmers import device_counter as dc
+
+    words, vwords, n_bases, _ = _d1_block(20 + k, 20_000, 160, cuda)
+    keys = dc.extract(words, vwords, n_bases, k)
+    keys = torch.cat([keys, torch.tensor([4 ** k, -1], dtype=torch.int64, device=cuda)])
+    table = dc.make_table(torch.unique(keys[(keys != dc.SENTINEL) & (keys >= 0)
+                                            & (keys < 4 ** k)])[::2].contiguous(), k,
+                          None if d == "rule" else int(d))
+    got = torch.zeros(table.keys.shape, dtype=torch.int32, device=cuda)
+    want = torch.zeros_like(got)
+    from_block = torch.zeros_like(got)
+    launches = dc.D1_COUNT_KEYS.launches
+    dc.count_keys(keys, k, table, got)
+    dc.count_keys_plain(keys, table, want)
+    dc.count(words, vwords, n_bases, k, table, from_block)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, from_block) and got.sum() > 0
+    assert dc.D1_COUNT_KEYS.launches == launches + 1
+    empty = dc.make_table(torch.zeros(0, dtype=torch.int64, device=cuda), k)
+    none = torch.zeros(0, dtype=torch.int32, device=cuda)
+    dc.count_keys(keys, k, empty, none)
+    torch.cuda.synchronize()

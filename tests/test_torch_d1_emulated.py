@@ -1,8 +1,9 @@
-"""Kernels D1-extract and D1-count of ``pangenie_tpu_torch/csrc/kmer_count.cu``
-run on the CPU by an emulator of the CUDA threads, through the real
-wrappers (``device_counter.extract`` and ``count``), against their plain
-versions on the same packed blocks: the keys and the counts must be
-equal.
+"""Kernels D1-extract, D1-count and D1-count-keys of
+``pangenie_tpu_torch/csrc/kmer_count.cu`` run on the CPU by an emulator
+of the CUDA threads, through the real wrappers
+(``device_counter.extract``, ``count`` and ``count_keys``), against
+their plain versions on the same packed blocks or keys: the keys and
+the counts must be equal.
 
 The kernel source is compiled with g++ against the headers of
 ``tests/cuda_emulator/`` (each thread a fiber, blocks one after another;
@@ -71,7 +72,8 @@ def emulated(tmp_path_factory):
         check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(lib_path))
     bound = {}
-    for name, kernel in (("extract", dc.D1_EXTRACT), ("count", dc.D1_COUNT)):
+    for name, kernel in (("extract", dc.D1_EXTRACT), ("count", dc.D1_COUNT),
+                         ("count_keys", dc.D1_COUNT_KEYS)):
         fn = getattr(lib, kernel.symbol)
         fn.argtypes = kernel._argtypes
         fn.restype = ctypes.c_int
@@ -412,3 +414,96 @@ def test_emulated_count_into_tiny_tables(emulated, n):
     dc.count_plain(words, vwords, n_bases, k, table, want)
     assert torch.equal(counts[:n], want) and counts[n] == 0
     assert want.sum() >= n
+
+
+# -- D1-count-keys: keys already extracted, D1-count's search ----------------
+
+
+def _both_key_counts(emulated, keys, k, table):
+    got = torch.zeros(table.keys.shape, dtype=torch.int32)
+    dc.count_keys(keys, k, table, got, kernel=emulated["count_keys"], stream=STREAM)
+    want = torch.zeros_like(got)
+    dc.count_keys_plain(keys, table, want)
+    return got, want
+
+
+def _routed_keys(seed, k, n=150):
+    """A block's keys as a rank receives them: the valid windows of
+    reads, with SENTINEL keys (a block's invalid windows) left in."""
+    words, vwords, n_bases = _block(_reads(seed, n, short=10))
+    return dc.extract_plain(words, vwords, n_bases, k)
+
+
+@pytest.mark.parametrize("k", [1, 31])
+@pytest.mark.parametrize("d", ["0", "16", "rule"])
+def test_emulated_count_keys_matches_plain(emulated, k, d):
+    """Keys of reads (SENTINEL among them), into a table of every other
+    read key and keys no read has, with the directory at d = 0, 16 (at
+    most 2k) and the rule's d: the plain version's counts, and the host
+    engine's for the keys the table holds."""
+    keys = _routed_keys(900 + k, k)
+    assert (keys == dc.SENTINEL).any()
+    valid = keys[keys != dc.SENTINEL]
+    rng = np.random.default_rng(k)
+    absent = torch.from_numpy(rng.integers(0, 4 ** k, 40, dtype=np.int64))
+    table_keys = torch.unique(torch.cat([torch.unique(valid)[::2], absent]))
+    bits = {"0": 0, "16": min(16, 2 * k), "rule": None}[d]
+    table = dc.make_table(table_keys, k, bits)
+    got, want = _both_key_counts(emulated, keys, k, table)
+    assert torch.equal(got, want) and got.sum() > 0
+    uniq, cnt = torch.unique(valid, return_counts=True)
+    held = torch.isin(uniq, table_keys)
+    expected = torch.zeros(len(table_keys), dtype=torch.int32)
+    expected[torch.searchsorted(table_keys, uniq[held])] = cnt[held].to(torch.int32)
+    assert torch.equal(got, expected)
+
+
+def test_emulated_count_keys_of_absent_and_foreign_keys(emulated):
+    """Keys no table holds, SENTINEL alone, and keys wider than 2k bits
+    (which a directory of k-mers cannot bucket): nothing is counted."""
+    k = 15
+    table = dc.make_table(torch.unique(torch.randint(0, 4 ** k, (300,),
+                                                      generator=torch.Generator().manual_seed(3))), k)
+    absent = torch.tensor([x for x in range(0, 4 ** k, 4 ** k // 97)
+                           if x not in set(table.keys.tolist())], dtype=torch.int64)
+    wide = torch.tensor([4 ** k, 4 ** k + 5, (1 << 62) + 1, -1, -(1 << 40)], dtype=torch.int64)
+    sentinel = torch.full((64,), dc.SENTINEL, dtype=torch.int64)
+    for keys in (absent, wide, sentinel, torch.cat([sentinel, absent, wide])):
+        got, want = _both_key_counts(emulated, keys.contiguous(), k, table)
+        assert torch.equal(got, want) and got.sum() == 0
+
+
+def test_emulated_count_keys_into_an_empty_partition(emulated):
+    """A rank whose partition holds no key (and keys routed to it
+    anyway): nothing is found and nothing is written."""
+    table = dc.make_table(torch.zeros(0, dtype=torch.int64), 31)
+    got, want = _both_key_counts(emulated, _routed_keys(5, 31), 31, table)
+    assert got.shape == (0,) and want.shape == (0,)
+
+
+@pytest.mark.parametrize("k", [1, 16, 31])
+def test_emulated_count_keys_in_the_last_directory_bucket(emulated, k):
+    """The largest k-mer (all ones: the last bucket at d = 16 and at the
+    rule's d) and the key 0 (the first bucket) among the keys, each
+    counted as often as it comes."""
+    top, table_keys = 4 ** k - 1, torch.tensor([0, 4 ** k // 3, 4 ** k - 1], dtype=torch.int64)
+    keys = torch.tensor([top, 0, top, 5 % 4 ** k, top, dc.SENTINEL, 0], dtype=torch.int64)
+    for d in sorted({min(16, 2 * k), dc.directory_bits(len(table_keys), k)}):
+        table = dc.make_table(table_keys, k, d)
+        assert (table.keys[-1] >> table.shift).item() == (1 << d) - 1
+        got, want = _both_key_counts(emulated, keys, k, table)
+        assert torch.equal(got, want)
+        assert got.tolist()[0] == 2 and got.tolist()[-1] == 3
+
+
+def test_emulated_count_keys_is_count_on_the_same_windows(emulated):
+    """D1-count on a block and D1-count-keys on that block's keys give
+    the same counts: the two kernels share one search."""
+    k = 31
+    seqs = _reads(44, 200, short=20)
+    words, vwords, n_bases = _block(seqs)
+    keys = dc.extract_plain(words, vwords, n_bases, k)
+    table = dc.make_table(torch.unique(keys[keys != dc.SENTINEL])[1::3].contiguous(), k)
+    from_block, _ = _both_counts(emulated, words, vwords, n_bases, k, table)
+    from_keys, _ = _both_key_counts(emulated, keys, k, table)
+    assert torch.equal(from_block, from_keys) and from_keys.sum() > 0

@@ -4,8 +4,8 @@ plain versions on the CPU) against the reference package's
 engine, exactly: keys and counts are integers.
 
 The first cases mirror tests/test_device_counter.py case for case for
-the single-device functions (the sharded ones wait for the multi-GPU
-slice); then the file counter on FASTA, FASTQ and gzipped input, with
+the single-device functions (the sharded ones, over ranks, are
+tests/test_torch_sharded_counter.py's); then the file counter on FASTA, FASTQ and gzipped input, with
 the table given and built by the port, against both references; the
 carry-across of the reference counter's state; and ``single``,
 ``genotype -f`` and ``sampling`` routed through D1

@@ -18,7 +18,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIED = [
     "eval/__init__.py", "eval/concordance.py", "hmm/columns.py",
     "io/__init__.py", "io/fasta.py", "io/sequence.py",
-    "kmers/counter.py", "kmers/histogram.py", "kmers/jf_reader.py",
+    "kmers/__init__.py", "kmers/counter.py", "kmers/histogram.py", "kmers/jf_reader.py",
     "kmers/mer.py", "kmers/unique.py", "model/__init__.py",
     "model/probabilities.py", "panel/__init__.py", "panel/builder.py",
     "panel/graph.py", "panel/sampling.py", "panel/variant.py",
@@ -33,8 +33,6 @@ EDITED = {
     # committed binary and silently drops to numpy)
     "kmers/native.py": {"<docstring>", "from .._build import",
                         "_CSRC", "_LIB_FAILED", "_build_and_load"},
-    # no sharded counter until M1 (multi-GPU)
-    "kmers/__init__.py": {"from .device_counter import"},
 }
 
 

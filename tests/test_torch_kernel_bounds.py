@@ -58,8 +58,12 @@ from pangenie_tpu_torch.hmm import bounds, fb_generic, fb_kernels, sampling
     # directory, the kernel's own)
     (bounds.d1_extract(48_000_000), 402_000_000, 0.1200000),
     (bounds.d1_count(48_000_000, 24_000_000, 400_000_000), 402_000_000, 0.1200000),
+    # D1-count-keys: 20,000,000 routed keys (int64) 160,000,000 into a
+    # partition of 15,000,000 keys: table 120,000,000, counts in and out
+    # 120,000,000
+    (bounds.d1_count_keys(20_000_000, 15_000_000, 60_000_000), 400_000_000, 0.1194030),
 ], ids=["K1", "K2", "K3", "K4", "S1", "S1_chase", "K3_grid", "K4_grid", "V1", "D1_extract",
-        "D1_count"])
+        "D1_count", "D1_count_keys"])
 def test_bytes_and_bound_at_main_shapes(work, nbytes, ms):
     assert work.nbytes == nbytes
     got_ms, by = work.bound()
@@ -117,6 +121,24 @@ def test_d1_bytes_and_steps_match_the_plain_versions():
         reads = [_table_reads(table, key, scan) for key in keys[keys != dc.SENTINEL].tolist()]
         assert steps == sum(reads) > 0
         assert d != 4 or max(reads) > 1 + scan // 2
+
+
+def test_d1_count_keys_bytes_and_steps_match_the_plain_version():
+    """D1-count-keys' byte count is the bytes of the keys, table keys and
+    counts (read and written) that its plain version takes; its search
+    steps are D1-count's for the same valid keys."""
+    from pangenie_tpu_torch.kmers import device_counter as dc
+
+    rng = np.random.default_rng(4)
+    keys = torch.from_numpy(rng.integers(0, 4 ** 13, 3000, dtype=np.int64))
+    table = dc.make_table(torch.unique(keys[::3]), 13)
+    counts = torch.zeros(table.keys.shape, dtype=torch.int32)
+    steps = dc.search_steps(table, keys)
+    work = bounds.d1_count_keys(len(keys), len(table.keys), steps)
+    assert work.nbytes == _nbytes(keys, table.keys, counts, counts)
+    reads = [_table_reads(table, key, dc.SCAN) for key in keys.tolist()]
+    assert steps == sum(reads) > 0
+    assert work.ops == bounds.D1_KEY_OPS * len(keys) + bounds.D1_SEARCH_OPS * steps
 
 
 def test_generic_bytes_match_the_plain_versions_tensors():

@@ -1,8 +1,8 @@
 """The port on a machine without JAX: in a subprocess where importing
 ``jax`` (or the reference package) fails, import the port's commands,
-CLI and forward-backward modules and run a small workload through the
-CLI: ``genotype -r -v`` (single), then ``index``, ``genotype -f -w``
-and ``vcf``."""
+CLI, forward-backward and multi-process (``parallel/``) modules and run
+a small workload through the CLI: ``genotype -r -v`` (single), then
+``index``, ``genotype -f -w`` and ``vcf``."""
 
 import os
 import subprocess
@@ -22,6 +22,10 @@ SCRIPT = textwrap.dedent("""
     import pangenie_tpu_torch.hmm.fb_generic
     import pangenie_tpu_torch.hmm.fb_kernels
     import pangenie_tpu_torch.kmers.device_counter
+    import pangenie_tpu_torch.parallel.distributed
+    import pangenie_tpu_torch.parallel.dryrun
+    import pangenie_tpu_torch.parallel.genotyping
+    import pangenie_tpu_torch.parallel.mesh
     import pangenie_tpu_torch.utils.multiallelic
     from pangenie_tpu_torch import cli
     from pangenie_tpu_torch.utils import simulate as sim
