@@ -6,9 +6,9 @@ Phases, each printed as it runs; any failure exits non-zero:
 
 1. environment: torch/CUDA versions, GPU name and power limit, nvcc;
 2. build: the CUDA kernels (K1-K4 in csrc/fb.cu, S1's sweep and chase
-   in csrc/sampling_dp.cu, V1 in csrc/viterbi.cu, D1-extract, D1-count
-   and D1-count-keys in csrc/kmer_count.cu) and the host k-mer engine, from this
-   checkout, one compiler per source, all at once.
+   in csrc/sampling_dp.cu, V1 in csrc/viterbi.cu, D1-extract, D1-count,
+   D1-route and D1-count-keys in csrc/kmer_count.cu) and the host k-mer
+   engine, from this checkout, one compiler per source, all at once.
    The five end-to-end workloads below are simulated meanwhile, in
    four worker processes, once each into build/smoke_inputs/;
 3. kernel vs plain on the card, with the times of both (float32,
@@ -133,9 +133,10 @@ Phases, each printed as it runs; any failure exits non-zero:
    budget); then ``genotype -f -a 200`` (11 path subsets of 200 paths:
    dispatch cuda_generic, K3/K4's cluster tier alone, concordance >=
    0.98), its launches counted alone, then once more under
-   torch.profiler (both runs from an emptied allocator cache, so K3/K4's
-   chunk, sized from the free memory, is the same: same chunks, same VCF
-   body; the cluster tier's device time); then
+   torch.profiler with 20 GB more held on the card and neither run
+   emptying the allocator cache first (K3/K4's chunk follows the card's
+   total memory alone: same chunks, same VCF body; the cluster tier's
+   device time); then
    the cluster tier held against the plain versions and timed at the
    chunk shape (B, chunk, P=200) that run took, with drawn columns;
 8. widest panel: one 1 Mb chromosome, 3202 samples (the 1000 Genomes
@@ -166,14 +167,19 @@ Phases, each printed as it runs; any failure exits non-zero:
    patched to refuse the whole table and take a half, so that
    ``_read_counter`` takes its partitioned route: the coordinator's VCF
    body equal to phase 6's first run's, its counts equal to one process's D1 count
-   of every SV read, and D1-count-keys' launches in the ``kernels`` line
-   taken from this run alone; each rank's walls printed; (c) ``run_grid_local_sharded`` with [cuda:0, cuda:0]
-   on the bench run's own fused and phasing batches, bit-identical to
-   the single call; (d) D1-count-keys on the SV block's valid keys
-   routed into 2 and 4 partitions of the SV table: every partition's
-   counts equal to the plain version's and to D1-count's, partition 0
-   timed beside its bound, its plain version and torch.searchsorted then
-   torch.bincount, and the routing (owner, sort, sizes) timed.
+   of every SV read, and D1-route's and D1-count-keys' launches in the
+   ``kernels`` line taken from this run alone; each rank's walls
+   printed; (c) ``run_grid_local_sharded`` with [cuda:0, cuda:0] on the
+   bench run's own fused and phasing batches, bit-identical to
+   the single call; (d) D1-route on the SV block's keys (its sentinels
+   among them) into 2 and 4 owners at the counter's region bits: the
+   plain version's keys in its order and its sizes, timed beside its
+   bound, its plain version and the torch route it replaced (owner,
+   stable torch.sort, torch.bincount, gather); then D1-count-keys on
+   each owner's bins, read in region order, into its partition of the
+   SV table: every partition's counts equal to the plain version's and
+   to D1-count's, partition 0 timed beside its bound, its plain version
+   and torch.searchsorted then torch.bincount.
 
 Each end-to-end path, and the chromosome beyond one card, runs with
 every kernel's launch count set to 0 just before it and read just
@@ -252,6 +258,9 @@ PADDED_SHAPE = (3, 2048, 89, 2, 1500)
 WIDE_SHAPES = [(2, 512, 465, 32), (1, 16, 1025, 32), (1, 64, 2049, 32)]
 # path subsets of `genotype -f -a` on the large panel
 LARGE_SUBSET = 200
+# bytes held on the card through the profiled rerun of `genotype -f -a
+# LARGE_SUBSET`, which must still take the first run's chunks
+HELD_BYTES = 20 * 10 ** 9
 # the two routes timed on the same columns with no forced chunk: the
 # bench path's shape (B, N, P, K, A) at A=2 and the mixed-A shape at P=89
 # of benchmarks/bench_sv_sampling.py (the bench run's own batch after
@@ -1950,8 +1959,9 @@ def run_large_panel(casedir: str, gpu: str, device: str = "cuda"):
     subsets past the fused kernels: dispatch cuda_generic, K3/K4's
     cluster tier and no other; concordance >= 0.98), with the launch
     counts set to 0 just before it, then once more under torch.profiler
-    (both from an emptied allocator cache: the same chunks and the same
-    VCF body; the cluster tier's device time). Returns the launch counts of the three
+    with HELD_BYTES more held on the card (neither run empties the
+    allocator cache first: the same chunks and the same VCF body; the
+    cluster tier's device time). Returns the launch counts of the three
     commands, S1's largest difference from the plain DP and times, the
     launch counts of the subset run and the (B, N, P, K) of its chunks."""
     import torch
@@ -2023,11 +2033,11 @@ def run_large_panel(casedir: str, gpu: str, device: str = "cuda"):
     def genotype_subsets(out):
         # the subsets are drawn from the process-wide rand() stream: the
         # same stream state gives the profiled rerun the same subsets; and
-        # K3/K4's chunk is sized from the card's free memory
-        # (fb_generic.pick_chunk), so both runs start from an emptied cache
-        # and take the same chunks, whose boundaries float32 results follow
+        # K3/K4's chunk follows the card's total memory alone
+        # (fb_generic.pick_chunk), so both runs take the same chunks,
+        # whose boundaries float32 results follow, whatever the cache
+        # holds (no empty_cache) and whatever else is allocated
         reset_global_rand()
-        torch.cuda.empty_cache()
         commands.run_genotype_command(
             prefix, reads, os.path.join(casedir, out), nr_jellyfish_threads=2,
             nr_core_threads=2, sampling_size=LARGE_SUBSET, device=device)
@@ -2035,7 +2045,7 @@ def run_large_panel(casedir: str, gpu: str, device: str = "cuda"):
     with patched(fb_generic, "pick_chunk", chunk_kept):
         command(subsets, lambda: genotype_subsets("out_subsets"))
     subset_launches = launch_counts()
-    walk = fb_generic.last_walk
+    walk, taken = fb_generic.last_walk, fb_generic.last_chunk
     if len(chunks) != 1:
         raise AssertionError(f"{subsets}: {len(chunks)} chunked walks, not 1")
     # the shape each K3/K4 launch but the last of each pass took
@@ -2071,14 +2081,25 @@ def run_large_panel(casedir: str, gpu: str, device: str = "cuda"):
     if subset_result.concordance < 0.98:
         raise AssertionError(f"{subsets}: concordance {subset_result.concordance} < 0.98")
 
+    # the rerun with HELD_BYTES more allocated on the card than the first
+    # run saw: the same chunks and the same VCF body
+    held = torch.empty(HELD_BYTES, dtype=torch.uint8, device=device)
+    free_before = torch.cuda.mem_get_info()[0]
+    fb_generic.last_walk, fb_generic.last_chunk = (0, 0, 0), 0
     with patched(fb_generic, "pick_chunk", chunk_kept):
         wall, busy, by_name = profile_device(lambda: genotype_subsets("out_subsets_profiled"))
-    if chunks[1:] != chunks[:1]:
-        raise AssertionError(f"the profiled {subsets} took chunks of {chunks[1:]}, the first "
-                             f"run {chunks[0]}")
+    del held
+    if chunks[1:] != chunks[:1] or (fb_generic.last_walk, fb_generic.last_chunk) != (walk, taken):
+        raise AssertionError(f"the profiled {subsets} took chunks of {chunks[1:]} "
+                             f"({fb_generic.last_walk}, {fb_generic.last_chunk}), the first run "
+                             f"{chunks[0]} ({walk}, {taken})")
     if _vcf_body(os.path.join(casedir, "out_subsets_profiled_genotyping.vcf")) != _vcf_body(
             os.path.join(casedir, "out_subsets_genotyping.vcf")):
         raise AssertionError(f"the profiled {subsets} VCF differs from the first run's")
+    print(f"  the profiled {subsets}, run with {HELD_BYTES / 1e9:.0f} GB more held on the card "
+          f"({free_before / 1e9:.1f} GB free as it began, no empty_cache before either run): "
+          f"the same chunks ({walk[2]} of {taken}) and the same VCF body as the first run",
+          flush=True)
     print_profile(subsets, wall, busy, by_name, gpu)
     tier = {k: sum(dt for name, (dt, _n) in by_name.items() if f"fbe_{k}_cluster" in name)
             for k in ("forward", "backward")}
@@ -2297,9 +2318,9 @@ def hold_d1(reads: str, segments: str, keys, label: str, gpu: str) -> dict:
               f"{c['plain_ms']:.3f}), bound {c['work'].bound()[0]:.4f} ms by "
               f"{c['work'].bound()[1]}", flush=True)
     # kept on the host for the multi-GPU phase: the table, the block's
-    # valid keys and D1-count's counts of them
+    # keys (SENTINEL among them) and D1-count's counts of them
     t["table_keys"] = table.keys.cpu().numpy()
-    t["valid_keys"] = queries.cpu().numpy()
+    t["block_keys"] = keys_want.cpu().numpy()
     t["counts"] = want.cpu().numpy()
     del counter, table, got, want, keys_got, keys_want, queries
     torch.cuda.empty_cache()
@@ -2486,8 +2507,10 @@ def run_multigpu(casedir: str, sv_dir: str, d1_bench: dict, d1_sv: dict, gpu: st
     if not np.array_equal(np.load(counts_out), d1_bench["counts"]):
         raise AssertionError("the partitioned counter's counts differ from D1-count's")
     for what, launches, names in (
-            ("partitioned counter", one["counter_launches"], ("D1_EXTRACT", "D1_COUNT_KEYS")),
-            ("dryrun_multigpu(1)", one["dryrun_launches"], ("K1", "K2", "S1", "D1_COUNT_KEYS"))):
+            ("partitioned counter", one["counter_launches"],
+             ("D1_EXTRACT", "D1_ROUTE", "D1_COUNT_KEYS")),
+            ("dryrun_multigpu(1)", one["dryrun_launches"],
+             ("K1", "K2", "S1", "D1_ROUTE", "D1_COUNT_KEYS"))):
         for name in names:
             if launches[name] <= 0:
                 raise AssertionError(f"world 1: {name} was not launched by the {what}")
@@ -2518,7 +2541,7 @@ def run_multigpu(casedir: str, sv_dir: str, d1_bench: dict, d1_sv: dict, gpu: st
         for name in ("D1_COUNT", "S1"):
             if r["single_launches"][name] <= 0:
                 raise AssertionError(f"rank {r['rank']}: {name} was not launched by single")
-        for name in ("D1_EXTRACT", "D1_COUNT_KEYS"):
+        for name in ("D1_EXTRACT", "D1_ROUTE", "D1_COUNT_KEYS"):
             if r["sv_launches"][name] <= 0 or r["gf_launches"][name] <= 0:
                 raise AssertionError(f"rank {r['rank']}: {name} was not launched by the SV "
                                      f"partitioned counter or by genotype -f")
@@ -2563,6 +2586,7 @@ def run_multigpu(casedir: str, sv_dir: str, d1_bench: dict, d1_sv: dict, gpu: st
     return dict(
         # the command path alone: _read_counter's partitioned route
         launches=sum(r["gf_launches"]["D1_COUNT_KEYS"] for r in pair),
+        route_launches=sum(r["gf_launches"]["D1_ROUTE"] for r in pair),
         check_launches={"world 1 over NCCL: the partitioned counter, bench block":
                         one["counter_launches"]["D1_COUNT_KEYS"],
                         "world 1 over NCCL: dryrun_multigpu(1)":
@@ -2616,38 +2640,121 @@ def check_grid_over_cards(fused_cpu, phasing_cpu, gpu: str) -> None:
               f"{ {k: launches[k] for k in kernels_of} }", flush=True)
 
 
+def route_launcher(keys, k: int, n_ranks: int, r: int, fn=None, ctas=None):
+    """A closure that launches D1-route (``fn``: another library's
+    pg_d1_route, default the port's; ``ctas``: default
+    ``device_counter.route_ctas``'s) on ``keys`` into buffers allocated
+    once, with no host sync: what its time measures is the kernel's."""
+    import torch
+
+    from pangenie_tpu_torch import _build
+    from pangenie_tpu_torch.kmers import device_counter as dc
+
+    m, bins = len(keys), n_ranks << r
+    ctas = ctas or dc.route_ctas(m, bins)
+    out = torch.empty(m, dtype=torch.int64, device=keys.device)
+    sizes = torch.empty(bins, dtype=torch.int64, device=keys.device)
+    hist = torch.empty(ctas * bins, dtype=torch.int32, device=keys.device)
+    starts = torch.empty(bins, dtype=torch.int64, device=keys.device)
+    stream = _build.launch_stream(keys.device)
+    call = fn or dc.D1_ROUTE
+
+    def launch():
+        code = call(keys.data_ptr(), m, k, n_ranks, r, ctas, out.data_ptr(), sizes.data_ptr(),
+                    hist.data_ptr(), starts.data_ptr(), stream)
+        if code:
+            raise RuntimeError(f"pg_d1_route returned CUDA error {code}")
+    return launch
+
+
+def count_keys_launcher(fn, segmented: bool, keys, k: int, table, counts, runs):
+    """A closure that launches ``fn`` (a library's pg_d1_count_keys;
+    None: the port's D1-count-keys) on ``keys`` (read through ``runs``'
+    segments where it takes them), with no host sync."""
+    from pangenie_tpu_torch import _build
+    from pangenie_tpu_torch.kmers import device_counter as dc
+
+    stream = _build.launch_stream(keys.device)
+    head = [keys.data_ptr(), len(keys), k, table.keys.data_ptr(), len(table.keys),
+            table.directory.data_ptr(), table.shift, counts.data_ptr()]
+    segs = ()
+    if segmented:
+        segs = dc.segments(len(keys), runs, keys.device)
+        args = head + [segs[0].data_ptr(), segs[1].data_ptr(), len(segs[1]), stream]
+    else:
+        args = head + [stream]
+
+    call = fn or dc.D1_COUNT_KEYS
+
+    def launch():
+        code = call(*args)
+        if code:
+            raise RuntimeError(f"pg_d1_count_keys returned CUDA error {code}")
+    launch.segments = segs   # the segments live as long as the launcher
+    return launch
+
+
+def torch_route(valid, n_ranks: int):
+    """The partitioned counter's route before D1-route, on a block's
+    valid keys: owner, a stable torch.sort of the owners, torch.bincount
+    and a gather."""
+    import torch
+
+    from pangenie_tpu_torch.kmers import device_counter as dc
+
+    by_owner, order = torch.sort(dc.owner_of(valid, n_ranks), stable=True)
+    return valid[order], torch.bincount(by_owner, minlength=n_ranks)
+
+
 def check_count_keys(d1_sv: dict, gpu: str) -> dict:
-    """(d) D1-count-keys on the SV block's valid keys, routed by their
-    owner into 2 and 4 partitions of the SV table on the one card: every
-    partition's counts equal the plain version's and D1-count's counts
-    of its keys; partition 0 timed beside its bound, its plain version
-    and torch.searchsorted then torch.bincount, and the routing (owner,
-    sort by owner, the sizes) timed. Returns the times by partitions."""
+    """(d) D1-route on the SV block's keys (SENTINEL among them) into 2
+    and 4 owners at the partitioned counter's region bits for the SV
+    table (``device_counter.region_bits``): route_plain's keys in its order and
+    its sizes; timed beside its bound, its plain version and the torch
+    route it replaced (:func:`torch_route` on the valid keys). Then
+    D1-count-keys on each owner's bins, read in region order (its runs),
+    into its partition of the SV table: every partition's counts equal
+    the plain version's and D1-count's counts of its keys; partition 0
+    timed beside its bound, its plain version and torch.searchsorted then
+    torch.bincount. Returns the times by owners."""
     import torch
 
     from pangenie_tpu_torch.hmm import bounds
     from pangenie_tpu_torch.kmers import device_counter as dc
 
     dev = torch.device("cuda", 0)
-    keys = torch.from_numpy(d1_sv["valid_keys"]).to(dev)
+    block = torch.from_numpy(d1_sv["block_keys"]).to(dev)
+    valid = block[block != dc.SENTINEL]
     table_keys = torch.from_numpy(d1_sv["table_keys"]).to(dev)
     whole = torch.from_numpy(d1_sv["counts"]).to(dev)
     out = {}
     for parts in (2, 4):
-        def route():
-            owner = dc.owner_of(keys, parts)
-            by_owner, order = torch.sort(owner, stable=True)
-            return keys[order], torch.bincount(by_owner, minlength=parts)
-
-        route_ms = cuda_ms(route, 3)
-        owner_t, owner_q = dc.owner_of(table_keys, parts), dc.owner_of(keys, parts)
-        t = {"route_ms": route_ms}
+        r = dc.region_bits(len(table_keys) // parts, parts, 31)
+        (binned, sizes), first_ms = timed(lambda: dc.route(block, 31, parts, r))
+        (want_keys, want_sizes), plain_ms = timed(lambda: dc.route_plain(block, 31, parts, r))
+        if not (torch.equal(binned, want_keys) and torch.equal(sizes, want_sizes)):
+            raise AssertionError(f"(d) D1-route into {parts} owners differs from route_plain")
+        del want_keys, want_sizes
+        t = {"D1_ROUTE": cuda_ms(route_launcher(block, 31, parts, r), 5),
+             "D1_ROUTE_first": first_ms, "D1_ROUTE_plain": plain_ms,
+             "D1_ROUTE_library": cuda_ms(lambda: torch_route(valid, parts), 5),
+             "D1_ROUTE_work": bounds.d1_route(len(block), len(binned), sizes.numel()),
+             "D1_ROUTE_cols": len(block), "r": r,
+             "D1_ROUTE_passes_bytes": bounds.d1_route_passes(
+                 len(block), len(binned), sizes.numel(), dc.route_ctas(len(block), sizes.numel())),
+             "route_shape": f"m={len(block)} keys ({len(binned)} k-mers) into {parts} owners "
+                            f"x 2^{r} regions"}
+        owner_t = dc.owner_of(table_keys, parts)
+        flat = sizes.reshape(-1)
+        starts = (torch.cumsum(flat, 0) - flat).tolist()
         for p in range(parts):
             table = dc.make_table(table_keys[owner_t == p].contiguous(), 31)
-            routed = keys[owner_q == p].contiguous()
+            at = starts[p << r]
+            routed = binned[at:at + int(sizes[p].sum())]
+            runs = sizes[p].view(1, -1)
             got = torch.zeros(table.keys.shape, dtype=torch.int32, device=dev)
             want = torch.zeros_like(got)
-            dc.count_keys(routed, 31, table, got)
+            dc.count_keys(routed, 31, table, got, runs)
             _, plain_ms = timed(lambda: dc.count_keys_plain(routed, table, want))
             if not (torch.equal(got, want) and torch.equal(got, whole[owner_t == p])):
                 raise AssertionError(f"(d) D1-count-keys differs in partition {p} of {parts}")
@@ -2660,22 +2767,30 @@ def check_count_keys(d1_sv: dict, gpu: str) -> dict:
                 return torch.bincount(idx[table.keys[idx] == routed], minlength=n)
 
             steps = dc.search_steps(table, routed)
-            t.update(D1_COUNT_KEYS=cuda_ms(lambda: dc.count_keys(routed, 31, table, got), 5),
+            t.update(D1_COUNT_KEYS=cuda_ms(count_keys_launcher(None, True, routed, 31, table,
+                                                               got, runs), 5),
                      D1_COUNT_KEYS_plain=plain_ms, D1_COUNT_KEYS_library=cuda_ms(library, 5),
-                     D1_COUNT_KEYS_work=bounds.d1_count_keys(len(routed), n, steps),
+                     D1_COUNT_KEYS_work=bounds.d1_count_keys(
+                         len(routed), n, steps, len(torch.unique(routed)), int((want > 0).sum())),
                      D1_COUNT_KEYS_cols=len(routed), d=table.bits,
                      shape=f"m={len(routed)} routed keys into partition 0 of {parts}: "
-                           f"n={n} keys, k=31, d={table.bits}")
+                           f"n={n} keys, k=31, d={table.bits}, read in region order (r={r})")
         bound, by = t["D1_COUNT_KEYS_work"].bound()
+        r_bound, r_by = t["D1_ROUTE_work"].bound()
+        print(f"  (d) {t['route_shape']} [{gpu}]: D1-route {t['D1_ROUTE']:.3f} ms (first "
+              f"launch {first_ms:.3f}, plain {plain_ms:.3f}, the torch route it replaced "
+              f"{t['D1_ROUTE_library']:.3f}), bound {r_bound:.4f} ms by {r_by} (its two "
+              f"passes move {t['D1_ROUTE_passes_bytes']} bytes); the same keys in the same "
+              f"order and the same sizes as route_plain", flush=True)
         print(f"  (d) {t['shape']} [{gpu}]: D1-count-keys {t['D1_COUNT_KEYS']:.3f} ms (plain "
               f"{t['D1_COUNT_KEYS_plain']:.3f}, torch.searchsorted + torch.bincount "
               f"{t['D1_COUNT_KEYS_library']:.3f}), bound {bound:.4f} ms by {by}, "
               f"{t['D1_COUNT_KEYS'] * 1e3 / (t['D1_COUNT_KEYS_cols'] / 1e6):.1f} us per "
-              f"million keys; routing {len(keys)} keys (owner, sort, sizes) "
-              f"{route_ms:.3f} ms; every partition's counts equal the plain version's and "
+              f"million keys; every partition's counts equal the plain version's and "
               f"D1-count's", flush=True)
         out[parts] = t
-    del keys, table_keys, whole
+    out["kpt"] = dc.D1_COUNT_KEYS.lib().pg_d1_kpt()
+    del block, valid, table_keys, whole
     torch.cuda.empty_cache()
     return out
 
@@ -2687,7 +2802,8 @@ def kernels():
     return {"K1": fb_kernels.K1, "K2": fb_kernels.K2, "K3": fb_kernels.K3,
             "K4": fb_kernels.K4, "S1": sampling.S1, "S1_CHASE": sampling.S1_CHASE,
             "V1": v1_kernels.V1, "D1_EXTRACT": device_counter.D1_EXTRACT,
-            "D1_COUNT": device_counter.D1_COUNT, "D1_COUNT_KEYS": device_counter.D1_COUNT_KEYS}
+            "D1_COUNT": device_counter.D1_COUNT, "D1_ROUTE": device_counter.D1_ROUTE,
+            "D1_COUNT_KEYS": device_counter.D1_COUNT_KEYS}
 
 
 def reset_launches() -> None:
@@ -2876,7 +2992,8 @@ def smoke(device, gpu, inputs) -> int:
     w_err, w_times = check_wide(device, gpu, [wide_shape])
 
     phase("multi-GPU (M1): (a) world 1 over NCCL, (b) two ranks sharing the card over gloo, "
-          "(c) the grid over [cuda:0, cuda:0], (d) D1-count-keys on routed keys")
+          "(c) the grid over [cuda:0, cuda:0], (d) D1-route and D1-count-keys on the SV "
+          "block's keys")
     t0 = time.monotonic()
     torch.cuda.empty_cache()
     m1 = run_multigpu(casedir, sv_dir, d1_bench, d1_sv, gpu)
@@ -3013,9 +3130,26 @@ def smoke(device, gpu, inputs) -> int:
                      bound_ms=d1_sv["D1_COUNT_work"].bound()[0],
                      bound_by=d1_sv["D1_COUNT_work"].bound()[1],
                      us_per_million_windows=per_million(d1_sv, "D1_COUNT"))),
+        dict(entry("the partitioned counter's routing of a block's keys by (owner, region) "
+                   "(D1-route: a stable counting sort in two passes, the CTAs' counts in "
+                   "shared memory, a tile's warps taking their places in turn)", d1_src,
+                   "pangenie_tpu/kmers/device_counter.py:1352", m1["route_launches"], 0,
+                   keys_times[2], "D1_ROUTE"),
+             at=keys_times[2]["route_shape"], region_bits=keys_times[2]["r"],
+             library_ms=keys_times[2]["D1_ROUTE_library"],
+             library="the torch route it replaced: owner, stable torch.sort of the owners, "
+                     "torch.bincount, a gather (on the valid keys)",
+             first_ms=keys_times[2]["D1_ROUTE_first"],
+             passes_bytes=keys_times[2]["D1_ROUTE_passes_bytes"],
+             launches_on="two ranks over gloo: SV genotype -f through the CLI, "
+                         "_read_counter's partitioned route",
+             four=dict(at=keys_times[4]["route_shape"], ms=keys_times[4]["D1_ROUTE"],
+                       plain_ms=keys_times[4]["D1_ROUTE_plain"],
+                       library_ms=keys_times[4]["D1_ROUTE_library"],
+                       bound_ms=keys_times[4]["D1_ROUTE_work"].bound()[0])),
         dict(entry("read k-mer counting of routed keys into a partition of the graph table "
-                   "(D1-count-keys: d1_count_keys_kernel, one thread a key, D1-count's "
-                   "search, atomicAdd)", d1_src,
+                   "(D1-count-keys: d1_count_keys_kernel, the keys in region order, "
+                   f"{keys_times['kpt']} keys a thread, D1-count's search, atomicAdd)", d1_src,
                    "pangenie_tpu/kmers/device_counter.py:593",
                    m1["launches"], 0, keys_times[2], "D1_COUNT_KEYS"),
              at=keys_times[2]["shape"], directory_bits=keys_times[2]["d"],
@@ -3023,13 +3157,11 @@ def smoke(device, gpu, inputs) -> int:
              library="torch.searchsorted, then torch.bincount(minlength=n)",
              launches_on="two ranks over gloo: SV genotype -f through the CLI, "
                          "_read_counter's partitioned route",
-             route_ms=keys_times[2]["route_ms"], check_launches=m1["check_launches"],
-             walls=m1["walls"],
+             check_launches=m1["check_launches"], walls=m1["walls"],
              four=dict(at=keys_times[4]["shape"], ms=keys_times[4]["D1_COUNT_KEYS"],
                        plain_ms=keys_times[4]["D1_COUNT_KEYS_plain"],
                        library_ms=keys_times[4]["D1_COUNT_KEYS_library"],
-                       bound_ms=keys_times[4]["D1_COUNT_KEYS_work"].bound()[0],
-                       route_ms=keys_times[4]["route_ms"])),
+                       bound_ms=keys_times[4]["D1_COUNT_KEYS_work"].bound()[0])),
     ]}
     print(json.dumps(record))
     print(gpu_line())

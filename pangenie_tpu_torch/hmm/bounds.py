@@ -48,6 +48,11 @@ D1_SEARCH_OPS = 3
 # search: the check that it is a k-mer (a shift and a compare) and its
 # bucket (a shift)
 D1_KEY_OPS = 3
+# integer operations a key of D1-route needs: the check that it is a
+# k-mer (a shift and a compare), its owner (the tag shift, the split, the
+# low bit's mask, the xor, two multiplies, the xor and the modulo: 8), its
+# region and bin (two shifts and an or: 3)
+D1_ROUTE_OPS = 13
 
 
 class Work(NamedTuple):
@@ -158,11 +163,34 @@ def d1_count(n_bases: int, n_keys: int, search_steps: int) -> Work:
                 D1_WINDOW_OPS * n_bases + D1_SEARCH_OPS * search_steps)
 
 
-def d1_count_keys(n_queries: int, n_keys: int, search_steps: int) -> Work:
+def d1_count_keys(n_queries: int, n_keys: int, search_steps: int, distinct: int,
+                  found: int) -> Work:
     """D1-count-keys over m keys routed to a partition of n keys: the
-    keys (int64) [m], the partition's table (int64) [n] and counts
-    (int32) [n] in, counts out (the directory, as D1-count's, not
-    counted). ``search_steps``: the table reads the keys' search makes
-    (``device_counter.search_steps``)."""
-    return Work(8 * n_queries + 8 * n_keys + 8 * n_keys,
+    keys (int64) [m] in; of the partition's table (int64) [n], the
+    entries its ``distinct`` query keys need (one each, at most n); of
+    its counts (int32) [n], the ``found`` distinct keys' read and
+    written. Where the queries cover the table, that is the whole table
+    and every count; a partition far larger than its queries (700 M keys
+    for 40 M) is read only where they fall (the directory, as D1-count's,
+    not counted). ``search_steps``: the table reads the keys' search
+    makes (``device_counter.search_steps``)."""
+    return Work(8 * n_queries + 8 * min(n_keys, distinct) + 8 * found,
                 D1_KEY_OPS * n_queries + D1_SEARCH_OPS * search_steps)
+
+
+def d1_route(m: int, m_valid: int, bins: int) -> Work:
+    """D1-route over a block of m keys (int64), m_valid of them k-mers,
+    into ``bins`` (owner, region) bins: the keys read once; the binned
+    keys (int64) [m_valid] and each bin's size (int64) [bins] written
+    once."""
+    return Work(8 * m + 8 * m_valid + 8 * bins, D1_ROUTE_OPS * m)
+
+
+def d1_route_passes(m: int, m_valid: int, bins: int, ctas: int) -> int:
+    """The bytes D1-route's design moves, beside :func:`d1_route`'s
+    least: the keys read by both passes (16 bytes a key), the binned
+    keys written; the CTAs' counts (int32 [ctas, bins]) written by pass
+    1, read and rewritten by the scan and read by pass 2; the sizes
+    written, read by the starts' kernel and the starts written and read
+    (int64 [bins] each)."""
+    return 16 * m + 8 * m_valid + 4 * 4 * ctas * bins + 4 * 8 * bins

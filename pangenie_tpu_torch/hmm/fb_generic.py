@@ -30,6 +30,7 @@ against them.
 
 from __future__ import annotations
 
+import sys
 from typing import List, Tuple
 
 import numpy as np
@@ -51,8 +52,14 @@ _COLLAPSE_ELEMS = 1 << 26
 # genotyping.PairHMM and batch.use_generic read it here.
 SEGMENT = 1 << 17
 
-# (B, N, chunks) of the most recent forward_backward_chunked call
+# the share of the card's total memory a chunk's working set is sized to
+# (pick_chunk)
+CHUNK_MEMORY_SHARE = 0.3
+
+# (B, N, chunks) of the most recent forward_backward_chunked call, and
+# the chunk it took
 last_walk: Tuple[int, int, int] = (0, 0, 0)
+last_chunk: int = 0
 
 
 def factor_trans(trans: torch.Tensor) -> torch.Tensor:
@@ -230,34 +237,56 @@ def bucketed_collapse(posts: torch.Tensor, columns: ColumnArrays) -> torch.Tenso
 
 def pick_chunk(N: int, P: int, B: int, device: torch.device) -> int:
     """Columns per chunk: at most :data:`SEGMENT`; on CUDA also bounded
-    by the card's free memory. About five [B, chunk, P, P] float32
-    tensors are live at once in pass 2 (E, alphas, posts and the
-    collapse's slice temporaries, with headroom)."""
+    by CHUNK_MEMORY_SHARE of the card's total memory. About five [B,
+    chunk, P, P] float32 tensors are live at once in pass 2 (E, alphas,
+    posts and the collapse's slice temporaries, with headroom). Float32
+    results follow the chunk boundaries, so the chunk is a function of
+    the shape and the card alone: free memory, which the caller's cache
+    and tensors move, would make a rerun write other numbers
+    (:func:`forward_backward_chunked` halves it only where a chunk
+    cannot be allocated, and says so)."""
     cap = SEGMENT
     if device.type == "cuda":
-        free, _total = torch.cuda.mem_get_info(device)
+        total = torch.cuda.get_device_properties(device).total_memory
         per_col = 5 * B * P * P * 4
-        cap = min(cap, max(1, int(free * 0.8) // per_col))
+        cap = min(cap, max(1, int(total * CHUNK_MEMORY_SHARE) // per_col))
     return max(1, min(N, cap))
 
 
 def forward_backward_chunked(columns: ColumnArrays, chunk: int = 0):
     """Any-A forward-backward over [B, N] columns in N-chunks of
     ``chunk`` columns (0 = :func:`pick_chunk`); kernels K3/K4 on CUDA
-    tensors, their plain versions on CPU tensors.
+    tensors, their plain versions on CPU tensors. Where a chunk cannot
+    be allocated (``torch.cuda.OutOfMemoryError``) the walk starts over
+    in chunks of half as many columns, and a line on stderr names the
+    chunk it takes.
 
     Returns (posteriors [B, N, A, A], log_correction [B, N]) as
     :func:`forward_backward.forward_backward` does.
     """
+    B, N, P = columns.alleles.shape
+    if chunk <= 0:
+        chunk = pick_chunk(N, P, B, columns.lp.device)
+    while True:
+        try:
+            return _walk(columns, chunk)
+        except torch.cuda.OutOfMemoryError:
+            if chunk == 1:
+                raise
+            print(f"  [generic forward-backward] chunks of {chunk} columns did not fit "
+                  f"the card: taking chunks of {chunk // 2}", file=sys.stderr, flush=True)
+            chunk //= 2
+
+
+def _walk(columns: ColumnArrays, chunk: int):
+    """:func:`forward_backward_chunked` in chunks of ``chunk`` columns."""
     from . import fb_kernels   # not at the top: fb_kernels imports this module
 
-    global last_walk
+    global last_walk, last_chunk
     B, N, P = columns.alleles.shape
     dtype, dev = columns.lp.dtype, columns.lp.device
-    if chunk <= 0:
-        chunk = pick_chunk(N, P, B, dev)
     bounds = [(lo, min(N, lo + chunk)) for lo in range(0, N, chunk)]
-    last_walk = (B, N, len(bounds))
+    last_walk, last_chunk = (B, N, len(bounds)), chunk
     u = factor_trans(columns.trans).contiguous()
 
     def part(lo, hi):

@@ -1,5 +1,5 @@
-"""Read k-mer counting on the device: kernels D1-extract, D1-count and
-D1-count-keys.
+"""Read k-mer counting on the device: kernels D1-extract, D1-count,
+D1-route and D1-count-keys.
 
 Port of ``pangenie_tpu/kmers/device_counter.py``. The count table
 keeps the host engine's layout (counter.py): the graph k-mers as a
@@ -28,16 +28,20 @@ order.
   from D1-extract and library sorts.
 - Over the ranks of a process group (``parallel/distributed.py``, one
   rank a card), :class:`ShardedPrimedDeviceCounter` hash-partitions the
-  table: each rank holds the keys the reference's owner hash gives it,
-  and each ingest step routes every read window's key to its owner
-  (``all_to_all_single`` with exact sizes), where kernel D1-count-keys
-  counts it with D1-count's search. :func:`sharded_count_kmers` and
-  :func:`sharded_count_kmers_partitioned` are COUNT mode over the ranks.
+  table: each rank holds the keys the reference's owner hash gives it.
+  Each ingest step bins every read window's key by (owner, region) with
+  kernel D1-route (:func:`route`: a stable counting sort, the region the
+  key's top bits), sends each rank its bins (``all_to_all_single`` with
+  exact sizes, the sizes of every bin first), and the receiver counts
+  the keys in region order with kernel D1-count-keys (D1-count's search).
+  :func:`sharded_count_kmers` and :func:`sharded_count_kmers_partitioned`
+  are COUNT mode over the ranks.
 
-On CPU tensors the wrappers :func:`extract`, :func:`count` and
-:func:`count_keys` run the plain versions (:func:`extract_plain`,
-:func:`count_plain`, :func:`count_keys_plain`); on CUDA tensors they
-launch the kernels or raise.
+On CPU tensors the wrappers :func:`extract`, :func:`count`,
+:func:`route` and :func:`count_keys` run the plain versions
+(:func:`extract_plain`, :func:`count_plain`, :func:`route_plain`,
+:func:`count_keys_plain`); on CUDA tensors they launch the kernels or
+raise.
 """
 
 from __future__ import annotations
@@ -69,6 +73,25 @@ ROUND_BYTES_PER_WINDOW = 256
 # keys whose owner a rank of the partitioned counter computes at a time
 # (ShardedPrimedDeviceCounter: 512 MB of int64 keys, and their owners)
 OWNER_CHUNK = 1 << 26
+# D1-route: the keys a CTA takes at a time (csrc/kmer_count.cu: D1R_TILE)
+# and the most bins (D1R_MAX_BINS, n_ranks << r counters in one CTA's
+# shared memory). Each of its CTAs writes a contiguous range of keys into
+# every bin, so CTAs x bins output lines are open at once: they are
+# bounded by ROUTE_FRONTIER (lines a 50 MB L2 holds with room), but
+# ROUTE_MIN_CTAS (two an H100 SM) fill the card (:func:`route_ctas`)
+ROUTE_TILE = 1024
+ROUTE_MAX_BINS = 1 << 14
+ROUTE_FRONTIER = 1 << 17
+ROUTE_MIN_CTAS = 264
+ROUTE_MAX_CTAS = 2048
+# the partitioned counter's region bits (:func:`region_bits`): a partition
+# of n keys takes bit_length(n) - REGION_SHIFT, at most REGION_BITS. In
+# `tools/d1_times.py --keys` (PERF.md, PR 20) D1-count-keys gained little
+# past r = 4 on a partition of 15 M keys and fell to r = 8-12 on one of
+# 700 M, while D1-route's time grew with r (0.56 ms at r = 0 to 1.90 at
+# r = 8 on 40 M keys into 4 owners)
+REGION_SHIFT = 20
+REGION_BITS = 8
 # the last count_file_primed_device's phase walls in seconds ("prime",
 # "stream", "readback") and its launches ("blocks"), for the tools that
 # time it (chip_smoke.py, tools/d1_times.py)
@@ -81,10 +104,16 @@ D1_EXTRACT = CudaKernel("kmer_count", "pg_d1_extract", "d1", [_P, _P, _L, _I, _P
 # (and the sort-merge join primed_update_merge)
 D1_COUNT = CudaKernel("kmer_count", "pg_d1_count", "d1",
                       [_P, _P, _L, _I, _P, _I, _P, _I, _P, _P])
+# kernel D1-route: a block's keys binned by (owner, region), stably;
+# replaces the binning of the reference's sharded ingest step
+# (ShardedPrimedDeviceCounter._ingest_program) and the torch.sort route
+D1_ROUTE = CudaKernel("kmer_count", "pg_d1_route", "d1",
+                      [_P, _L, _I, _I, _I, _I, _P, _P, _P, _P, _P])
 # kernel D1-count-keys: D1-count's search on keys already extracted (a
-# partition's routed share); replaces the sharded counter's _flush_tagged
+# partition's routed share, in region order); replaces the sharded
+# counter's _flush_tagged
 D1_COUNT_KEYS = CudaKernel("kmer_count", "pg_d1_count_keys", "d1",
-                           [_P, _L, _I, _P, _I, _P, _I, _P, _P])
+                           [_P, _L, _I, _P, _I, _P, _I, _P, _P, _P, _I, _P])
 
 
 # ---------------------------------------------------------------------------
@@ -408,25 +437,134 @@ def _check_table(what: str, k: int, table: Table, counts: torch.Tensor, device) 
         raise ValueError(f"{what}: the table must be 16-byte aligned (make_table)")
 
 
+def segments(m: int, runs: Optional[torch.Tensor], device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """D1-count-keys' segments of m keys received as ``runs`` [senders,
+    regions] (each sender's keys in region order, its run's region
+    sizes; None: one segment of all m keys): (seg_v [S + 1], seg_p [S]) int64,
+    segment s = (region s // senders, sender s % senders) in
+    region-major order, its keys at seg_p[s] of the received buffer and
+    at seg_v[s] of the order D1-count-keys reads them in."""
+    if runs is None:
+        return (torch.tensor([0, m], dtype=torch.int64, device=device),
+                torch.zeros(1, dtype=torch.int64, device=device))
+    sizes = runs.to(device=device, dtype=torch.int64)
+    flat = sizes.reshape(-1)
+    physical = (torch.cumsum(flat, 0) - flat).view(sizes.shape)
+    seg_v = torch.zeros(flat.shape[0] + 1, dtype=torch.int64, device=device)
+    torch.cumsum(sizes.t().reshape(-1), 0, out=seg_v[1:])
+    return seg_v, physical.t().contiguous().reshape(-1)
+
+
+def _check_runs(m: int, runs: Optional[torch.Tensor]) -> None:
+    """Raises unless ``runs`` (None, or [senders, regions]) are sizes of
+    all m keys."""
+    if runs is None:
+        return
+    if runs.dim() != 2 or runs.shape[0] < 1 or runs.shape[1] < 1:
+        raise ValueError(f"D1-count-keys: runs must be [senders, regions], got "
+                         f"{tuple(runs.shape)}")
+    if int(runs.sum()) != m or bool((runs < 0).any()):
+        raise ValueError(f"D1-count-keys: runs of {int(runs.sum())} keys for {m} keys")
+
+
 def count_keys(keys: torch.Tensor, k: int, table: Table, counts: torch.Tensor,
-               kernel=D1_COUNT_KEYS, stream=None) -> None:
+               runs: Optional[torch.Tensor] = None, kernel=D1_COUNT_KEYS, stream=None) -> None:
     """Adds each of ``keys`` [m] int64 (k-mers, SENTINEL for none) found
     in ``table`` to ``counts`` [n] int32, in place: kernel D1-count-keys
     on CUDA tensors, :func:`count_keys_plain` on CPU tensors
-    (``kernel``, ``stream``: as :func:`extract`)."""
+    (``kernel``, ``stream``: as :func:`extract`). ``runs`` [senders,
+    regions]: the keys as received from the senders of :func:`route`'s
+    bins, each sender's run in region order, its sizes a region (the
+    kernel reads them region-major over the senders; the counts are the
+    same in any order)."""
     if not 1 <= k <= 31:
         raise ValueError(f"D1 takes k in [1, 31], got {k}")
     if keys.dtype != torch.int64 or keys.dim() != 1 or not keys.is_contiguous():
         raise ValueError("D1-count-keys: keys must be a contiguous 1-d int64 tensor")
     _check_table("D1-count-keys", k, table, counts, keys.device)
+    _check_runs(keys.shape[0], runs)
     if keys.device.type == "cpu" and kernel is D1_COUNT_KEYS:
         count_keys_plain(keys, table, counts)
         return
     if keys.shape[0]:
         if stream is None:
             stream = launch_stream(keys.device)
+        seg_v, seg_p = segments(keys.shape[0], runs, keys.device)
         kernel(keys.data_ptr(), keys.shape[0], k, table.keys.data_ptr(), table.keys.shape[0],
-               table.directory.data_ptr(), table.shift, counts.data_ptr(), stream)
+               table.directory.data_ptr(), table.shift, counts.data_ptr(), seg_v.data_ptr(),
+               seg_p.data_ptr(), seg_p.shape[0], stream)
+
+
+def route_bins(keys: torch.Tensor, k: int, n_ranks: int, r: int) -> torch.Tensor:
+    """The bin of each of ``keys`` (k-mers of 2k bits): (owner << r) |
+    region, the owner :func:`owner_of`'s, the region the key's top r of
+    2k bits."""
+    return (owner_of(keys, n_ranks) << r) | (keys >> (2 * k - r))
+
+
+def route_plain(keys: torch.Tensor, k: int, n_ranks: int, r: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """D1-route's plain version: (the keys of 2k bits, SENTINEL and any
+    other dropped, stably sorted by :func:`route_bins`; their counts a
+    bin as [n_ranks, 2^r] int64)."""
+    valid = keys[(keys >= 0) & (keys < (1 << 2 * k))]
+    bins = route_bins(valid, k, n_ranks, r)
+    order = torch.sort(bins, stable=True).indices
+    sizes = torch.bincount(bins, minlength=n_ranks << r)
+    return valid[order], sizes.view(n_ranks, 1 << r)
+
+
+def route_ctas(m: int, bins: int) -> int:
+    """D1-route's CTAs for m keys into ``bins`` bins: a tile of keys at
+    least each; ROUTE_FRONTIER // bins, within ROUTE_MIN_CTAS and
+    ROUTE_MAX_CTAS."""
+    tiles = -(-m // ROUTE_TILE)
+    return max(1, min(tiles, ROUTE_MAX_CTAS, max(ROUTE_MIN_CTAS, ROUTE_FRONTIER // bins)))
+
+
+def region_bits(n_part: int, n_ranks: int, k: int) -> int:
+    """The partitioned counter's region bits for partitions of about
+    ``n_part`` keys: bit_length(n_part) - REGION_SHIFT, within 0 and
+    REGION_BITS, at most 2k and at most what ROUTE_MAX_BINS leaves
+    n_ranks owners. Every rank must take the same bits (a sender's bins
+    are every owner's), so the caller passes a size all ranks agree on."""
+    return max(0, min(n_part.bit_length() - REGION_SHIFT, REGION_BITS, 2 * k,
+                      (ROUTE_MAX_BINS // n_ranks).bit_length() - 1))
+
+
+def route(keys: torch.Tensor, k: int, n_ranks: int, r: int, kernel=D1_ROUTE, stream=None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A block's ``keys`` [m] int64 (D1-extract's, SENTINEL among them)
+    binned for ``n_ranks`` owners and 2^r regions: (the keys of 2k bits
+    in bin order, each bin's keys in their input order; the counts a bin
+    [n_ranks, 2^r] int64). Kernel D1-route on CUDA tensors,
+    :func:`route_plain` on CPU tensors (``kernel``, ``stream``: as
+    :func:`extract`)."""
+    if not 1 <= k <= 31:
+        raise ValueError(f"D1 takes k in [1, 31], got {k}")
+    if keys.dtype != torch.int64 or keys.dim() != 1 or not keys.is_contiguous():
+        raise ValueError("D1-route: keys must be a contiguous 1-d int64 tensor")
+    bins = n_ranks << r
+    if n_ranks < 1 or not 0 <= r <= 2 * k or bins > ROUTE_MAX_BINS:
+        raise ValueError(f"D1-route takes 1 to {ROUTE_MAX_BINS} bins of r <= 2k region "
+                         f"bits, got {n_ranks} owners, r={r}, k={k}")
+    if keys.shape[0] >= 1 << 31:
+        raise ValueError("D1-route takes fewer than 2^31 keys")
+    if keys.device.type == "cpu" and kernel is D1_ROUTE:
+        return route_plain(keys, k, n_ranks, r)
+    m = keys.shape[0]
+    sizes = torch.zeros(bins, dtype=torch.int64, device=keys.device)
+    if not m:
+        return keys.new_empty(0), sizes.view(n_ranks, 1 << r)
+    if stream is None:
+        stream = launch_stream(keys.device)
+    ctas = route_ctas(m, bins)
+    out = torch.empty(m, dtype=torch.int64, device=keys.device)
+    hist = torch.empty(ctas * bins, dtype=torch.int32, device=keys.device)
+    starts = torch.empty(bins, dtype=torch.int64, device=keys.device)
+    kernel(keys.data_ptr(), m, k, n_ranks, r, ctas, out.data_ptr(), sizes.data_ptr(),
+           hist.data_ptr(), starts.data_ptr(), stream)
+    return out[:int(sizes.sum())], sizes.view(n_ranks, 1 << r)
 
 
 def search_steps(table: Table, keys: torch.Tensor, scan: int = SCAN) -> int:
@@ -762,8 +900,22 @@ def owner_of(keys, n_ranks: int):
     return _owner_mix(tagged >> 32, tagged & 0xFFFFFFFF, n_ranks)
 
 
-def _route(keys: torch.Tensor, owner: torch.Tensor, n_ranks: int) -> torch.Tensor:
-    """Exchange ``keys`` so that each reaches the rank ``owner`` names:
+def _route(keys: torch.Tensor, k: int, n_ranks: int, r: int
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exchange a block's ``keys`` (SENTINEL among them) so that each
+    k-mer reaches its owner: binned by (owner, region) with
+    :func:`route`, then every bin's size and the keys through
+    ``all_to_all_single`` (``distributed.all_to_all_bins``). Returns the
+    keys routed here, sender after sender, each sender's in region
+    order, and their sizes [senders, 2^r] (D1-count-keys' ``runs``)."""
+    from ..parallel import distributed as dist
+
+    binned, sizes = route(keys, k, n_ranks, r)
+    return dist.all_to_all_bins(binned, sizes)
+
+
+def _route_by_owner(keys: torch.Tensor, owner: torch.Tensor, n_ranks: int) -> torch.Tensor:
+    """COUNT mode's exchange: ``keys`` to the rank ``owner`` names,
     sorted by owner (``torch.sort``), counted by owner
     (``torch.bincount``), the sizes then the keys through
     ``all_to_all_single`` (``distributed.all_to_all_exact``). Returns
@@ -786,12 +938,14 @@ class ShardedPrimedDeviceCounter:
 
     Each ingest step (:meth:`update_block`, a collective: every rank
     calls it the same number of times, with an empty block where it has
-    none) extracts the rank's read windows (D1-extract), drops invalid
-    ones, routes each key to its owner (:func:`_route`) and counts what
-    it received into the rank's partition with D1-count-keys. The
-    exchange carries exact sizes, so nothing is padded and nothing can
-    overflow: the reference's [D, capacity] bins, slack, overflow error
-    and ingest buffer have no counterpart.
+    none) extracts the rank's read windows (D1-extract), bins the valid
+    ones by owner and region (D1-route, ``region_bits`` of
+    :func:`region_bits` for the partitions' mean size), sends each owner
+    its bins (:func:`_route`) and
+    counts what it received into the rank's partition in region order
+    with D1-count-keys. The exchange carries exact sizes, so nothing is
+    padded and nothing can overflow: the reference's [D, capacity] bins,
+    slack, overflow error and ingest buffer have no counterpart.
 
     With ``keys`` None the partition is built on the card from
     ``corpus_files``, as :class:`PrimedDeviceCounter` builds its table,
@@ -815,6 +969,10 @@ class ShardedPrimedDeviceCounter:
             part = self._partition_of(np.sort(np.asarray(keys, dtype=np.uint64)).view(np.int64))
         self.table = make_table(part, k)
         self.counts = torch.zeros(part.shape, dtype=torch.int32, device=self.device)
+        # the whole table's size, which every rank knows alike, sets the
+        # route's regions
+        total = int(dist.allreduce_sum(np.array([len(part)], dtype=np.int64))[0])
+        self.region_bits = region_bits(total // self.n_ranks, self.n_ranks, k)
 
     def _partition_of(self, keys: np.ndarray) -> torch.Tensor:
         """The keys of the sorted int64 ``keys`` this rank owns, in order,
@@ -852,15 +1010,15 @@ class ShardedPrimedDeviceCounter:
     def update_block(self, words: np.ndarray, vwords: np.ndarray, n_bases: int) -> None:
         """One ingest step: this rank's flat block (:func:`pack_sequences`;
         ``n_bases`` 0 for none) through D1-extract, each valid key routed
-        to its owner, the keys routed here counted."""
+        to its owner (D1-route), the keys routed here counted
+        (D1-count-keys)."""
         dev = self.device
         keys = torch.empty(0, dtype=torch.int64, device=dev)
         if n_bases:
             keys = extract(_on(dev, words), _on(dev, vwords), n_bases, self.k)
-            keys = keys[keys != SENTINEL]
-        received = _route(keys, owner_of(keys, self.n_ranks), self.n_ranks)
+        received, runs = _route(keys, self.k, self.n_ranks, self.region_bits)
         if len(self.table.keys):
-            count_keys(received, self.k, self.table, self.counts)
+            count_keys(received, self.k, self.table, self.counts, runs)
 
     def update_batch(self, codes: np.ndarray) -> None:
         """One ingest step on a [B, L] uint8 code batch (:func:`pack_read_batch`)."""
@@ -973,7 +1131,7 @@ def sharded_count_kmers_partitioned(codes: np.ndarray, k: int, device=None):
     local = _row_block(codes, dist.process_index(), n)
     keys, valid = extract_canonical(local, k, device)
     keys = keys.reshape(-1)[valid.reshape(-1)]
-    received = _route(keys, _mix(keys >> 32, keys & 0xFFFFFFFF) % n, n)
+    received = _route_by_owner(keys, _mix(keys >> 32, keys & 0xFFFFFFFF) % n, n)
     return count_kmers(received, torch.ones(received.shape, dtype=torch.bool,
                                             device=received.device))
 

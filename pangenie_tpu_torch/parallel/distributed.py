@@ -40,7 +40,7 @@ from __future__ import annotations
 import os
 import pickle
 import socket
-from typing import Any, List, NamedTuple, Optional, Sequence
+from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -336,3 +336,28 @@ def all_to_all_exact(send: torch.Tensor, send_sizes: torch.Tensor) -> torch.Tens
     out = torch.empty(sum(r_list), dtype=send.dtype, device=comm_device())
     dist.all_to_all_single(out, _to_comm(send), r_list, s_list)
     return out.to(send.device)
+
+
+def all_to_all_bins(send: torch.Tensor, bin_sizes: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exchange a 1-d ``send`` of bins, ``bin_sizes`` [ranks, G] entries
+    each in row-major order, bins (t, *) to rank t; returns what every
+    rank sent here, in rank order, and the sizes of its bins [ranks, G]
+    (row s: sender s's), both on ``send``'s device. Every bin's size
+    travels first (one ``all_to_all_single`` of G sizes a rank), so the
+    exchange holds exactly the entries sent and the receiver knows where
+    each bin of each sender lies."""
+    if _layout is None:
+        return send, bin_sizes
+    import torch.distributed as dist
+
+    ranks, groups = bin_sizes.shape
+    sizes = _to_comm(bin_sizes.reshape(-1).to(torch.int64))
+    recv_sizes = torch.empty_like(sizes)
+    dist.all_to_all_single(recv_sizes, sizes)
+    recv_bins = recv_sizes.view(ranks, groups)
+    s_list = sizes.view(ranks, groups).sum(1).tolist()
+    r_list = recv_bins.sum(1).tolist()
+    out = torch.empty(sum(r_list), dtype=send.dtype, device=comm_device())
+    dist.all_to_all_single(out, _to_comm(send), r_list, s_list)
+    return out.to(send.device), recv_bins.to(send.device)

@@ -11,10 +11,11 @@
 
 dim3 threadIdx, blockIdx, blockDim;
 alignas(16) float smem[232448 / sizeof(float)];
-// K1-K4, S1 and V1 declare their dynamic shared memory under these names
+// K1-K4, S1, V1 and D1 declare their dynamic shared memory under these names
 extern float fbe_shm[232448 / sizeof(float)] __attribute__((alias("smem")));
 extern float s1_shm[232448 / sizeof(float)] __attribute__((alias("smem")));
 extern float v1_shm[232448 / sizeof(float)] __attribute__((alias("smem")));
+extern float d1_shm[232448 / sizeof(float)] __attribute__((alias("smem")));
 
 size_t emu_shared_bytes() { return sizeof(smem); }
 
@@ -247,6 +248,18 @@ uint64_t emu_exchange(unsigned mask, uint64_t bits, int src) {
         for (unsigned l = 0; l < 32; ++l)
             if ((mask >> l) & 1u) got = std::min(got, lane_values[warp * 32 + l]);
     }
+    lane_barrier(mask);
+    return got;
+}
+
+unsigned emu_match(unsigned mask, uint64_t bits) {
+    const unsigned lane = current->tid % 32, warp = current->gid / 32;
+    if (!((mask >> lane) & 1u)) fail("warp match outside its lane mask");
+    lane_values[current->gid] = bits;
+    lane_barrier(mask);
+    unsigned got = 0;
+    for (unsigned l = 0; l < 32; ++l)
+        if ((mask >> l) & 1u && lane_values[warp * 32 + l] == bits) got |= 1u << l;
     lane_barrier(mask);
     return got;
 }

@@ -1027,3 +1027,61 @@ def test_d1_count_keys_matches_plain(cuda, k, d):
     none = torch.zeros(0, dtype=torch.int32, device=cuda)
     dc.count_keys(keys, k, empty, none)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("k, n_ranks, r", [(31, 1, 0), (31, 2, 8), (31, 4, 12), (21, 3, 9),
+                                           (5, 2, 10), (1, 4, 2)])
+def test_d1_route_matches_plain(cuda, k, n_ranks, r):
+    """D1-route on a block's keys (SENTINEL, keys wider than 2k bits
+    among them): route_plain's keys in its order and its sizes, one
+    launch; up to 4 x 2^12 bins (64 KB of counters a CTA)."""
+    from pangenie_tpu_torch.kmers import device_counter as dc
+
+    words, vwords, n_bases, _ = _d1_block(40 + k, 30_000, 160, cuda)
+    keys = dc.extract(words, vwords, n_bases, k)
+    keys = torch.cat([keys, torch.tensor([4 ** k, -1], dtype=torch.int64, device=cuda)])
+    launches = dc.D1_ROUTE.launches
+    got, got_sizes = dc.route(keys, k, n_ranks, r)
+    torch.cuda.synchronize()
+    assert dc.D1_ROUTE.launches == launches + 1
+    want, want_sizes = dc.route_plain(keys, k, n_ranks, r)
+    assert torch.equal(got, want) and torch.equal(got_sizes, want_sizes)
+    assert len(got) == int(((keys >= 0) & (keys < 4 ** k)).sum()) > 0
+    for block in (torch.full((5000,), dc.SENTINEL, dtype=torch.int64, device=cuda),
+                  keys[:1000].contiguous()):
+        got, got_sizes = dc.route(block, k, n_ranks, r)
+        want, want_sizes = dc.route_plain(block, k, n_ranks, r)
+        assert torch.equal(got, want) and torch.equal(got_sizes, want_sizes)
+
+
+@pytest.mark.parametrize("n_ranks, r", [(2, 8), (4, 12), (3, 0)])
+def test_d1_count_keys_in_region_order(cuda, n_ranks, r):
+    """Each owner's share of D1-route's bins from two senders counted
+    with its runs (region order) into its partition: the plain
+    version's counts and D1-count's counts of the partition's keys."""
+    from pangenie_tpu_torch.kmers import device_counter as dc
+
+    k = 31
+    words, vwords, n_bases, _ = _d1_block(7 * r + n_ranks, 40_000, 160, cuda)
+    keys = dc.extract(words, vwords, n_bases, k)
+    valid = keys[keys != dc.SENTINEL]
+    table_keys = torch.unique(valid)[::2].contiguous()
+    whole = torch.zeros(table_keys.shape, dtype=torch.int32, device=cuda)
+    dc.count(words, vwords, n_bases, k, dc.make_table(table_keys, k), whole)
+    sent = [dc.route(half.contiguous(), k, n_ranks, r) for half in torch.tensor_split(keys, 2)]
+    owner_t = dc.owner_of(table_keys, n_ranks)
+    for p in range(n_ranks):
+        parts, runs = [], []
+        for binned, sizes in sent:
+            start = int(sizes.reshape(-1)[:p << r].sum())
+            parts.append(binned[start:start + int(sizes[p].sum())])
+            runs.append(sizes[p])
+        received, runs = torch.cat(parts), torch.stack(runs)
+        table = dc.make_table(table_keys[owner_t == p].contiguous(), k)
+        got = torch.zeros(table.keys.shape, dtype=torch.int32, device=cuda)
+        want = torch.zeros_like(got)
+        dc.count_keys(received, k, table, got, runs)
+        dc.count_keys_plain(received, table, want)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(got, whole[owner_t == p])
+        assert got.sum() > 0

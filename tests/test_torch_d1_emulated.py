@@ -51,29 +51,27 @@ extern "C" long long t_ldg(const long long* p, int pair) {
 """
 
 
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    """csrc/kmer_count.cu built against the emulator and loaded: its two
-    entry points bound and checked (a call that returns a CUDA error
-    fails the test)."""
+def _emulated_library(out, defines=()):
+    """csrc/kmer_count.cu built against the emulator with ``defines``
+    into ``out`` and loaded: its entry points bound and checked (a call
+    that returns a CUDA error fails the test)."""
     with open(os.path.join(_build.CUDA_SRC_DIR, "kmer_count.cu")) as f:
         text, n = re.subn(
-            r"kernel<<<\(unsigned\)blocks, D1_THREADS, 0, \(cudaStream_t\)stream>>>\(args\.\.\.\);",
-            "if (emu_run((int)blocks, D1_THREADS, 0, [&]() { kernel(args...); }))"
+            r"kernel<<<\(unsigned\)blocks, threads, shared, \(cudaStream_t\)stream>>>\(args\.\.\.\);",
+            "if (emu_run((int)blocks, threads, shared, [&]() { kernel(args...); }))"
             " return (int)cudaErrorInvalidValue;", f.read())
     assert n == 1, "the launch in csrc/kmer_count.cu changed"
-    out = tmp_path_factory.mktemp("d1_emulated")
     (out / "kmer_count.cpp").write_text(text + INTRINSICS)
     lib_path = out / "libkmer_count.so"
     subprocess.run(
         ["g++", "-std=c++17", "-O1", "-shared", "-fPIC", "-I",
-         os.path.join(HERE, "cuda_emulator"), "-o", str(lib_path),
+         os.path.join(HERE, "cuda_emulator"), *(f"-D{d}" for d in defines), "-o", str(lib_path),
          os.path.join(HERE, "cuda_emulator", "emu.cpp"), str(out / "kmer_count.cpp")],
         check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(str(lib_path))
     bound = {}
     for name, kernel in (("extract", dc.D1_EXTRACT), ("count", dc.D1_COUNT),
-                         ("count_keys", dc.D1_COUNT_KEYS)):
+                         ("count_keys", dc.D1_COUNT_KEYS), ("route", dc.D1_ROUTE)):
         fn = getattr(lib, kernel.symbol)
         fn.argtypes = kernel._argtypes
         fn.restype = ctypes.c_int
@@ -86,10 +84,26 @@ def emulated(tmp_path_factory):
     for name, args, res in (("t_funnelshift_r", [ctypes.c_uint] * 3, ctypes.c_uint),
                             ("t_brevll", [ctypes.c_ulonglong], ctypes.c_ulonglong),
                             ("t_ldg", [ctypes.c_void_p, ctypes.c_int], ctypes.c_longlong),
-                            ("pg_d1_scan", [], ctypes.c_int)):
+                            ("pg_d1_scan", [], ctypes.c_int), ("pg_d1_kpt", [], ctypes.c_int)):
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = args, res
         bound[name] = fn
+    return bound
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """csrc/kmer_count.cu as the card builds it, on the emulator."""
+    return _emulated_library(tmp_path_factory.mktemp("d1_emulated"))
+
+
+@pytest.fixture(scope="module", params=[3, 8])
+def emulated_kpt(request, tmp_path_factory):
+    """Builds with D1_KPT = 3 and 8 keys a thread of D1-count-keys (the
+    card's build takes 1)."""
+    bound = _emulated_library(tmp_path_factory.mktemp(f"d1_kpt{request.param}"),
+                   [f"D1_KPT={request.param}"])
+    assert bound["pg_d1_kpt"]() == request.param
     return bound
 
 
@@ -507,3 +521,187 @@ def test_emulated_count_keys_is_count_on_the_same_windows(emulated):
     from_block, _ = _both_counts(emulated, words, vwords, n_bases, k, table)
     from_keys, _ = _both_key_counts(emulated, keys, k, table)
     assert torch.equal(from_block, from_keys) and from_keys.sum() > 0
+
+
+# -- D1-route: a block's keys binned by (owner, region), stably ---------------
+
+
+def _both_routes(emulated, keys, k, n_ranks, r):
+    got = dc.route(keys, k, n_ranks, r, kernel=emulated["route"], stream=STREAM)
+    return got, dc.route_plain(keys, k, n_ranks, r)
+
+
+def _assert_same_route(got, want, keys, k, n_ranks, r):
+    (got_keys, got_sizes), (want_keys, want_sizes) = got, want
+    assert torch.equal(got_keys, want_keys)
+    assert torch.equal(got_sizes, want_sizes) and got_sizes.shape == (n_ranks, 1 << r)
+    valid = (keys >= 0) & (keys < 4 ** k)
+    assert int(got_sizes.sum()) == int(valid.sum()) == len(got_keys)
+
+
+@pytest.mark.parametrize("k", KS)
+@pytest.mark.parametrize("n_ranks", [1, 2, 4])
+def test_emulated_route_matches_plain(emulated, k, n_ranks):
+    """A block's keys (SENTINEL among them) binned for 1, 2 and 4 owners
+    at r = 0, 1, 4 and 9 region bits (at most 2k): the plain version's
+    keys in its order and its sizes; each bin's keys are the block's
+    keys of that owner and region in block order."""
+    keys = _routed_keys(1200 + k, k, n=40)
+    assert (keys == dc.SENTINEL).any()
+    for r in sorted({min(x, 2 * k) for x in (0, 1, 4, 9)}):
+        got, want = _both_routes(emulated, keys, k, n_ranks, r)
+        _assert_same_route(got, want, keys, k, n_ranks, r)
+        valid = keys[keys != dc.SENTINEL]
+        bins = dc.route_bins(valid, k, n_ranks, r)
+        starts = torch.cumsum(got[1].reshape(-1), 0) - got[1].reshape(-1)
+        for b in torch.unique(bins)[:5].tolist():
+            run = got[0][starts[b]:starts[b] + got[1].reshape(-1)[b]]
+            assert torch.equal(run, valid[bins == b])
+
+
+def test_emulated_route_bins_spanning_ctas(emulated, monkeypatch):
+    """One bin of every key (r = 0, one owner) and a few bins of repeated
+    keys over CTAs of several tiles each (ROUTE_MAX_CTAS lowered), with
+    a tail tile: the keys keep their order across tiles and CTAs."""
+    rng = np.random.default_rng(7)
+    k = 15
+    few = torch.from_numpy(rng.integers(0, 4 ** k, 6, dtype=np.int64))
+    keys = few[torch.from_numpy(rng.integers(0, 6, 5 * dc.ROUTE_TILE + 77))].contiguous()
+    mixed = torch.from_numpy(rng.integers(0, 4 ** k, 3 * dc.ROUTE_TILE + 5, dtype=np.int64))
+    mixed[::7] = dc.SENTINEL
+    for max_ctas in (1, 2, 64):
+        monkeypatch.setattr(dc, "ROUTE_MAX_CTAS", max_ctas)
+        for block, n_ranks, r in ((keys, 1, 0), (keys, 3, 2), (mixed, 2, 6), (mixed, 4, 12)):
+            got, want = _both_routes(emulated, block, k, n_ranks, r)
+            _assert_same_route(got, want, block, k, n_ranks, r)
+
+
+def test_emulated_route_of_empty_and_invalid_blocks(emulated):
+    """An empty block, a block of SENTINEL keys and one of keys outside
+    2k bits: no key out, every size 0; a block of one valid key among
+    them: that key alone."""
+    k = 11
+    sentinel = torch.full((700,), dc.SENTINEL, dtype=torch.int64)
+    wide = torch.tensor([4 ** k, -1, -(1 << 40), (1 << 62) + 3] * 50, dtype=torch.int64)
+    for block in (torch.zeros(0, dtype=torch.int64), sentinel, wide):
+        got, want = _both_routes(emulated, block, k, 4, 3)
+        _assert_same_route(got, want, block, k, 4, 3)
+        assert len(got[0]) == 0 and int(got[1].sum()) == 0
+    one = torch.cat([sentinel[:300], torch.tensor([12345], dtype=torch.int64), wide]).contiguous()
+    got, want = _both_routes(emulated, one, k, 2, 5)
+    _assert_same_route(got, want, one, k, 2, 5)
+    assert got[0].tolist() == [12345]
+
+
+def test_emulated_route_refuses_what_it_does_not_take(emulated):
+    """More bins than one CTA's shared memory holds, r past 2k, and the
+    raw entry point's own checks."""
+    keys = _routed_keys(3, 31, n=20)
+    with pytest.raises(ValueError, match="bins"):
+        dc.route(keys, 31, 4, 13, kernel=emulated["route"], stream=STREAM)
+    with pytest.raises(ValueError, match="bins"):
+        dc.route(keys, 2, 1, 5, kernel=emulated["route"], stream=STREAM)
+    out = torch.empty_like(keys)
+    sizes = torch.empty(1 << 15, dtype=torch.int64)
+    starts = torch.empty(1 << 15, dtype=torch.int64)
+    hist = torch.empty(1 << 15, dtype=torch.int32)
+    raw = emulated["route"].raw
+    assert raw(keys.data_ptr(), len(keys), 31, 2, 14, 1, out.data_ptr(), sizes.data_ptr(),
+               hist.data_ptr(), starts.data_ptr(), STREAM) != 0
+    assert raw(keys.data_ptr(), len(keys), 31, 1, 0, 0, out.data_ptr(), sizes.data_ptr(),
+               hist.data_ptr(), starts.data_ptr(), STREAM) != 0
+
+
+# -- D1-count-keys on runs in region order, as ranks receive them -------------
+
+
+def _received(keys, k, n_ranks, r, senders, owner):
+    """The keys ``owner`` receives when ``senders`` ranks each route a
+    slice of ``keys``: (received keys, runs [senders, 2^r])."""
+    runs, parts = [], []
+    for chunk in torch.tensor_split(keys, senders):
+        binned, sizes = dc.route_plain(chunk.contiguous(), k, n_ranks, r)
+        flat = sizes.reshape(-1)
+        start = int(flat[:owner << r].sum())
+        parts.append(binned[start:start + int(sizes[owner].sum())])
+        runs.append(sizes[owner])
+    return torch.cat(parts).contiguous(), torch.stack(runs)
+
+
+def _partition(keys, k, n_ranks, owner, absent=40, seed=0):
+    """The owner's partition of every other distinct valid key of
+    ``keys`` and of keys no read has."""
+    valid = keys[(keys >= 0) & (keys < 4 ** k)]
+    rng = np.random.default_rng(seed)
+    extra = torch.from_numpy(rng.integers(0, 4 ** k, absent, dtype=np.int64))
+    table = torch.unique(torch.cat([torch.unique(valid)[::2], extra]))
+    return table[dc.owner_of(table, n_ranks) == owner].contiguous()
+
+
+@pytest.mark.parametrize("k", [5, 17, 31])
+@pytest.mark.parametrize("n_ranks, r, senders", [(1, 0, 1), (2, 3, 2), (4, 6, 3), (3, 9, 4)])
+def test_emulated_count_keys_in_region_order(emulated, emulated_kpt, k, n_ranks, r, senders):
+    """Keys as an owner receives them from several senders (each run in
+    region order, runs [senders, 2^r], read region-major; runs' tails
+    inside a tile, empty regions), into its partition with keys no read
+    has, with the directory at the rule's d, at d = 16 and at d = 2
+    (fewer bits than the regions): the plain version's counts, the
+    host's counts of the same keys, and the counts of the same keys read
+    in one segment; with D1_KPT = 1, 3 and 8."""
+    r = min(r, 2 * k)
+    keys = _routed_keys(2000 + k, k, n=70)
+    for lib in (emulated, emulated_kpt):
+        for owner in range(n_ranks):
+            received, runs = _received(keys, k, n_ranks, r, senders, owner)
+            part = _partition(keys, k, n_ranks, owner, seed=k)
+            for d in sorted({None, min(16, 2 * k), min(2, 2 * k)}, key=str):
+                table = dc.make_table(part, k, d)
+                got = torch.zeros(len(part), dtype=torch.int32)
+                dc.count_keys(received, k, table, got, runs, kernel=lib["count_keys"],
+                              stream=STREAM)
+                want = torch.zeros_like(got)
+                dc.count_keys_plain(received, table, want)
+                assert torch.equal(got, want)
+                flat = torch.zeros_like(got)
+                dc.count_keys(received, k, table, flat, kernel=lib["count_keys"], stream=STREAM)
+                assert torch.equal(flat, want)
+                uniq, cnt = torch.unique(received, return_counts=True)
+                held = torch.isin(uniq, part)
+                expected = torch.zeros(len(part), dtype=torch.int32)
+                expected[torch.searchsorted(part, uniq[held])] = cnt[held].to(torch.int32)
+                assert torch.equal(got, expected)
+                assert len(part) == 0 or got.sum() > 0 or not held.any()
+
+
+def test_emulated_count_keys_out_of_region_order(emulated, emulated_kpt):
+    """Keys shuffled out of region order while the runs still claim
+    regions, and keys absent from the partition: still the plain
+    version's counts (order sets only the speed)."""
+    k = 21
+    keys = _routed_keys(77, k, n=60)
+    received, runs = _received(keys, k, 2, 5, 2, 1)
+    shuffled = received[torch.from_numpy(np.random.default_rng(1).permutation(len(received)))]
+    part = _partition(keys, k, 2, 1, absent=200)
+    table = dc.make_table(part, k)
+    want = torch.zeros(len(part), dtype=torch.int32)
+    dc.count_keys_plain(shuffled, table, want)
+    for lib in (emulated, emulated_kpt):
+        got = torch.zeros_like(want)
+        dc.count_keys(shuffled.contiguous(), k, table, got, runs, kernel=lib["count_keys"],
+                      stream=STREAM)
+        assert torch.equal(got, want) and want.sum() > 0
+
+
+def test_count_keys_segments_are_region_major():
+    """segments(): region-major order over the senders' runs, each
+    segment's keys where its sender's run holds them."""
+    runs = torch.tensor([[2, 0, 3, 1], [1, 4, 0, 2]], dtype=torch.int64)
+    seg_v, seg_p = dc.segments(13, runs, CPU)
+    # (region, sender): (0,0) 2 (0,1) 1 (1,0) 0 (1,1) 4 (2,0) 3 (2,1) 0 (3,0) 1 (3,1) 2
+    assert seg_v.tolist() == [0, 2, 3, 3, 7, 10, 10, 11, 13]
+    assert seg_p.tolist() == [0, 6, 2, 7, 2, 11, 5, 11]
+    for keys in (torch.zeros(12, dtype=torch.int64), torch.zeros(13, dtype=torch.int64)):
+        with pytest.raises(ValueError, match="runs"):
+            dc.count_keys(keys, 31, dc.make_table(torch.zeros(0, dtype=torch.int64), 31),
+                          torch.zeros(0, dtype=torch.int32),
+                          runs if len(keys) == 12 else runs.reshape(-1))

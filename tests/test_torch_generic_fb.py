@@ -213,11 +213,75 @@ def test_routing_rule(monkeypatch, A_hi, segment, route, chunks):
     np.testing.assert_allclose(posts.numpy(), np.asarray(ref_p), rtol=1e-12, atol=1e-300)
 
 
+def _card(monkeypatch, total, free):
+    """A CUDA device whose properties say ``total`` bytes and whose
+    mem_get_info says ``free()`` (a call each time)."""
+    class Properties:
+        total_memory = total
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device=None: Properties)
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device=None: (free(), total))
+    return torch.device("cuda", 0)
+
+
 def test_pick_chunk_caps_at_segment(monkeypatch):
+    """The chunk is at most SEGMENT and N; on the CPU it is that alone,
+    on a card also CHUNK_MEMORY_SHARE of the card's total memory over
+    five [B, P, P] float32 columns."""
     monkeypatch.setattr(fb_generic, "SEGMENT", 100)
     cpu = torch.device("cpu")
     assert fb_generic.pick_chunk(1000, 8, 2, cpu) == 100
     assert fb_generic.pick_chunk(40, 8, 2, cpu) == 40
+    total = 80 << 30
+    card = _card(monkeypatch, total, lambda: total)
+    assert fb_generic.pick_chunk(1000, 8, 2, card) == 100
+    monkeypatch.setattr(fb_generic, "SEGMENT", 1 << 17)
+    per_col = 5 * 11 * 200 * 200 * 4
+    assert fb_generic.pick_chunk(20_000, 200, 11, card) == int(
+        total * fb_generic.CHUNK_MEMORY_SHARE) // per_col
+    assert fb_generic.pick_chunk(50, 200, 11, card) == 50
+
+
+def test_pick_chunk_follows_the_total_not_the_free_memory(monkeypatch):
+    """With mem_get_info saying anything from all of the card free to
+    almost none, the chunk stays the same; it follows the card's total
+    memory alone."""
+    rng = np.random.default_rng(0)
+    total = 80 << 30
+    card = _card(monkeypatch, total, lambda: int(rng.integers(1 << 20, total)))
+    chunks = {fb_generic.pick_chunk(20_000, 200, 11, card) for _ in range(50)}
+    assert len(chunks) == 1
+    half = _card(monkeypatch, total // 2, lambda: total // 2)
+    assert fb_generic.pick_chunk(20_000, 200, 11, half) == max(1, chunks.pop() // 2)
+
+
+def test_out_of_memory_halves_the_chunk(monkeypatch, capsys):
+    """A chunk that cannot be allocated (K3's plain version raising
+    torch.cuda.OutOfMemoryError past 6 columns) starts the walk over in
+    chunks of half as many columns, and a line names the chunk taken;
+    the result is the walk's in those chunks."""
+    from pangenie_tpu_torch.hmm import fb_kernels
+
+    cols = _torch_cols(_f64(_mixed_allele_columns(2, 40, 6, 4, A_hi=12, seed=3)), np.float64)
+    want_p, want_c = fb_generic.forward_backward_chunked(cols, chunk=5)
+    forward_e = fb_kernels.forward_e
+
+    def tight(E, *args, **kwargs):
+        if E.shape[1] > 6:
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory (forced)")
+        return forward_e(E, *args, **kwargs)
+
+    monkeypatch.setattr(fb_kernels, "forward_e", tight)
+    got_p, got_c = fb_generic.forward_backward_chunked(cols, chunk=20)
+    err = capsys.readouterr().err
+    assert "chunks of 20 columns did not fit the card: taking chunks of 10" in err
+    assert "taking chunks of 5" in err
+    assert fb_generic.last_walk == (2, 40, 8) and fb_generic.last_chunk == 5
+    assert torch.equal(got_p, want_p) and torch.equal(got_c, want_c)
+    monkeypatch.setattr(fb_kernels, "forward_e",
+                        lambda *a, **k: (_ for _ in ()).throw(torch.cuda.OutOfMemoryError()))
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        fb_generic.forward_backward_chunked(cols, chunk=2)
 
 
 def test_factor_trans_pins_first_column():

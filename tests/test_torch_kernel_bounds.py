@@ -59,11 +59,21 @@ from pangenie_tpu_torch.hmm import bounds, fb_generic, fb_kernels, sampling
     (bounds.d1_extract(48_000_000), 402_000_000, 0.1200000),
     (bounds.d1_count(48_000_000, 24_000_000, 400_000_000), 402_000_000, 0.1200000),
     # D1-count-keys: 20,000,000 routed keys (int64) 160,000,000 into a
-    # partition of 15,000,000 keys: table 120,000,000, counts in and out
-    # 120,000,000
-    (bounds.d1_count_keys(20_000_000, 15_000_000, 60_000_000), 400_000_000, 0.1194030),
+    # partition of 15,000,000 keys that they cover: table 120,000,000,
+    # counts in and out 120,000,000
+    (bounds.d1_count_keys(20_000_000, 15_000_000, 60_000_000, 18_000_000, 15_000_000),
+     400_000_000, 0.1194030),
+    # and 40,000,000 keys into a partition of 700,000,000, 37,000,000 of
+    # them distinct, 35,000,000 found: the keys 320,000,000, the table's
+    # entries they need 296,000,000, their counts 280,000,000
+    (bounds.d1_count_keys(40_000_000, 700_000_000, 90_000_000, 37_000_000, 35_000_000),
+     896_000_000, 0.2674627),
+    # D1-route: a block of 31,000,000 keys (int64) 248,000,000, of which
+    # 30,000,000 valid written binned 240,000,000, into 2 owners x 2^8
+    # regions: sizes (int64) 4,096
+    (bounds.d1_route(31_000_000, 30_000_000, 512), 488_004_096, 0.1456729),
 ], ids=["K1", "K2", "K3", "K4", "S1", "S1_chase", "K3_grid", "K4_grid", "V1", "D1_extract",
-        "D1_count", "D1_count_keys"])
+        "D1_count", "D1_count_keys", "D1_count_keys_sparse", "D1_route"])
 def test_bytes_and_bound_at_main_shapes(work, nbytes, ms):
     assert work.nbytes == nbytes
     got_ms, by = work.bound()
@@ -125,8 +135,9 @@ def test_d1_bytes_and_steps_match_the_plain_versions():
 
 def test_d1_count_keys_bytes_and_steps_match_the_plain_version():
     """D1-count-keys' byte count is the bytes of the keys, table keys and
-    counts (read and written) that its plain version takes; its search
-    steps are D1-count's for the same valid keys."""
+    counts (read and written) that its plain version takes where the
+    keys cover the table, and what they touch where they do not; its
+    search steps are D1-count's for the same valid keys."""
     from pangenie_tpu_torch.kmers import device_counter as dc
 
     rng = np.random.default_rng(4)
@@ -134,11 +145,47 @@ def test_d1_count_keys_bytes_and_steps_match_the_plain_version():
     table = dc.make_table(torch.unique(keys[::3]), 13)
     counts = torch.zeros(table.keys.shape, dtype=torch.int32)
     steps = dc.search_steps(table, keys)
-    work = bounds.d1_count_keys(len(keys), len(table.keys), steps)
+    dc.count_keys_plain(keys, table, counts)
+    distinct, found = len(torch.unique(keys)), int((counts > 0).sum())
+    assert distinct > len(table.keys) == found
+    work = bounds.d1_count_keys(len(keys), len(table.keys), steps, distinct, found)
     assert work.nbytes == _nbytes(keys, table.keys, counts, counts)
+    # queries that cover a tenth of a table need a tenth of it
+    few = keys[:100]
+    sparse = torch.zeros_like(counts)
+    dc.count_keys_plain(few, table, sparse)
+    touched = bounds.d1_count_keys(len(few), len(table.keys), dc.search_steps(table, few),
+                                   len(torch.unique(few)), int((sparse > 0).sum()))
+    assert touched.nbytes == 8 * 100 + 8 * len(torch.unique(few)) + 8 * int((sparse > 0).sum())
+    assert touched.nbytes < _nbytes(few, table.keys, counts, counts)
     reads = [_table_reads(table, key, dc.SCAN) for key in keys.tolist()]
     assert steps == sum(reads) > 0
     assert work.ops == bounds.D1_KEY_OPS * len(keys) + bounds.D1_SEARCH_OPS * steps
+
+
+def test_d1_route_bytes_match_the_plain_version():
+    """D1-route's byte count is the bytes of the keys its plain version
+    takes and of the binned keys and sizes it returns; its two passes
+    move the keys twice, the binned keys once and the CTAs' counts four
+    times (device_counter.route_ctas)."""
+    from pangenie_tpu_torch.kmers import device_counter as dc
+
+    rng = np.random.default_rng(5)
+    keys = torch.from_numpy(rng.integers(0, 4 ** 21, 5000, dtype=np.int64))
+    keys[::9] = dc.SENTINEL
+    binned, sizes = dc.route_plain(keys, 21, 4, 6)
+    work = bounds.d1_route(len(keys), len(binned), sizes.numel())
+    assert work.nbytes == _nbytes(keys, binned, sizes)
+    assert work.ops == bounds.D1_ROUTE_OPS * len(keys)
+    ctas = dc.route_ctas(len(keys), sizes.numel())
+    assert ctas == 5
+    assert bounds.d1_route_passes(len(keys), len(binned), 256, ctas) == (
+        2 * 8 * 5000 + 8 * len(binned) + 4 * 4 * 5 * 256 + 4 * 8 * 256)
+    # at the SV block's 31 M keys: two CTAs an SM past ROUTE_FRONTIER
+    # open lines, up to ROUTE_MAX_CTAS below it
+    assert dc.route_ctas(31_000_000, 4 << 12) == dc.ROUTE_MIN_CTAS == 264
+    assert dc.route_ctas(31_000_000, 2 << 6) == dc.ROUTE_FRONTIER // (2 << 6) == 1024
+    assert dc.route_ctas(31_000_000, 4) == dc.ROUTE_MAX_CTAS
 
 
 def test_generic_bytes_match_the_plain_versions_tensors():

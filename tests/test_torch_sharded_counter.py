@@ -85,19 +85,42 @@ def counter_rank(workdir):
 
     rank, world = dist.process_index(), dist.process_count()
     out = {"rank": rank}
-    # the owners of a given table computed in many chunks
+    # the owners of a given table computed in many chunks; regions at
+    # these small tables' sizes (2-4 bits for 200,000 keys)
     dc.OWNER_CHUNK = 5000
+    dc.REGION_SHIFT = 14
 
     # the batch counter, with and without N's, in batches of 128 reads
-    # whose rows split over the ranks
+    # whose rows split over the ranks; with N's, each step's bins as
+    # D1-route's wrapper gave them and route_plain gives them, and the
+    # runs and keys the exchange brought here
     genome, keys = _genome_and_keys(31, 200_000)
+    steps = []
+    route, exchange = dc.route, dist.all_to_all_bins
+
+    def route_kept(block, k, n_ranks, r, **kw):
+        binned, sizes = route(block, k, n_ranks, r, **kw)
+        plain = dc.route_plain(block, k, n_ranks, r)
+        steps.append({"sent": sizes.numpy().copy(), "plain": plain[1].numpy().copy(),
+                      "same_keys": bool(torch.equal(binned, plain[0])), "r": r})
+        return binned, sizes
+
+    def exchange_kept(send, bin_sizes):
+        received, runs = exchange(send, bin_sizes)
+        steps[-1].update(runs=runs.numpy().copy(), received=received.numpy().copy())
+        return received, runs
+
     for with_ns in (False, True):
         reads = _reads(genome, 600, 150, with_ns=with_ns)
         counter = dc.ShardedPrimedDeviceCounter(31, keys, device="cpu")
+        if with_ns:
+            dc.route, dist.all_to_all_bins = route_kept, exchange_kept
         for b in range(0, len(reads), 128):
             counter.update_batch(reads[b:b + 128][rank::world])
+        dc.route, dist.all_to_all_bins = route, exchange
         out[f"batch_{with_ns}"] = counter.to_host_arrays()
         out["partition"] = (counter.table.keys.numpy().view(np.uint64), counter._per_dev)
+    out["route_steps"] = steps
 
     # the stream driver: this rank's reads of variable length, in blocks
     # of a few hundred bases
@@ -204,6 +227,42 @@ def test_sharded_matches_reference_and_host(ranks, world, with_ns):
         got_keys, got = r[f"batch_{with_ns}"]
         np.testing.assert_array_equal(got_keys, ref_keys)
         np.testing.assert_array_equal(got, ref_counts)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_route_sizes_sent_and_received(ranks, world, monkeypatch):
+    """Each ingest step's per-bin sizes sent are route_plain's on the
+    same keys (and so are the binned keys); what each rank receives from
+    each sender is that sender's row of bins for it, region by region,
+    and every key received in a region's run is of this owner and
+    region."""
+    from pangenie_tpu_torch.kmers import device_counter as dc
+    import torch
+
+    _, keys = _genome_and_keys(31, 200_000)
+    monkeypatch.setattr(dc, "REGION_SHIFT", 14)   # as the ranks took it
+    by_rank = {r["rank"]: r["route_steps"] for r in ranks[world]}
+    n_steps = len(by_rank[0])
+    assert n_steps == 5 and all(len(s) == n_steps for s in by_rank.values())
+    for i in range(n_steps):
+        for t in range(world):
+            step = by_rank[t][i]
+            r = step["r"]
+            assert r == dc.region_bits(len(keys) // world, world, 31) > 0
+            assert step["same_keys"]
+            np.testing.assert_array_equal(step["sent"], step["plain"])
+            assert step["sent"].shape == (world, 1 << r)
+            want_runs = np.stack([by_rank[s][i]["sent"][t] for s in range(world)])
+            np.testing.assert_array_equal(step["runs"], want_runs)
+            received = torch.from_numpy(step["received"])
+            assert len(received) == want_runs.sum() > 0
+            bins = dc.route_bins(received, 31, world, r).numpy()
+            at = 0
+            for s in range(world):
+                for g in range(1 << r):
+                    n = int(step["runs"][s, g])
+                    assert (bins[at:at + n] == (t << r) | g).all()
+                    at += n
 
 
 @pytest.mark.parametrize("world", WORLDS)

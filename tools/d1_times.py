@@ -2,6 +2,8 @@
 
     python3 tools/d1_times.py [--panels sv,bench] [--threads 2] [--no-routes]
                               [--root DIR] [--sweep] [--reps 5]
+    python3 tools/d1_times.py --keys [--root DIR] [--seed 7] [--human-keys 700000000]
+                              [--queries 40000000] [--reps 5]
 
 Simulates (or reuses) chip_smoke.py's SV panel (20 Mb, 89 paths, one
 chromosome) and bench workload (20 Mb, 2 chromosomes, 123 paths), both
@@ -44,6 +46,27 @@ and, at the rule's d, built with D1_SCAN = 8 and 16 beside the default
 4, each with its table reads (``device_counter.search_steps`` at the
 library's ``pg_d1_scan``). Every source is built with nvcc at once, one
 process a source.
+
+``--keys`` times the partitioned counter's two kernels instead:
+D1-route on the SV block's keys (chip_smoke.check_count_keys's: the
+first D1_SLICE_READS SV reads as one block, SENTINEL among the keys)
+into 2 and 4 owners beside the torch route it replaced, and
+D1-count-keys on owner 0's keys into its partition of the SV table; and
+both at a synthetic partition of a human graph's size, one rank's of
+four: ``--human-keys`` sorted unique 62-bit keys (cumulative sums of
+random gaps, made on the card from ``--seed``) with a directory of 29
+bits, and ``--queries`` keys (90% drawn from the table, 10% random) as
+the rank receives them from four senders, each sender's run in region
+order. At each partition it sweeps the region bits (SWEEP_REGIONS) and
+the keys a thread (builds with -DD1_KPT= each of SWEEP_KPT) and
+D1-route's CTAs (SWEEP_ROUTE_CTAS beside ``device_counter.route_ctas``'s),
+and times D1-route's ROUTE_ABLATIONS (textual cuts) beside it; every
+count held equal to count_keys_plain's and every route to
+route_plain's; with ``--root DIR`` also DIR's D1-count-keys in turns
+with this tree's (other, this, this, other), on the keys in the order
+DIR's route sent them (by owner, each owner's in arrival order) and in
+region order. It needs build/smoke_inputs/ as chip_smoke.py leaves them
+(else it simulates the SV panel, about 4 min).
 
 Prints one JSON line a workload with the card's name and power limit.
 Exits non-zero where a check fails, and without a GPU.
@@ -133,12 +156,11 @@ COUNT_ARGS_FIXED_DIRECTORY = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlon
                               ctypes.c_void_p]
 
 
-def build_libraries(out_dir: str, variants: dict) -> dict:
+def compile_variants(out_dir: str, variants: dict) -> dict:
     """Each variant {name: (source text, [-D defines])} built with nvcc
-    at once, one process a source; {name: (pg_d1_extract, pg_d1_count,
-    its D1_SCAN, or None where D1-count takes no key count)}."""
+    at once, one process a source, its ptxas report printed; {name:
+    (ctypes.CDLL, source text)}."""
     from pangenie_tpu_torch import _build
-    from pangenie_tpu_torch.kmers import device_counter as dc
 
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
@@ -147,20 +169,33 @@ def build_libraries(out_dir: str, variants: dict) -> dict:
         with open(src, "w") as f:
             f.write(text)
         lib = os.path.join(out_dir, f"libkmer_count_{name}.so")
-        procs[name] = (lib, "int n_keys" in text, subprocess.Popen(
+        procs[name] = (lib, text, subprocess.Popen(
             [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
              *(f"-D{d}" for d in defines), "-o", lib, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    fns = {}
-    for name, (lib, sized, proc) in procs.items():
-        out, _ = proc.communicate()
+    out = {}
+    for name, (lib, text, proc) in procs.items():
+        log, _ = proc.communicate()
         if proc.returncode:
-            raise RuntimeError(f"building the {name} variant failed:\n{out}")
-        report = [line.split("ptxas info    : ")[-1].strip() for line in out.splitlines()
+            raise RuntimeError(f"building the {name} variant failed:\n{log}")
+        report = [line.split("ptxas info    : ")[-1].strip() for line in log.splitlines()
                   if "registers" in line or "spill" in line]
         print(json.dumps({"built": name, "ptxas": report}), flush=True)
-        cdll = ctypes.CDLL(lib)
+        out[name] = (ctypes.CDLL(lib), text)
+    return out
+
+
+def build_libraries(out_dir: str, variants: dict) -> dict:
+    """Each variant {name: (source text, [-D defines])} built with nvcc
+    at once (:func:`compile_variants`); {name: (pg_d1_extract,
+    pg_d1_count, its D1_SCAN, or None where D1-count takes no key
+    count)}."""
+    from pangenie_tpu_torch.kmers import device_counter as dc
+
+    fns = {}
+    for name, (cdll, text) in compile_variants(out_dir, variants).items():
+        sized = "int n_keys" in text
         extract, count = cdll.pg_d1_extract, cdll.pg_d1_count
         extract.argtypes = dc.D1_EXTRACT._argtypes
         count.argtypes = dc.D1_COUNT._argtypes if sized else COUNT_ARGS_FIXED_DIRECTORY
@@ -296,6 +331,244 @@ def sweep(inputs, reps: int) -> dict:
     return out
 
 
+SWEEP_REGIONS = (0, 4, 6, 8, 10, 12)
+SWEEP_KPT = (1, 2, 4, 8)
+SWEEP_ROUTE_CTAS = (132, 264, 528, 1056, 2048)
+# textual cuts of this tree's D1-route, timed beside it (their outputs
+# are wrong by design): no scatter pass (what pass 1, the scan and the
+# starts cost), and the scatter's stores at each key's own position (what
+# the stores' scatter costs)
+ROUTE_ABLATIONS = {
+    "route_without_scatter": (
+        """    if (!code)
+        code = launch(d1_route_scatter_kernel, ctas, D1R_THREADS, bin_bytes, stream, keys, m, k,
+                      n_ranks, r, ctas, hist, starts, out);
+""", ""),
+    "route_stores_in_place": (
+        "out[at + __popc(peers[j] & below)] = key[j];",
+        "out[tile + (warp * D1R_ITEMS + j) * 32 + lane] = key[j];"),
+}
+# the arguments of a D1-count-keys that takes no segments (its keys in
+# any order, one thread a key; --root only)
+COUNT_KEYS_ARGS_FLAT = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+                        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                        ctypes.c_void_p]
+
+
+def keys_libraries(root) -> dict:
+    """This tree's kmer_count.cu built with each of SWEEP_KPT, its
+    ROUTE_ABLATIONS, and ``root``'s where given, all at once: {name:
+    (pg_d1_count_keys, takes segments)}, and for the cuts {name:
+    (pg_d1_route, None)}."""
+    from pangenie_tpu_torch import _build
+    from pangenie_tpu_torch.kmers import device_counter as dc
+
+    with open(os.path.join(_build.CUDA_SRC_DIR, "kmer_count.cu")) as f:
+        this = f.read()
+    variants = {f"kpt{n}": (this, [f"D1_KPT={n}"]) for n in SWEEP_KPT}
+    for name, (cut, paste) in ROUTE_ABLATIONS.items():
+        if this.count(cut) != 1:
+            raise RuntimeError(f"the {name} cut no longer matches csrc/kmer_count.cu")
+        variants[name] = (this.replace(cut, paste), [])
+    if root:
+        with open(os.path.join(os.path.abspath(root), "pangenie_tpu_torch", "csrc",
+                               "kmer_count.cu")) as f:
+            variants["other"] = (f.read(), [])
+    fns = {}
+    for name, (lib, text) in compile_variants(
+            os.path.join(ROOT, "build", "tools", "d1_keys"), variants).items():
+        if name in ROUTE_ABLATIONS:
+            route = lib.pg_d1_route
+            route.argtypes, route.restype = dc.D1_ROUTE._argtypes, ctypes.c_int
+            fns[name] = (route, None)
+            continue
+        segmented = "seg_v" in text
+        count_keys = lib.pg_d1_count_keys
+        count_keys.argtypes = dc.D1_COUNT_KEYS._argtypes if segmented else COUNT_KEYS_ARGS_FLAT
+        count_keys.restype = ctypes.c_int
+        fns[name] = (count_keys, segmented)
+    return fns
+
+
+def received_runs(keys, k: int, n_ranks: int, r: int, senders: int, owner: int):
+    """What ``owner`` receives when ``senders`` ranks each route a slice
+    of ``keys`` with D1-route: (keys, runs [senders, 2^r])."""
+    import torch
+
+    from pangenie_tpu_torch.kmers import device_counter as dc
+
+    parts, runs = [], []
+    for chunk in torch.tensor_split(keys, senders):
+        binned, sizes = dc.route(chunk.contiguous(), k, n_ranks, r)
+        flat = sizes.reshape(-1)
+        start = int(flat[:owner << r].sum())
+        parts.append(binned[start:start + int(sizes[owner].sum())])
+        runs.append(sizes[owner])
+    return torch.cat(parts), torch.stack(runs)
+
+
+def time_partition(fns: dict, name: str, keys_in_order, arrival, k: int, table_keys,
+                   n_ranks: int, senders: int, reps: int) -> dict:
+    """At one partition: D1-route of ``keys_in_order`` (a block's keys,
+    sliced among ``senders``) at each of SWEEP_REGIONS held equal to
+    route_plain and timed; owner 0's keys counted by every library at
+    each r, held equal to count_keys_plain and timed; the other tree's
+    (``fns['other']``) also on ``arrival`` (owner 0's keys as its route
+    sent them), in turns."""
+    import torch
+
+    import chip_smoke
+    from pangenie_tpu_torch.hmm import bounds
+    from pangenie_tpu_torch.kmers import device_counter as dc
+
+    dev = keys_in_order.device
+    table = dc.make_table(table_keys, k)
+    want = torch.zeros(len(table_keys), dtype=torch.int32, device=dev)
+    dc.count_keys_plain(arrival, table, want)
+    counts = torch.zeros_like(want)
+    this = [n for n in fns if n != "other" and n not in ROUTE_ABLATIONS]
+    rec = {"partition": f"n={len(table_keys)} keys, d={table.bits}, m={len(arrival)} keys "
+                        f"of owner 0 of {n_ranks} from {senders} senders", "route": {},
+           "count_keys": {}, "count_keys_bound_ms": None}
+    steps = dc.search_steps(table, arrival)
+    rec["count_keys_bound_ms"], rec["count_keys_bound_by"] = bounds.d1_count_keys(
+        len(arrival), len(table_keys), steps, len(torch.unique(arrival)),
+        int((want > 0).sum())).bound()
+
+    def held(launch, what):
+        counts.zero_()
+        launch()
+        torch.cuda.synchronize()
+        if not torch.equal(counts, want):
+            raise AssertionError(f"{name}: {what} counts differ from count_keys_plain's")
+        return chip_smoke.cuda_ms(launch, reps)
+
+    for r in SWEEP_REGIONS:
+        if (n_ranks << r) > dc.ROUTE_MAX_BINS:
+            continue
+        chunk = torch.tensor_split(keys_in_order, senders)[0].contiguous()
+        got, sizes = dc.route(chunk, k, n_ranks, r)
+        plain = dc.route_plain(chunk, k, n_ranks, r)
+        if not (torch.equal(got, plain[0]) and torch.equal(sizes, plain[1])):
+            raise AssertionError(f"{name}: D1-route at r={r} differs from route_plain")
+        rec["route"][f"r{r}"] = {
+            "ms": chip_smoke.cuda_ms(chip_smoke.route_launcher(chunk, k, n_ranks, r), reps),
+            "ctas": dc.route_ctas(len(chunk), sizes.numel()),
+            "by_ctas": {c: chip_smoke.cuda_ms(chip_smoke.route_launcher(
+                chunk, k, n_ranks, r, ctas=c), reps) for c in SWEEP_ROUTE_CTAS},
+            **{name: chip_smoke.cuda_ms(chip_smoke.route_launcher(
+                chunk, k, n_ranks, r, fn=fns[name][0]), reps) for name in ROUTE_ABLATIONS},
+            "m": len(chunk), "bound_ms": bounds.d1_route(len(chunk), len(got),
+                                                         sizes.numel()).bound()[0]}
+        received, runs = received_runs(keys_in_order, k, n_ranks, r, senders, 0)
+        if len(received) != len(arrival):
+            raise AssertionError(f"{name}: owner 0 received {len(received)} keys at r={r}")
+        for lib in this:
+            fn = fns[lib][0]
+            rec["count_keys"][f"{lib}_r{r}"] = held(chip_smoke.count_keys_launcher(
+                fn, True, received, k, table, counts, runs), f"{lib} at r={r}")
+        if "other" in fns:
+            lib = f"kpt{dc.D1_COUNT_KEYS.lib().pg_d1_kpt()}"
+            fn = fns[lib][0]
+            other = fns["other"][0]
+            turns = []
+            for which in ("other", "this", "this", "other"):
+                launch = (chip_smoke.count_keys_launcher(other, False, received, k, table,
+                                                         counts, None)
+                          if which == "other" else
+                          chip_smoke.count_keys_launcher(fn, True, received, k, table, counts,
+                                                         runs))
+                turns.append({"tree": which, "ms": held(launch, f"{which} at r={r}")})
+            rec["count_keys"][f"turns_r{r}_region_order"] = turns
+    if "other" in fns:
+        other = fns["other"][0]
+        rec["count_keys"]["other_arrival_order"] = held(chip_smoke.count_keys_launcher(
+            other, False, arrival, k, table, counts, None), "the other tree's, arrival order")
+        rec["count_keys"]["this_arrival_order"] = held(chip_smoke.count_keys_launcher(
+            fns[f"kpt{dc.D1_COUNT_KEYS.lib().pg_d1_kpt()}"][0], True, arrival, k, table,
+            counts, None), "this tree's, arrival order")
+    return rec
+
+
+def sv_partitions(fns: dict, reps: int) -> dict:
+    """check_count_keys's partitions: the SV block into 2 and 4 owners,
+    owner 0's partition of the SV table; the torch route timed beside
+    D1-route."""
+    import torch
+
+    import chip_smoke
+    from pangenie_tpu_torch import commands
+    from pangenie_tpu_torch.kmers import device_counter as dc
+
+    casedir, _ = chip_smoke.timed_inputs(chip_smoke.SV_PANEL)
+    prefix = os.path.join(casedir, "index")
+    segments = prefix + "_path_segments.fasta"
+    if not os.path.exists(segments):
+        commands.run_index_command(os.path.join(casedir, "ref.fa"),
+                                   os.path.join(casedir, "panel.vcf"), 31, prefix,
+                                   nr_jellyfish_threads=2)
+    dev = torch.device("cuda", 0)
+    words, vwords, n_bases, table_keys, _ = d1_inputs(os.path.join(casedir, "reads.fa"),
+                                                      segments, None, dev)
+    block = dc.extract(words, vwords, n_bases, 31)
+    valid = block[block != dc.SENTINEL]
+    out = {}
+    for parts in (2, 4):
+        by_owner, sizes = chip_smoke.torch_route(valid, parts)
+        arrival = by_owner[:int(sizes[0])].contiguous()
+        owner_t = dc.owner_of(table_keys, parts)
+        rec = time_partition(fns, f"SV into {parts}", block, arrival, 31,
+                             table_keys[owner_t == 0].contiguous(), parts, 1, reps)
+        rec["torch_route_ms"] = chip_smoke.cuda_ms(lambda: chip_smoke.torch_route(valid, parts),
+                                                   reps)
+        rec["block"] = f"m={len(block)} keys, {len(valid)} k-mers"
+        out[parts] = rec
+        print(json.dumps({f"sv_{parts}": rec}), flush=True)
+    return out
+
+
+def human_partition(fns: dict, seed: int, n_keys: int, n_queries: int, reps: int,
+                    dev=None) -> dict:
+    """The synthetic partition of one rank of four at a human graph's
+    size (see the module's doc), its queries from four senders, made on
+    ``dev`` (default the card)."""
+    import torch
+
+    dev = dev or torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gap = int(1.9 * (1 << 62) / n_keys)
+    table_keys = torch.randint(1, gap + 1, (n_keys,), generator=g, device=dev,
+                               dtype=torch.int64).cumsum_(0)
+    if int(table_keys[-1]) >= 1 << 62:
+        raise AssertionError("the synthetic table runs past 62 bits")
+    hits = int(0.9 * n_queries)
+    queries = torch.cat([
+        table_keys[torch.randint(0, n_keys, (hits,), generator=g, device=dev)],
+        torch.randint(0, 1 << 62, (n_queries - hits,), generator=g, device=dev,
+                      dtype=torch.int64)])
+    queries = queries[torch.randperm(n_queries, generator=g, device=dev)].contiguous()
+    rec = time_partition(fns, "the synthetic partition", queries, queries, 31, table_keys,
+                         1, 4, reps)
+    rec["made"] = (f"seed {seed}: {n_keys} keys, cumulative sums of gaps uniform in "
+                   f"[1, {gap}]; {n_queries} queries, {hits} drawn from the table")
+    print(json.dumps({"human": rec}), flush=True)
+    return rec
+
+
+def keys_mode(args) -> int:
+    import torch
+
+    import chip_smoke
+
+    gpu = chip_smoke.gpu_line()
+    fns = keys_libraries(args.root)
+    record = {"mode": "keys", "gpu": gpu, "sv": sv_partitions(fns, args.reps)}
+    torch.cuda.empty_cache()
+    record["human"] = human_partition(fns, args.seed, args.human_keys, args.queries, args.reps)
+    print(json.dumps(record), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--panels", default="sv,bench")
@@ -304,6 +577,11 @@ def main() -> int:
     ap.add_argument("--root", help="another checkout whose D1 is timed beside this one")
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--keys", action="store_true",
+                    help="time D1-route and D1-count-keys (see the module's doc)")
+    ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--human-keys", type=int, default=700_000_000)
+    ap.add_argument("--queries", type=int, default=40_000_000)
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
 
@@ -313,6 +591,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no GPU: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    if args.keys:
+        return keys_mode(args)
     import chip_smoke
     from pangenie_tpu_torch import commands
     from pangenie_tpu_torch.kmers import device_counter as dc
